@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the partitioned-communication reproduction.
+
+The package mirrors the JAX package ``repro`` module by module and
+imports nothing of it: ``core`` holds the simulator's main path (plan
+layer, topology, schedules, the four fabric engines), ``kernels`` the
+build of the hand-written CUDA kernels in ``csrc``, ``experiments`` the
+stencil sweep specs and the golden-baseline check, and
+``python -m repro_torch.sweep`` the command line.  Entry points run on
+the CUDA device unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,3 @@
+"""The simulator's main path: plan layer, rank topology, schedules and
+drivers, and the fabric engines (``vector``/``reference`` on the host,
+``torch`` and ``cuda`` on the device)."""
