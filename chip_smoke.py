@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
-drives the port's stencil main path on the card, phase by phase; every
-phase prints one line and any failure exits non-zero without a result:
+drives the port's two paths on the card -- the stencil simulator and
+model serving -- phase by phase; every phase prints one line and any
+failure exits non-zero without a result:
 
-  1. the card (``nvidia-smi`` name and power limit) and the kernel build;
+  1. the card (``nvidia-smi`` name and power limit) and the build of
+     both kernels, one ``nvcc`` each, started together;
   2. the fused fabric kernel against its plain PyTorch version
      (``fabric_scan_ref``) on the card, bitwise, in finish and arrivals
      mode at the 32768-rank ``weak_scaling_xxl`` shapes and on a random
@@ -22,7 +24,21 @@ phase prints one line and any failure exits non-zero without a result:
      NumPy engine;
   6. times at the XXL shapes: the kernel's per super-batch, the plain
      version's, the torch engine's, and the XXL smoke tier's wall time
-     with its host assembly; then the kernel table as one JSON line.
+     with its host assembly;
+  7. the flash-attention kernel against its plain version
+     (``flash_attention_plain``) on the card, f32 and bf16, at the
+     llama3.2-1b prefill shape, a gemma2 shape where the window bites,
+     ragged, decode-like, and head dims 16 and 128;
+  8. the serving path: llama3.2-1b at full width (random weights from
+     seed 0), the prefill/decode check in f32, then 4 prompts of 1024
+     tokens prefilled in bf16 into a 1056-position cache and 32 tokens
+     decoded greedily, with the flash kernel's launch count over that
+     run and the prefill's logits against the same prefill through
+     ``masked_attention``;
+  9. times at the llama prefill shape: the flash kernel, its plain
+     version and ``scaled_dot_product_attention`` (a yardstick only,
+     never on the port's path), the batch's prefill and decode per
+     token; then the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -31,6 +47,7 @@ nothing of the JAX package; it reads the baseline as data.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,9 +57,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BASELINE = ROOT / "BENCH_scenarios.json"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp64 vector rate.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp64 vector rate,
+# dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+BF16_TC_FLOPS = 989e12
+
+# Flash kernel vs its plain version: the reference's own tolerances
+# (tests/test_kernels.py), as rtol = atol.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Prefill logits through the flash kernel vs through masked_attention,
+# both bf16, max |dlogit|.  The two softmaxes round differently (the
+# kernel keeps P.V in f32, the model path casts probabilities to bf16
+# first) and the difference passes through 16 bf16 layers; the logits
+# are themselves bf16 products, whose ulp is 0.03 near the top logit of
+# about 4, so 0.25 allows eight ulps.
+SERVE_LOGIT_TOL = 0.25
 
 
 class SmokeFailure(Exception):
@@ -185,8 +215,267 @@ def _scan_ops(ops) -> int:
     return n
 
 
-def run(device_name: str = "cuda") -> dict:
-    """All phases on ``device_name``; returns the kernel table."""
+# (name, B, H, Hkv, Sq, Sk, D, causal, window, softcap)
+FLASH_CASES = (
+    ("llama-prefill", 4, 32, 8, 1024, 1024, 64, True, 0, None),
+    ("gemma-window", 1, 16, 8, 4608, 4608, 256, True, 4096, 50.0),
+    ("ragged", 1, 4, 2, 1000, 1000, 64, True, 0, None),
+    ("decode-like", 2, 4, 2, 1, 256, 64, False, 0, None),
+    ("d16", 1, 4, 2, 256, 256, 16, True, 0, None),
+    ("d128", 1, 4, 1, 256, 256, 128, True, 0, None),
+)
+# The same cases cut for a CPU rehearsal (``run("cpu", small=True)``).
+FLASH_CASES_SMALL = (
+    ("llama-prefill", 1, 4, 2, 128, 128, 64, True, 0, None),
+    ("gemma-window", 1, 2, 1, 160, 160, 256, True, 96, 50.0),
+    ("ragged", 1, 2, 1, 100, 100, 64, True, 0, None),
+    ("decode-like", 2, 4, 2, 1, 256, 64, False, 0, None),
+    ("d16", 1, 4, 2, 64, 64, 16, True, 0, None),
+    ("d128", 1, 4, 1, 64, 64, 128, True, 0, None),
+)
+
+
+def _flash_inputs(case, dtype, device, seed=0):
+    import torch
+    _, b, h, hkv, sq, sk, d, *_ = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                               (b, hkv, sk, d)))
+
+
+def _flash_kw(case) -> dict:
+    *_, causal, window, cap = case
+    return dict(causal=causal, window=window, softcap=cap)
+
+
+def _attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps: the work this input needs."""
+    import numpy as np
+    rows = np.arange(sq)
+    hi = np.minimum(rows + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(rows - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flash_bound(case, itemsize: int):
+    """Least time of one call: the larger of its tensor-core FLOPs
+    (QK^T and PV, 2 * 2 * D per kept pair) at the bf16 peak and q, k, v
+    and o read or written once at the HBM rate."""
+    _, b, h, hkv, sq, sk, d, causal, window, _ = case
+    flops = 4 * b * h * d * _attn_pairs(sq, sk, causal, window)
+    nbytes = itemsize * d * (2 * b * h * sq + 2 * b * hkv * sk)
+    t_ops, t_bytes = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def flash_phase(dev, small: bool = False) -> float:
+    """Phase 7: the flash kernel against its plain version on every case
+    in f32 and bf16.  Returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    errs = []
+    for case in FLASH_CASES_SMALL if small else FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(case, dtype, dev)
+            kw = _flash_kw(case)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"flash {case[0]}: shape or dtype differs")
+            check(bool(torch.isfinite(got).all()),
+                  f"flash {case[0]}: non-finite output")
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            g32, w32 = got.float(), want.float()
+            err = float((g32 - w32).abs().max())
+            ok = bool(((g32 - w32).abs() <= tol + tol * w32.abs()).all())
+            check(ok, f"flash {case[0]} {dtype}: max|diff| {err!r} beyond"
+                      f" rtol = atol = {tol}")
+            errs.append(err)
+            del q, k, v, got, want, g32, w32
+    print(f"flash kernel vs plain: {len(errs)} cases (f32 within"
+          f" {FLASH_TOL['float32']}, bf16 within {FLASH_TOL['bfloat16']}),"
+          f" max_abs_err={max(errs)!r}")
+    return max(errs)
+
+
+def serving_phase(dev, small: bool = False) -> dict:
+    """Phase 8: the serving path at full llama3.2-1b width (the smoke
+    config when ``small``).  Returns what phase 9 and the kernel table
+    need."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import StepConfig, make_cache
+    from repro_torch.models import lm
+
+    arch = "llama3.2-1b"
+    cfg = (get_smoke_config if small else get_config)(arch)
+    batch, prompt_len, gen = (4, 64, 8) if small else (4, 1024, 32)
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg, 0, dev)  # f32
+    n_matrix = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    check(n_matrix == cfg.param_count(),
+          f"parameters {n_matrix} != param_count {cfg.param_count()}")
+    err_cd = serve.check_consistency(
+        cfg, model, serve.make_prompts(cfg, 2, 64, 1, dev))
+    check(err_cd < serve.CONSISTENCY_TOL,
+          f"prefill/decode mismatch {err_cd!r} (f32)")
+    scfg = StepConfig()
+    model = model.to(torch.bfloat16)
+    scfg_cfg = cfg.replace(param_dtype=scfg.param_dtype)
+    prompts = serve.make_prompts(cfg, batch, prompt_len, 2, dev)
+    t_setup = time.perf_counter() - t0
+
+    fa.LAUNCHES["flash_attention"] = 0
+    out = serve.generate(cfg, scfg, model, prompts, gen)
+    launches = fa.LAUNCHES["flash_attention"]
+    check(launches == cfg.n_layers or dev.type != "cuda",
+          f"serving path launched the flash kernel {launches} times, not"
+          f" once per layer ({cfg.n_layers})")
+    logits = out["prefill_logits"]
+    toks = out["tokens"]
+    check(tuple(logits.shape) == (batch, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    check(tuple(toks.shape) == (batch, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, "generated tokens")
+
+    ref_logits, _ = lm.prefill(
+        scfg_cfg, model, {"tokens": prompts},
+        cache=make_cache(cfg, scfg, batch=batch, max_len=prompt_len + gen,
+                         device=dev), flash=False)
+    diff = float((logits - ref_logits).abs().max())
+    a_k, a_r = logits.argmax(-1), ref_logits.argmax(-1)
+    same = int((a_k == a_r).sum())
+    # a near-tie may flip the argmax: then the two tops must agree within
+    # the logit tolerance under the reference's own logits
+    gap = float((ref_logits.gather(1, a_r[:, None])
+                 - ref_logits.gather(1, a_k[:, None])).max())
+    print(f"serving llama3.2-1b{' smoke' if small else ''}: {n_matrix}"
+          f" matrix parameters == param_count; prefill/decode f32 max|d|"
+          f" {err_cd!r} (< {serve.CONSISTENCY_TOL}); bf16 prefill"
+          f" {batch}x{prompt_len} + {gen} decode steps, flash launches"
+          f" {launches}; flash vs masked_attention prefill max|dlogit|"
+          f" {diff!r} (tol {SERVE_LOGIT_TOL}), argmax equal {same}/{batch}"
+          f" (top gap {gap!r}); setup {t_setup:.3f} s")
+    check(diff <= SERVE_LOGIT_TOL,
+          f"prefill logits through flash and masked_attention differ by"
+          f" {diff!r}")
+    check(same == batch or gap <= SERVE_LOGIT_TOL,
+          "prefill argmax differs from masked_attention beyond a near-tie")
+    return {"cfg": cfg, "scfg": scfg, "model": model, "prompts": prompts,
+            "gen": gen, "launches": launches}
+
+
+def _device_split(fn, dev):
+    """(wall ms, device-busy ms, device events, top three by device
+    time) of one call of ``fn``, from ``torch.profiler``; busy is the sum
+    of the device time of every traced device event (kernels, copies,
+    fills: one stream, so none overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [(e.self_device_time_total / 1e3, e.key, e.count)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for t, _, _ in evs)
+    top = sorted(evs, reverse=True)[:3]
+    return wall, busy, sum(c for _, _, c in evs), top
+
+
+def _profile_serving(dev, serving: dict) -> None:
+    """Device-busy share of one prefill and of eight decode steps."""
+    from repro_torch.launch.steps import (make_cache, make_decode_step,
+                                          make_prefill_step)
+    cfg, scfg, model = serving["cfg"], serving["scfg"], serving["model"]
+    prompts = serving["prompts"]
+    b, s = prompts.shape
+    cache = make_cache(cfg, scfg, batch=b, max_len=s + 8, device=dev)
+    prefill = make_prefill_step(cfg, scfg, seq_len=s, batch=b, device=dev)
+    decode = make_decode_step(cfg, scfg, seq_len=s + 8, batch=b, device=dev)
+    tok = prompts[:, -1]
+
+    def steps8():
+        for t in range(s, s + 8):
+            decode(model, cache, tok, t)
+    for name, fn, n in (("prefill", lambda: prefill(model, prompts, cache),
+                         1), ("decode", steps8, 8)):
+        wall, busy, events, top = _device_split(fn, dev)
+        if busy <= 0.0:
+            print(f"profile {name}: no device time traced")
+            continue
+        tops = ", ".join(f"{k[:40]} {t / n:.3f} ms" for t, k, _ in top)
+        print(f"profile {name} (per call): wall {wall / n:.3f} ms, device"
+              f" busy {busy / n:.3f} ms, idle share {1 - busy / wall:.3f},"
+              f" {events / n:.1f} device events; top: {tops}")
+
+
+def serving_times(dev, serving: dict, small: bool = False) -> dict:
+    """Phase 9: times at the llama prefill shape and of the serving
+    path.  Returns the flash kernel's table entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import serve
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    case = (FLASH_CASES_SMALL if small else FLASH_CASES)[0]
+    q, k, v = _flash_inputs(case, torch.bfloat16, dev, seed=1)
+    kw = _flash_kw(case)
+    reps = 10 if dev.type == "cuda" else 3
+    ms = _timed(lambda: ops.flash_attention(q, k, v, **kw), dev, reps)
+    plain_ms = _timed(lambda: fa.flash_attention_plain(q, k, v, **kw), dev,
+                      max(5, reps // 2))
+    group = q.shape[1] // k.shape[1]
+    try:
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        sdpa()
+    except TypeError:  # a PyTorch without enable_gqa: expand outside
+        ke = k.repeat_interleave(group, dim=1)
+        ve = v.repeat_interleave(group, dim=1)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
+    lib_ms = _timed(sdpa, dev, reps)
+    bound_ms, bound_by, flops, nbytes = _flash_bound(case, 2)
+    runs = [serve.generate(serving["cfg"], serving["scfg"], serving["model"],
+                           serving["prompts"], serving["gen"])
+            for _ in range(3)]
+    prefill_ms = sorted(r["prefill_ms"] for r in runs)[1]
+    decode_ms = sorted(r["decode_ms_per_token"] for r in runs)[1]
+    b, s = serving["prompts"].shape
+    if dev.type == "cuda":
+        _profile_serving(dev, serving)
+    print(f"times llama prefill shape {case[1:7]} bf16 causal: flash kernel"
+          f" {ms:.4f} ms, flash_attention_plain {plain_ms:.4f} ms,"
+          f" scaled_dot_product_attention {lib_ms:.4f} ms, bound"
+          f" {bound_ms:.4f} ms ({bound_by}: {flops} FLOPs, {nbytes} bytes);"
+          f" serving {b}x{s} prefill {prefill_ms:.3f} ms, decode"
+          f" {decode_ms:.3f} ms per token (median of 3, host clock)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:124",
+            "launches": serving["launches"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def run(device_name: str = "cuda", small: bool = False) -> dict:
+    """All phases on ``device_name``; returns the kernel table.
+    ``small`` cuts the serving phases to the llama smoke config and
+    small flash cases, for a rehearsal on the CPU."""
     import numpy as np
     import torch
     from repro_torch.core import fabric_cuda as fc
@@ -216,11 +505,15 @@ def run(device_name: str = "cuda") -> dict:
         print(f"card: {smi}")
         t0 = time.perf_counter()
         paths = build.build()
-        regs = [ln.strip() for ln in
-                build.log_path("fabric_scan").read_text().splitlines()
-                if "registers" in ln]
         print(f"build: {', '.join(p.name for p in paths.values())} in"
-              f" {time.perf_counter() - t0:.3f} s; ptxas: {' | '.join(regs)}")
+              f" {time.perf_counter() - t0:.3f} s")
+        for name in paths:
+            log = build.log_path(name).read_text()
+            regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+            spills = sum(int(n) for n in
+                         re.findall(r"(\d+) bytes spill stores", log))
+            print(f"ptxas {name}: {len(regs)} kernels, registers {regs},"
+                  f" spill stores {spills} bytes")
 
     # 2. kernel vs plain version ----------------------------------------
     part_xxl = _smoke_point(xxl, "part")
@@ -345,13 +638,20 @@ def run(device_name: str = "cuda") -> dict:
     print(f"wall XXL smoke tier (cuda, cold): {wall:.3f} s; host point"
           f" assembly {t_prep:.3f} s, super-batch assembly and upload"
           f" {t_asm - t_prep:.3f} s")
-    return {"kernels": [{
+    fabric = {
         "name": "fabric_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/fabric_scan.cu",
         "replaces": "src/repro/core/fabric_pallas.py:434",
         "launches": launches, "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}
+        "library_ms": None}
+
+    # 7-9. the serving path and its flash kernel -------------------------
+    flash_err = flash_phase(dev, small)
+    serving = serving_phase(dev, small)
+    flash = serving_times(dev, serving, small)
+    flash["max_abs_err"] = flash_err
+    return {"kernels": [fabric, flash]}
 
 
 def main() -> int:

@@ -2,9 +2,11 @@
 
 The package mirrors the JAX package ``repro`` module by module and
 imports nothing of it: ``core`` holds the simulator's main path (plan
-layer, topology, schedules, the four fabric engines), ``kernels`` the
-build of the hand-written CUDA kernels in ``csrc``, ``experiments`` the
-stencil sweep specs and the golden-baseline check, and
-``python -m repro_torch.sweep`` the command line.  Entry points run on
-the CUDA device unless the caller passes ``device="cpu"``.
+layer, topology, schedules, the four fabric engines), ``experiments``
+the stencil sweep specs and the golden-baseline check, and
+``python -m repro_torch.sweep`` its command line; ``models``,
+``configs``, ``launch`` and ``python -m repro_torch.serve`` the model
+serving path; ``kernels`` the build, wrappers and plain versions of the
+hand-written CUDA kernels in ``csrc``.  Entry points run on the CUDA
+device unless the caller passes ``device="cpu"``.
 """

@@ -1,1 +1,3 @@
-"""Build and load the hand-written CUDA kernels of ``repro_torch/csrc``."""
+"""The hand-written CUDA kernels of ``repro_torch/csrc``: their build
+(``build``), their plain PyTorch oracles (``ref``), the flash-attention
+wrapper (``flash_attention``) and the public wrappers (``ops``)."""

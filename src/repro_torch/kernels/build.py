@@ -23,10 +23,12 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-# The kernels on the port's path, one source each.
-KERNELS = ("fabric_scan",)
+# The kernels on the port's paths, one source each.
+KERNELS = ("fabric_scan", "flash_attention")
 
-# sm_90a (Hopper), exact IEEE float64: no fast-math, no FMA contraction.
+# sm_90a (Hopper), exact IEEE arithmetic: no fast-math, no FMA
+# contraction (the fabric kernel's float64 results are bitwise; the
+# flash kernel shares the flags).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,358 @@
+"""Language model: config, init, forward, prefill and decode.
+
+The port's counterpart of the JAX package's ``models/lm.py``.  One
+``ModelConfig`` (field for field the reference's, with copies of
+``MoEConfig``, ``MambaConfig`` and ``MLAConfig``) describes every
+architecture; the port runs the dense-GQA ones (llama, gemma, qwen).
+Parameters live in an :class:`LM` module whose per-layer blocks sit in an
+``nn.ModuleList`` instead of the stacked L axis; their shapes and names
+are the JAX package's, so weights carry over by a copy
+(``models/convert.py``).  The decode cache is a dict of preallocated
+``(L, B, S_max, n_kv, head_dim)`` tensors, written in place.
+``loss_fn`` waits for the training slice (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.fabric_torch import resolve_device
+from .attention import head_to_kv_map, init_attention
+from .blocks import Block, block_fwd
+from .layers import dense_init, embed_init, rms_norm, softcap
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora: int = 768
+    kv_lora: int = 256
+    qk_nope: int = 64
+    qk_rope: int = 32
+    v_dim: int = 64
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden size
+    n_experts_padded: int = 0     # 0 -> equal to n_experts
+    capacity_factor: float = 1.25
+    min_capacity: int = 4
+    dispatch_chunk: int = 4096    # tokens routed per scan step
+
+    @property
+    def e_pad(self) -> int:
+        return self.n_experts_padded or self.n_experts
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    n_groups: int = 1
+    d_conv: int = 4
+    expand: int = 2
+    chunk: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        di = self.d_inner(d_model)
+        if di % self.head_dim != 0:
+            raise ValueError(f"d_inner {di} is not a multiple of head_dim"
+                             f" {self.head_dim}")
+        return di // self.head_dim
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    vocab: int
+    n_heads: int = 0            # 0 for attention-free archs
+    n_kv: int = 0
+    d_ff: int = 0               # dense FFN hidden; 0 = no FFN (mamba2)
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    mixer: str = "attn"         # attn | mamba | hybrid
+    qkv_bias: bool = False
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    rope_theta: float = 1e4
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    # per-layer windows: "global" | "gemma_alt" | "hymba"
+    window_pattern: str = "global"
+    window_size: int = 0
+    post_norm: bool = False
+    tie_embeddings: bool = False
+    zero_centered_norm: bool = False
+    emb_scale: bool = False     # gemma: embeddings scaled by sqrt(d_model)
+    frontend: str = "tokens"    # tokens | audio_stub | vision_stub
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    q_scale: Optional[float] = None
+    q_chunk: int = 512
+    loss_chunk: int = 512
+    tp_pad: int = 1             # pad heads/experts to a multiple of this
+    param_dtype: str = "float32"
+
+    # ---- derived ----
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def n_heads_padded(self) -> int:
+        if self.n_heads == 0:
+            return 0
+        return -(-self.n_heads // self.tp_pad) * self.tp_pad
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up for TP sharding; padded logits are masked to
+        -inf so semantics match the logical vocab exactly."""
+        return -(-self.vocab // self.tp_pad) * self.tp_pad
+
+    @property
+    def head_map(self) -> Tuple[int, ...]:
+        return head_to_kv_map(self.n_heads, self.n_kv, self.n_heads_padded)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def windows(self) -> Tuple[int, ...]:
+        L = self.n_layers
+        if self.window_pattern == "global":
+            return (0,) * L
+        if self.window_pattern == "gemma_alt":  # local on even layers
+            return tuple(self.window_size if i % 2 == 0 else 0
+                         for i in range(L))
+        if self.window_pattern == "hymba":  # global at first/middle/last
+            g = {0, L // 2, L - 1}
+            return tuple(0 if i in g else self.window_size for i in range(L))
+        raise ValueError(self.window_pattern)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # ---- parameter counting (logical, for MODEL_FLOPS) ----
+    def param_count(self, padded: bool = False) -> int:
+        nh = self.n_heads_padded if padded else self.n_heads
+        hd = self.head_dim_
+        d = self.d_model
+        vv = self.vocab_padded if padded else self.vocab
+        n = vv * d  # embed
+        if not self.tie_embeddings:
+            n += d * vv
+        per_layer = 0
+        if self.mixer in ("attn", "hybrid"):
+            if self.mla is not None:
+                m = self.mla
+                per_layer += (d * m.q_lora
+                              + m.q_lora * nh * (m.qk_nope + m.qk_rope)
+                              + d * m.kv_lora + m.kv_lora * nh * m.qk_nope
+                              + m.kv_lora * nh * m.v_dim + d * m.qk_rope
+                              + nh * m.v_dim * d)
+            else:
+                per_layer += (d * nh * hd + 2 * d * self.n_kv * hd
+                              + nh * hd * d)
+        if self.mixer in ("mamba", "hybrid"):
+            mc = self.mamba
+            di = mc.d_inner(d)
+            gn = mc.n_groups * mc.d_state
+            per_layer += 2 * d * di + 2 * d * gn + d * mc.n_heads(d) + di * d
+        if self.moe is not None:
+            e = self.moe.e_pad if padded else self.moe.n_experts
+            per_layer += d * e + e * 3 * d * self.moe.d_expert
+        elif self.d_ff > 0:
+            per_layer += 3 * d * self.d_ff
+        return n + self.n_layers * per_layer
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class LM(nn.Module):
+    """The parameters of a dense-GQA language model, allocated
+    uninitialised on ``device`` in ``dtype`` (default: the config's):
+    ``embed`` (V, d), ``final_norm`` (d,), ``head`` (d, V) unless tied,
+    and ``layers``, one :class:`Block` per layer.  Inference only: no
+    parameter requires a gradient."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype=None):
+        super().__init__()
+        dt = cfg.dtype if dtype is None else dtype
+        d, vp = cfg.d_model, cfg.vocab_padded
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                                requires_grad=False)
+        self.cfg = cfg
+        self.embed = p(vp, d)
+        self.final_norm = p(d)
+        if not cfg.tie_embeddings:
+            self.head = p(d, vp)
+        self.layers = nn.ModuleList(
+            Block(cfg, dtype=dt, device=device) for _ in range(cfg.n_layers))
+
+
+def _norm_init(cfg: ModelConfig, w: torch.Tensor) -> None:
+    """Unit norm scale, or zero where the norm uses ``1 + scale``."""
+    if cfg.zero_centered_norm:
+        w.zero_()
+    else:
+        w.fill_(1.0)
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                device="cuda") -> LM:
+    """A model of ``cfg`` on ``device``, its weights drawn from ``gen``
+    (a ``torch.Generator`` on the same device) in f32 and cast to the
+    parameter dtype, with the JAX package's initialisers: fan-in
+    truncated normals, ``1/sqrt(d)`` embeddings, unit (or zero-centred
+    zero) norms, zero biases, zeroed padding rows and head slots."""
+    dev = resolve_device(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"init_params: generator on {gen.device}, model"
+                         f" on {dev}")
+    model = LM(cfg, device=dev)
+    dt, d = cfg.dtype, cfg.d_model
+    model.embed.copy_(embed_init(gen, cfg.vocab_padded, d, dt))
+    model.embed[cfg.vocab:].zero_()
+    _norm_init(cfg, model.final_norm)
+    if not cfg.tie_embeddings:
+        model.head.copy_(dense_init(gen, d, (cfg.vocab_padded,), dt))
+        model.head[:, cfg.vocab:].zero_()
+    for lp in model.layers:
+        _norm_init(cfg, lp.ln1)
+        init_attention(lp.attn, gen, n_heads=cfg.n_heads)
+        if cfg.post_norm:
+            _norm_init(cfg, lp.ln1_post)
+        if cfg.d_ff > 0:
+            _norm_init(cfg, lp.ln2)
+            lp.mlp.w_gate.copy_(dense_init(gen, d, (cfg.d_ff,), dt))
+            lp.mlp.w_up.copy_(dense_init(gen, d, (cfg.d_ff,), dt))
+            lp.mlp.w_down.copy_(dense_init(gen, cfg.d_ff, (d,), dt))
+            if cfg.post_norm:
+                _norm_init(cfg, lp.ln2_post)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+               device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed attention cache {'k', 'v'}: (L, batch, max_len, n_kv,
+    head_dim) each, in ``dtype`` (default: the parameter dtype)."""
+    if cfg.mixer != "attn" or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: only attention caches are ported (ROADMAP queue"
+            f" 1, item 7)")
+    dt = cfg.dtype if dtype is None else dtype
+    if isinstance(dt, str):
+        dt = getattr(torch, dt)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim_)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# Forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(cfg: ModelConfig, params: LM, batch: Dict) -> torch.Tensor:
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet")
+    h = params.embed[batch["tokens"].long()]
+    if cfg.emb_scale:  # the scale is rounded to the parameter dtype first
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                             device=h.device)
+    return h
+
+
+def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int,
+               cache_pos: Optional[int], device) -> torch.Tensor:
+    if "positions" in batch or cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            "explicit and M-RoPE positions are not ported yet (ROADMAP"
+            " queue 1, item 7)")
+    if cache_pos is not None and s == 1:  # decode
+        return torch.full((b, 1), cache_pos, dtype=torch.int32,
+                          device=device)
+    return torch.arange(s, dtype=torch.int32, device=device)
+
+
+def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
+            cache: Optional[Dict[str, torch.Tensor]] = None,
+            cache_pos: Optional[int] = None, flash: bool = True
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Run the decoder stack: returns (hidden (B, S, D) after the final
+    norm, the cache written in place or None).  ``flash=False`` runs a
+    prefill's attention through ``masked_attention`` instead of the
+    flash kernel."""
+    h = _embed_inputs(cfg, params, batch)
+    b, s = h.shape[0], h.shape[1]
+    positions = _positions(cfg, batch, b, s, cache_pos, h.device)
+    for i, (lp, window) in enumerate(zip(params.layers, cfg.windows())):
+        layer_cache = None if cache is None else \
+            {"k": cache["k"][i], "v": cache["v"][i]}
+        h, _ = block_fwd(cfg, lp, h, positions=positions, window=window,
+                         cache=layer_cache, cache_pos=cache_pos, flash=flash)
+    h = rms_norm(h, params.final_norm, zero_centered=cfg.zero_centered_norm)
+    return h, cache
+
+
+def output_head(cfg: ModelConfig, params: LM) -> torch.Tensor:
+    return params.embed.T if cfg.tie_embeddings else params.head
+
+
+def _final_logits(cfg: ModelConfig, h_last: torch.Tensor,
+                  params: LM) -> torch.Tensor:
+    """Last-position logits in f32: the head's product in the parameter
+    dtype, then the softcap, then the TP-padding mask."""
+    logits = h_last @ output_head(cfg, params)
+    logits = softcap(logits.float(), cfg.final_softcap)
+    if cfg.vocab_padded > cfg.vocab:
+        logits[:, cfg.vocab:] = -torch.inf
+    return logits
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: LM, batch: Dict, *,
+            cache: Optional[Dict[str, torch.Tensor]] = None,
+            flash: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """Forward pass that fills a KV cache from position 0; returns
+    (last-token logits (B, V) f32, the cache)."""
+    b, s = batch["tokens"].shape[:2]
+    if cache is None:
+        cache = init_cache(cfg, b, s, device=batch["tokens"].device)
+    h, cache = forward(cfg, params, batch, cache=cache, cache_pos=0,
+                       flash=flash)
+    return _final_logits(cfg, h[:, -1, :], params), cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: LM, cache: Dict[str, torch.Tensor],
+                tokens: torch.Tensor, pos: int
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step: tokens (B,) int, ``pos`` the write offset.
+    Returns (logits (B, V) f32, the cache written in place)."""
+    h, cache = forward(cfg, params, {"tokens": tokens[:, None]},
+                       cache=cache, cache_pos=int(pos))
+    return _final_logits(cfg, h[:, -1, :], params), cache
