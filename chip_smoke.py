@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
-drives the port's two paths on the card -- the stencil simulator and
-model serving -- phase by phase; every phase prints one line and any
+drives the port's three paths on the card -- the stencil simulator,
+model serving and training -- phase by phase; every phase prints one line and any
 failure exits non-zero without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
-     both kernels, one ``nvcc`` each, started together;
+     every kernel source, one ``nvcc`` each, started together;
   2. the fused fabric kernel against its plain PyTorch version
      (``fabric_scan_ref``) on the card, bitwise, in finish and arrivals
      mode at the 32768-rank ``weak_scaling_xxl`` shapes and on a random
@@ -38,7 +38,28 @@ failure exits non-zero without a result:
   9. times at the llama prefill shape: the flash kernel, its plain
      version and ``scaled_dot_product_attention`` (a yardstick only,
      never on the port's path), the batch's prefill and decode per
-     token; then the kernel table as one JSON line.
+     token;
+ 10. the bucket pack/unpack and quant8 kernels, built in phase 1 with
+     the others (one ``nvcc`` per source, all four started together),
+     bound;
+ 11. pack and unpack against their plain versions, bitwise: every
+     f32/bf16 pair, sizes 1 to 129, scalar leaves, 300 leaves, a stacked
+     leaf of 16 segments, the 64 MiB bulk bucket, round trips;
+ 12. quantize and dequantize against their plain versions, bitwise: n =
+     1, 255, 256, 257 and 2^24 + 100, a zero block, magnitudes 1e-6 and
+     1e4, exact ties, round trips;
+ 13. the training path: llama3.2-1b at full width and depth in f32
+     (random weights from seed 0), 4 x 1024 tokens a step, through
+     ``make_train_step`` on a one-rank ``nccl`` group: partitioned for 6
+     steps, bulk and per_leaf for 2; the step-0 loss band, pack/unpack
+     launches per step equal to the plan's multi-leaf buckets, equal
+     step-0 losses and gradients across the modes, and the smoke config
+     trained on the CPU and on the card within the CPU tests'
+     tolerances;
+ 14. times: pack/unpack at the 64 MiB and 16 KiB buckets beside
+     ``torch.cat``, quantize/dequantize at 2^24 elements, each with its
+     bound, the train step and tokens/s per mode, peak memory and the
+     profile of one step; then the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -47,9 +68,11 @@ nothing of the JAX package; it reads the baseline as data.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -373,10 +396,11 @@ def serving_phase(dev, small: bool = False) -> dict:
 
 
 def _device_split(fn, dev):
-    """(wall ms, device-busy ms, device events, top three by device
-    time) of one call of ``fn``, from ``torch.profiler``; busy is the sum
-    of the device time of every traced device event (kernels, copies,
-    fills: one stream, so none overlap)."""
+    """(wall ms, device-busy ms, device events, every (device ms, name,
+    count) by device time, largest first) of one call of ``fn``, from
+    ``torch.profiler``; busy is the sum of the device time of every
+    traced device event (kernels, copies, fills: one stream, so none
+    overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
@@ -390,8 +414,7 @@ def _device_split(fn, dev):
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(t for t, _, _ in evs)
-    top = sorted(evs, reverse=True)[:3]
-    return wall, busy, sum(c for _, _, c in evs), top
+    return wall, busy, sum(c for _, _, c in evs), sorted(evs, reverse=True)
 
 
 def _profile_serving(dev, serving: dict) -> None:
@@ -415,7 +438,7 @@ def _profile_serving(dev, serving: dict) -> None:
         if busy <= 0.0:
             print(f"profile {name}: no device time traced")
             continue
-        tops = ", ".join(f"{k[:40]} {t / n:.3f} ms" for t, k, _ in top)
+        tops = ", ".join(f"{k[:40]} {t / n:.3f} ms" for t, k, _ in top[:3])
         print(f"profile {name} (per call): wall {wall / n:.3f} ms, device"
               f" busy {busy / n:.3f} ms, idle share {1 - busy / wall:.3f},"
               f" {events / n:.1f} device events; top: {tops}")
@@ -472,12 +495,465 @@ def serving_times(dev, serving: dict, small: bool = False) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
-def run(device_name: str = "cuda", small: bool = False) -> dict:
-    """All phases on ``device_name``; returns the kernel table.
-    ``small`` cuts the serving phases to the llama smoke config and
-    small flash cases, for a rehearsal on the CPU."""
+# ---------------------------------------------------------------------------
+# Phases 10-14: the training path and its kernels
+# ---------------------------------------------------------------------------
+
+# Training phase (13): the modes in the order they run, with their steps.
+TRAIN_MODES = (("partitioned", 6), ("bulk", 2), ("per_leaf", 2))
+TRAIN_AGGR = 1 << 20  # launch/train.py's default --aggr-bytes
+# Step-0 loss of llama3.2-1b at init: ln(128256) = 11.76 plus about 0.5
+# from tied-head logits of std ~1 (embeddings of std 1/sqrt(d) against
+# a unit-RMS final state).
+LOSS0_RANGE = (11.7, 12.8)
+# CPU against the card on the smoke config: the tolerances of the CPU
+# tests against JAX (tests/multidev_scripts/check_earlybird.py).
+TRAIN_GRAD_TOL = (2e-4, 2e-5)   # rtol, atol
+TRAIN_LOSS_RTOL = 1e-5
+
+
+def _bits(t):
+    """A view of ``t``'s bits, for bitwise comparison."""
+    import torch
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(view[t.dtype]) if t.dtype in view else t
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(_bits(a), _bits(b))
+
+
+def _seeded(shape, dtype, dev, seed, scale=1.0):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def _bucket_shapes(small: bool):
+    """(d_model, one layer's wk shape, layers) of the llama3.2-1b buckets
+    (cut for a CPU rehearsal)."""
+    return (256, (256, 2, 16), 4) if small else (2048, (2048, 8, 64), 16)
+
+
+def _bulk_bucket(dev, small: bool):
+    """The 64 MiB bulk-mode bucket [final_norm, layers.attn.wk] as its 17
+    segments, and the partitioned-mode [ln1, ln2] bucket (16 KiB)."""
+    import torch
+    d, wk, n_layers = _bucket_shapes(small)
+    bulk = [_seeded((d,), torch.float32, dev, 99)] + [
+        _seeded(wk, torch.float32, dev, 100 + i) for i in range(n_layers)]
+    ln = [_seeded((d,), torch.float32, dev, 1),
+          _seeded((d,), torch.float32, dev, 2)]
+    return bulk, ln
+
+
+def pack_phase(dev, small: bool = False) -> float:
+    """Phase 11: bucket pack/unpack against their plain versions, bit for
+    bit: every f32/bf16 pair at sizes 1, 13, 127, 128 and 129, scalar
+    leaves, 300 leaves of mixed dtype, a stacked leaf of 16 segments, the
+    64 MiB bulk bucket, the [ln1, ln2] bucket, and the round trip.
+    Returns the largest |difference| (0.0 when all are bitwise)."""
+    import torch
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.kernels import ops
+    F32, BF16 = torch.float32, torch.bfloat16
+    cases = []
+    for sd in (F32, BF16):
+        for bd in (F32, BF16):
+            cases.append((f"{str(sd)[6:]}->{str(bd)[6:]}",
+                          [_seeded((n,), sd, dev, n)
+                           for n in (1, 13, 127, 128, 129)], bd))
+    cases.append(("scalars", [_seeded((), F32, dev, i) for i in range(3)]
+                  + [_seeded((5,), BF16, dev, 9)], F32))
+    cases.append(("300 leaves", [
+        _seeded(((7 * i) % 131 + 1,), BF16 if i % 3 == 0 else F32, dev, i)
+        for i in range(300)], F32))
+    bulk, ln = _bulk_bucket(dev, small)
+    cases += [("stacked leaf, 16 segments", bulk[1:], F32),
+              ("bulk bucket", bulk, F32), ("[ln1, ln2]", ln, F32)]
+    err = 0.0
+    for name, segs, bd in cases:
+        flat = ops.bucket_pack(segs, bd)
+        want = bp.bucket_pack_plain(segs, bd)
+        outs = [torch.empty_like(s) for s in segs]
+        ops.bucket_unpack(flat, segs, out=outs)
+        fresh = ops.bucket_unpack(flat, segs)
+        back = bp.bucket_unpack_plain(want, segs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        check(_same_bits(flat, want),
+              f"pack {name}: kernel differs from bucket_pack_plain")
+        check(all(_same_bits(o, w) and _same_bits(f, w)
+                  for o, f, w in zip(outs, fresh, back)),
+              f"unpack {name}: kernel differs from bucket_unpack_plain")
+        if bd == F32:  # f32 holds every f32 and bf16 value: exact trip
+            check(all(_same_bits(o, s) for o, s in zip(outs, segs)),
+                  f"round trip {name} is not exact")
+        err = max(err, float((flat.float() - want.float()).abs().max()))
+    print(f"bucket pack/unpack vs plain: {len(cases)} cases bitwise equal"
+          f" (4 dtype pairs, scalars, 300 leaves, 16-segment stacked leaf,"
+          f" {sum(s.numel() for s in bulk) * 4} B bulk bucket, [ln1, ln2]),"
+          f" round trips exact, max_abs_err={err!r}")
+    return err
+
+
+def _quant_check(x, name):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant8 as q8
+    q, s = ops.quantize_blockwise(x)
+    y = ops.dequantize_blockwise(q, s)
+    qw, sw = q8.quantize_blockwise_plain(x)
+    yw = q8.dequantize_blockwise_plain(qw, sw)
+    if x.device.type == "cuda":
+        torch.cuda.synchronize()
+    check(_same_bits(q, qw), f"quant8 {name}: int8 values differ")
+    check(_same_bits(s, sw), f"quant8 {name}: scales differ")
+    check(_same_bits(y, yw), f"quant8 {name}: dequantized values differ")
+    bound = s.repeat_interleave(q8.BLOCK)[:x.numel()] * 0.5
+    check(bool(((y - x.float()).abs() <= bound * 1.001 + 1e-30).all()),
+          f"quant8 {name}: round trip beyond half a scale")
+    return q, s, float((y - yw).abs().max())
+
+
+def quant_phase(dev, small: bool = False) -> float:
+    """Phase 12: quantize/dequantize against their plain versions, bit for
+    bit in the values, the scales and the dequantized values: n = 1, 255,
+    256, 257 and 2^24 + 100 heavy-tailed normals, an all-zero block,
+    magnitudes 1e-6 and 1e4, exact k + 1/2 ties built from the scale, and
+    the round trip within half a scale.  Returns the largest
+    |difference|."""
+    import torch
+    big = (1 << 16) + 100 if small else (1 << 24) + 100
+    err = 0.0
+    for n in (1, 255, 256, 257, big):
+        x = _seeded((n,), torch.float32, dev, n) * \
+            torch.exp(_seeded((n,), torch.float32, dev, n + 1))
+        if n == big:
+            x[256:512] = 0.0  # an all-zero block
+        err = max(err, _quant_check(x, f"n={n}")[2])
+    for scale in (1e-6, 1e4):
+        err = max(err, _quant_check(
+            _seeded((4096 + 3,), torch.float32, dev, 5, scale),
+            f"magnitude {scale}")[2])
+    # max 127/64 -> scale 1/64 exactly; (k + 1/2) / 64 is a tie
+    k = torch.arange(-126, 126, dtype=torch.float32, device=dev)
+    tie = torch.cat([torch.tensor([127.0], device=dev), k + 0.5,
+                     torch.tensor([-3.0, 1.0, 2.0], device=dev)]) / 64.0
+    q, s, e = _quant_check(tie, "ties")
+    check(float(s[0]) == 1.0 / 64.0 and torch.equal(
+        q[1:253].long(), torch.round(k + 0.5).long()),
+        "quant8 ties: not rounded half to even")
+    err = max(err, e)
+    print(f"quant8 vs plain: n in (1, 255, 256, 257, {big}), zero block,"
+          f" magnitudes 1e-6 and 1e4, 252 exact ties: values, scales and"
+          f" dequantized values bitwise equal, round trips within half a"
+          f" scale, max_abs_err={err!r}")
+    return err
+
+
+def _expected_packs(model, mode: str, aggr: int) -> int:
+    """Multi-leaf buckets of one step's sync: the pack (and unpack)
+    launches the plan asks for."""
+    from repro_torch.core import bucketing
+    from repro_torch.models import lm
+
+    def multi(leaves, a):
+        plan = bucketing.make_plan([s for _, s in leaves], a)
+        return sum(len(b.leaf_ids) > 1 for b in plan.buckets)
+    leaves = lm.param_leaves(model.named_parameters())
+    if mode == "partitioned":
+        rest = [lf for lf in leaves if not lf[0].startswith("layers.")]
+        return multi(rest, aggr) + sum(
+            multi(lm.param_leaves(lp.named_parameters()), aggr)
+            for lp in model.layers)
+    return multi(leaves, 256 << 20 if mode == "bulk" else 0)
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def training_phase(dev, small: bool = False) -> dict:
+    """Phase 13: the training path, llama3.2-1b at full width and depth in
+    f32 (random weights from seed 0), 4 x 1024 tokens a step, through
+    ``make_train_step`` on the one-rank group: partitioned for 6 steps,
+    bulk and per_leaf for 2, each from the same weights and batches.
+    Checks the step-0 loss band, finite losses, pack/unpack launches per
+    step against the plan, and equal step-0 losses and synced gradients
+    across the modes; then the smoke config trained 3 steps on the CPU
+    and on the card.  Returns what phase 14 and the kernel table need."""
     import numpy as np
     import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.kernels import quant8 as q8
+    from repro_torch.launch import steps
+
+    arch = "llama3.2-1b"
+    cfg = (get_smoke_config if small else get_config)(arch).replace(
+        param_dtype="float32")
+    batch, seq = (4, 64) if small else (4, 1024)
+    stream = pipeline.for_model(cfg, seq, batch)
+    n_max = max(n for _, n in TRAIN_MODES)
+    batches = [steps.batch_to_device(stream.batch(i), dev)
+               for i in range(n_max + 1)]
+    on_card = dev.type == "cuda"
+    out = {"cfg": cfg, "tokens": batch * seq, "modes": {}}
+    grads0 = None
+    for k in bp.LAUNCHES:
+        bp.LAUNCHES[k] = 0
+    for k in q8.LAUNCHES:
+        q8.LAUNCHES[k] = 0
+    t_main = time.perf_counter()
+    for mode, n_steps in TRAIN_MODES:
+        scfg = steps.StepConfig(sync_mode=mode, aggr_bytes=TRAIN_AGGR,
+                                param_dtype="float32", warmup_steps=1,
+                                total_steps=n_max)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        state = steps.build_state(cfg, 0, dev, scfg.adam)
+        step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=batch,
+                                     device=dev)
+        want = _expected_packs(state["params"], mode, TRAIN_AGGR)
+        losses, times, packs = [], [], []
+        for i in range(n_steps):
+            before = dict(bp.LAUNCHES)
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state, batches[i])
+            losses.append(loss.item())
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            packs.append((bp.LAUNCHES["bucket_pack"] - before["bucket_pack"],
+                          bp.LAUNCHES["bucket_unpack"]
+                          - before["bucket_unpack"]))
+            if i == 0:  # step-0 synced gradients, kept on the host
+                g = {n: p.grad.cpu() for n, p in
+                     state["params"].named_parameters()}
+                if grads0 is None:
+                    grads0 = g
+                    loss0 = losses[0]
+                else:
+                    diff = [(n, float(((t - grads0[n]).abs()
+                                       / grads0[n].abs().clamp_min(1e-30))
+                                      .max()))
+                            for n, t in g.items()
+                            if not torch.equal(t, grads0[n])]
+                    out["modes"][mode] = {"grad_diff": diff}
+                    check(not diff or max(d for _, d in diff) <= 1e-6,
+                          f"{mode}: step-0 gradients differ from"
+                          f" partitioned beyond 1e-6 relative: {diff[:3]}")
+                    check(losses[0] == loss0,
+                          f"{mode}: step-0 loss {losses[0]!r} !="
+                          f" partitioned {loss0!r}")
+        check(all(np.isfinite(losses)), f"{mode}: non-finite loss {losses}")
+        if not small:
+            check(LOSS0_RANGE[0] <= losses[0] <= LOSS0_RANGE[1],
+                  f"{mode}: step-0 loss {losses[0]!r} outside {LOSS0_RANGE}")
+        check(not on_card or all(p == (want, want) for p in packs),
+              f"{mode}: pack/unpack launches per step {packs}, the plan"
+              f" has {want} multi-leaf buckets")
+        rec = out["modes"].setdefault(mode, {"grad_diff": []})
+        rec.update(losses=losses, times_ms=times, packs=packs,
+                   plan_multi=want, n_all_reduce=step.log.count(),
+                   peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                             if on_card else None))
+        if on_card:  # one more step, under the profiler
+            rec["profile"] = _device_split(
+                lambda: step(state, batches[n_steps]), dev)
+        del state, step
+        if on_card:
+            torch.cuda.empty_cache()
+    out["launches"] = {**bp.LAUNCHES, **q8.LAUNCHES}
+    out["main_s"] = time.perf_counter() - t_main
+    del grads0
+    for mode, rec in out["modes"].items():
+        ms = sorted(rec["times_ms"][1:]) or rec["times_ms"]
+        rec["step_ms"] = ms[len(ms) // 2]
+        rec["tokens_per_s"] = out["tokens"] / (rec["step_ms"] / 1e3)
+        print(f"train {cfg.name} {mode}: losses {rec['losses']}, pack/unpack"
+              f" launches per step {rec['packs']} (plan: {rec['plan_multi']}"
+              f" multi-leaf buckets), {rec['n_all_reduce']} all-reduces a"
+              f" step, step-0 gradients vs partitioned:"
+              f" {'bitwise equal' if not rec['grad_diff'] else rec['grad_diff'][:3]},"
+              f" step ms {[round(t, 3) for t in rec['times_ms']]}")
+    check(not on_card or out["launches"]["bucket_pack"] > 0,
+          "the training path launched no pack kernel")
+    print(f"training main path: launches {out['launches']} over"
+          f" {sum(n + on_card for _, n in TRAIN_MODES)} steps,"
+          f" {out['main_s']:.3f} s")
+    if on_card:
+        out["cpu_vs_card"] = _cpu_vs_card(dev)
+    return out
+
+
+def _cpu_vs_card(dev) -> dict:
+    """The smoke config trained 3 steps from the same weights and batches
+    on the CPU (its own gloo group) and on the card: losses within
+    ``TRAIN_LOSS_RTOL``, step-0 synced gradients within
+    ``TRAIN_GRAD_TOL``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    cfg = get_smoke_config("llama3.2-1b").replace(param_dtype="float32")
+    scfg = steps.StepConfig(sync_mode="partitioned", aggr_bytes=1 << 12,
+                            param_dtype="float32", warmup_steps=1,
+                            total_steps=6)
+    stream = pipeline.for_model(cfg, 64, 4)
+    card = steps.build_state(cfg, 0, dev)
+    cpu = steps.build_state(cfg, 0, "cpu")
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(cpu["params"].named_parameters(),
+                                  card["params"].named_parameters()):
+            a.copy_(b.cpu())
+    runs = {}
+    for name, st, d, group in (("card", card, dev, None),
+                               ("cpu", cpu, torch.device("cpu"),
+                                dist.new_group(backend="gloo"))):
+        step = steps.make_train_step(cfg, scfg, seq_len=64, batch=4,
+                                     group=group, device=d)
+        losses, g0 = [], None
+        for i in range(3):
+            st, loss = step(st, steps.batch_to_device(stream.batch(i), d))
+            losses.append(loss.item())
+            if i == 0:
+                g0 = {n: p.grad.detach().cpu().clone()
+                      for n, p in st["params"].named_parameters()}
+        runs[name] = (losses, g0)
+    (lc, gc), (lh, gh) = runs["card"], runs["cpu"]
+    rtol, atol = TRAIN_GRAD_TOL
+    gerr = max(float(((gc[n] - gh[n]).abs()
+                      - rtol * gh[n].abs()).max()) for n in gh)
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    print(f"train smoke cpu vs card, 3 steps: losses card {lc} cpu {lh}"
+          f" (max rel {lerr!r}, tol {TRAIN_LOSS_RTOL}); step-0 gradients"
+          f" max(|d| - {rtol}|g|) = {gerr!r} (tol {atol})")
+    check(lerr <= TRAIN_LOSS_RTOL, "smoke training: cpu and card losses differ")
+    check(gerr <= atol, "smoke training: cpu and card gradients differ")
+    return {"loss_rel": lerr, "grad_excess": gerr}
+
+
+def _bytes_bound(nbytes: int):
+    """(bound ms, "bytes") of a kernel that only moves ``nbytes``."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
+    """Phase 14: CUDA-event medians of the pack kernels at the 64 MiB bulk
+    bucket and the 16 KiB [ln1, ln2] bucket beside their plain versions
+    and one PyTorch call for the same function (``torch.cat`` of the
+    flattened leaves; ``torch._foreach_copy_`` into the leaves), of
+    quantize/dequantize at 2^24 elements beside their plain versions,
+    each with its bound in bytes at 3.35 TB/s; the train step per mode
+    and the profile of one partitioned step.  Returns the four kernels'
+    table entries."""
+    import torch
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant8 as q8
+    reps = 20 if dev.type == "cuda" else 3
+    bulk, ln = _bulk_bucket(dev, small)
+    rows = {}
+    for name, segs in (("bulk", bulk), ("ln1_ln2", ln)):
+        flat = ops.bucket_pack(segs)
+        outs = [torch.empty_like(s) for s in segs]
+        sizes = [s.numel() for s in segs]
+        nbytes = 2 * flat.numel() * flat.element_size()
+        foreach = getattr(torch, "_foreach_copy_", None)
+        rows[name] = {
+            "pack": (_timed(lambda: ops.bucket_pack(segs), dev, reps),
+                     _timed(lambda: bp.bucket_pack_plain(segs), dev, reps),
+                     _timed(lambda: torch.cat([s.reshape(-1) for s in segs]),
+                            dev, reps)),
+            "unpack": (_timed(lambda: ops.bucket_unpack(flat, segs, out=outs),
+                              dev, reps),
+                       _timed(lambda: bp.bucket_unpack_plain(flat, segs,
+                                                             out=outs),
+                              dev, reps),
+                       None if foreach is None else _timed(
+                           lambda: foreach(outs, [
+                               p.view_as(o) for p, o in
+                               zip(flat.split(sizes), outs)]), dev, reps)),
+            "bound": _bytes_bound(nbytes), "bytes": nbytes}
+        print(f"times pack/unpack {name} bucket ({len(segs)} segments,"
+              f" {flat.numel() * 4} B f32): pack kernel"
+              f" {rows[name]['pack'][0]:.4f} ms, plain"
+              f" {rows[name]['pack'][1]:.4f} ms, torch.cat"
+              f" {rows[name]['pack'][2]:.4f} ms; unpack kernel"
+              f" {rows[name]['unpack'][0]:.4f} ms, plain"
+              f" {rows[name]['unpack'][1]:.4f} ms, torch._foreach_copy_"
+              f" {rows[name]['unpack'][2]!r} ms; bound"
+              f" {rows[name]['bound'][0]:.5f} ms ({nbytes} bytes each)")
+    n = (1 << 16) if small else (1 << 24)
+    x = _seeded((n,), torch.float32, dev, 3)
+    q, s = ops.quantize_blockwise(x)
+    nb = s.numel()
+    quant = {
+        "quantize_blockwise": (
+            _timed(lambda: ops.quantize_blockwise(x), dev, reps),
+            _timed(lambda: q8.quantize_blockwise_plain(x), dev, reps),
+            _bytes_bound(4 * n + n + 4 * nb)),
+        "dequantize_blockwise": (
+            _timed(lambda: ops.dequantize_blockwise(q, s), dev, reps),
+            _timed(lambda: q8.dequantize_blockwise_plain(q, s), dev, reps),
+            _bytes_bound(n + 4 * nb + 4 * n))}
+    for name, (ms, plain, (bound, _)) in quant.items():
+        print(f"times {name} n={n}: kernel {ms:.4f} ms, plain {plain:.4f}"
+              f" ms, bound {bound:.5f} ms")
+    for mode, rec in train["modes"].items():
+        print(f"times train {train['cfg'].name} {mode}: step"
+              f" {rec['step_ms']:.3f} ms (median after step 0),"
+              f" {rec['tokens_per_s']:.1f} tokens/s, peak memory"
+              f" {rec['peak_gib']!r} GiB")
+        if "profile" in rec:
+            wall, busy, events, evs = rec["profile"]
+            tops = ", ".join(f"{k[:48]} {t:.3f} ms" for t, k, _ in evs[:4])
+            sync = {w: (sum(t for t, k, _ in evs if w in k.lower()),
+                        sum(c for _, k, c in evs if w in k.lower()))
+                    for w in ("nccl", "pack_kernel", "memcpy")}
+            print(f"profile train step ({mode}): wall {wall:.3f} ms, device"
+                  f" busy {busy:.3f} ms, idle share {1 - busy / wall:.3f},"
+                  f" {events} device events; top: {tops}; (device ms,"
+                  f" events) of nccl / pack kernels / memcpy: {sync}")
+    entries = []
+    src = "src/repro_torch/csrc/"
+    for name, line, key in (("bucket_pack", 76, "pack"),
+                            ("bucket_unpack", 111, "unpack")):
+        ms, plain, lib = rows["bulk"][key]
+        entries.append({
+            "name": name, "route": "cuda", "source": src + "bucket_pack.cu",
+            "replaces": f"src/repro/kernels/bucket_pack.py:{line}",
+            "launches": train["launches"][name], "max_abs_err": errs["pack"],
+            "ms": ms, "plain_ms": plain, "bound_ms": rows["bulk"]["bound"][0],
+            "bound_by": "bytes", "library_ms": lib})
+    for name, line in (("quantize_blockwise", 59),
+                       ("dequantize_blockwise", 80)):
+        ms, plain, (bound, by) = quant[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": src + "quant8.cu",
+            "replaces": f"src/repro/kernels/quant8.py:{line}",
+            "launches": train["launches"][name], "max_abs_err": errs["quant"],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    return entries
+
+
+def run(device_name: str = "cuda", small: bool = False) -> dict:
+    """All phases on ``device_name``; returns the kernel table.
+    ``small`` cuts the serving and training phases to the llama smoke
+    config and the flash, pack and quant8 cases to small sizes, for a
+    rehearsal on the CPU."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
     from repro_torch.core import fabric_cuda as fc
     from repro_torch.core import fabric_torch as ft
     from repro_torch.core import simulator as sim
@@ -489,6 +965,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
 
     dev = torch.device(device_name)
     on_card = dev.type == "cuda"
+    # f32 products in full f32 on the card (the tolerances assume it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     baseline = json.loads(BASELINE.read_text())
     xxl, xl = SPECS["weak_scaling_xxl"], SPECS["weak_scaling_xl"]
 
@@ -651,7 +1130,28 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     serving = serving_phase(dev, small)
     flash = serving_times(dev, serving, small)
     flash["max_abs_err"] = flash_err
-    return {"kernels": [fabric, flash]}
+    del serving
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 10-14. the training path and its pack and quant8 kernels ------------
+    if on_card:  # 10. built with the others in phase 1: bind them
+        from repro_torch.kernels import bucket_pack as bp
+        from repro_torch.kernels import quant8 as q8
+        bp._library()
+        q8._library()
+        print("bucket_pack and quant8 kernels built (phase 1) and bound")
+    errs = {"pack": pack_phase(dev, small), "quant": quant_phase(dev, small)}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo", rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            train = training_phase(dev, small)
+            train_kernels = train_times(dev, train, errs, small)
+        finally:
+            dist.destroy_process_group()
+    return {"kernels": [fabric, flash, *train_kernels]}
 
 
 def main() -> int:

@@ -1,3 +1,4 @@
 """The hand-written CUDA kernels of ``repro_torch/csrc``: their build
-(``build``), their plain PyTorch oracles (``ref``), the flash-attention
-wrapper (``flash_attention``) and the public wrappers (``ops``)."""
+(``build``), their plain PyTorch oracles (``ref``), the wrappers with
+their plain versions (``flash_attention``, ``bucket_pack``, ``quant8``)
+and the public entry points (``ops``)."""

@@ -24,11 +24,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # The kernels on the port's paths, one source each.
-KERNELS = ("fabric_scan", "flash_attention")
+KERNELS = ("fabric_scan", "flash_attention", "bucket_pack", "quant8")
 
 # sm_90a (Hopper), exact IEEE arithmetic: no fast-math, no FMA
-# contraction (the fabric kernel's float64 results are bitwise; the
-# flash kernel shares the flags).
+# contraction (the fabric, pack and quant8 kernels' results are bitwise;
+# the flash kernel shares the flags).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

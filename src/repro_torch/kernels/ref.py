@@ -1,14 +1,12 @@
 """Plain PyTorch oracles of the port's kernels.
 
-Counterpart of the JAX package's ``kernels/ref.py``.  Only the oracle of
-the flash-attention kernel is ported so far; those of bucket pack/unpack
-and of the blockwise int8 quantizers follow with the training slice
-(ROADMAP queue 2).
+Counterpart of the JAX package's ``kernels/ref.py``: flash attention,
+gradient-bucket pack/unpack and the blockwise int8 quantizers.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,3 +46,43 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p / l.clamp_min(1e-30), v.float())
     return out.to(q.dtype)
+
+
+def bucket_pack_ref(leaves: Sequence[torch.Tensor],
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Flatten + (optionally cast) + concatenate."""
+    parts = [l.reshape(-1) for l in leaves]
+    if out_dtype is not None:
+        parts = [p.to(out_dtype) for p in parts]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def bucket_unpack_ref(flat: torch.Tensor, templates: Sequence[torch.Tensor]
+                      ) -> List[torch.Tensor]:
+    out = []
+    off = 0
+    for t in templates:
+        n = t.numel()
+        out.append(flat[off:off + n].reshape(t.shape).to(t.dtype))
+        off += n
+    return out
+
+
+def quantize_blockwise_ref(x: torch.Tensor, block: int = 256
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat x -> (int8 values, per-block f32 scales).  len(x) % block == 0.
+
+    Both divisions are true divisions by a tensor: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal, which
+    moves some scales by one ulp."""
+    xb = x.float().reshape(-1, block)
+    d127 = torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    scale = xb.abs().amax(dim=1).clamp_min(1e-30) / d127
+    q = torch.clamp(torch.round(xb / scale[:, None]), -127, 127)
+    return q.to(torch.int8).reshape(-1), scale
+
+
+def dequantize_blockwise_ref(q: torch.Tensor, scale: torch.Tensor,
+                             block: int = 256) -> torch.Tensor:
+    qb = q.reshape(-1, block).float()
+    return (qb * scale[:, None]).reshape(-1)

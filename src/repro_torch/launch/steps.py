@@ -1,30 +1,108 @@
-"""Serving steps (prefill and decode) on one device.
+"""Step functions (train, prefill, decode), one device per rank.
 
-The port's counterpart of the serving half of the JAX package's
-``launch/steps.py``.  ``StepConfig`` keeps the serving fields
-(``param_dtype``, ``cache_dtype``); ``make_prefill_step`` and
-``make_decode_step`` return plain callables that check their inputs and
-run ``lm.prefill`` / ``lm.decode_step``.  The mesh, tensor- and sequence-parallel sharding
-and the partitioned-KV ``flash_decode`` need several devices and are not
-ported yet (ROADMAP queue 1, item 9); training steps wait for the
-training slice.
+The port's counterpart of the JAX package's ``launch/steps.py``.
+``StepConfig`` keeps the training and serving fields; the steps are
+plain callables.  ``make_train_step`` runs the loss, backward with the
+early-bird gradient sync over a ``torch.distributed`` process group
+(each rank holding one card and its share of the batch), the schedule
+and AdamW.  ``make_prefill_step`` and ``make_decode_step`` check their
+inputs and run ``lm.prefill`` / ``lm.decode_step``.  The mesh, tensor-
+and sequence-parallel sharding, ZeRO-1 and the partitioned-KV
+``flash_decode`` are not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..core.earlybird import SyncConfig, value_and_synced_grad
 from ..core.fabric_torch import resolve_device
 from ..models import lm
+from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from ..optim.schedule import warmup_cosine
 
 
 @dataclass(frozen=True)
 class StepConfig:
+    sync_mode: str = "partitioned"     # bulk | per_leaf | partitioned
+    aggr_bytes: int = 4 << 20
+    comm_dtype: Optional[str] = None   # e.g. 'bfloat16' (grad compression)
+    remat: bool = True
     param_dtype: str = "bfloat16"
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    adam: AdamWConfig = field(default_factory=AdamWConfig)
     cache_dtype: str = "bfloat16"
+    ce_gather_targets: bool = False  # True = take the targets by a gather
+
+
+def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
+                adam: AdamWConfig = AdamWConfig()) -> Dict[str, Any]:
+    """A fresh training state ``{"params", "opt"}``: the model of
+    ``cfg`` with weights drawn from a generator on ``device`` seeded
+    with ``seed``, requiring gradients, and zero AdamW moments."""
+    dev = resolve_device(device)
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    model.requires_grad_(True)
+    return {"params": model,
+            "opt": init_opt_state(dict(model.named_parameters()), adam)}
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device
+                    ) -> Dict[str, torch.Tensor]:
+    """A data-stream batch (NumPy) as tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
+                    batch: int, group=None, device="cuda") -> Callable:
+    """``step_fn(state, batch) -> (state, loss)``: one training step on
+    this rank's ``batch`` rows of ``seq_len`` tokens; ``state`` =
+    ``{"params": LM, "opt": ...}`` is updated in place and returned.
+    ``group`` is the data-parallel process group (None: the default
+    group, which must be initialised).  ``step_fn.log`` is the
+    :class:`~repro_torch.core.earlybird.SyncLog` of the last step."""
+    cfg = cfg.replace(param_dtype=scfg.param_dtype)
+    dev = resolve_device(device)
+    sync = SyncConfig(mode=scfg.sync_mode, group=group,
+                      aggr_bytes=scfg.aggr_bytes, comm_dtype=scfg.comm_dtype)
+
+    def local_loss(model, b, param_hook):
+        return lm.loss_fn(cfg, model, b, remat=scfg.remat,
+                          param_hook=param_hook,
+                          gather_targets=scfg.ce_gather_targets)
+
+    vg = value_and_synced_grad(local_loss, sync)
+
+    def step_fn(state: Dict[str, Any], b: Dict[str, torch.Tensor]
+                ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        toks = b["tokens"]
+        if tuple(toks.shape) != (batch, seq_len) \
+                or tuple(b["labels"].shape) != (batch, seq_len) \
+                or toks.device.type != dev.type:
+            raise ValueError(f"train_step: tokens {tuple(toks.shape)} on"
+                             f" {toks.device}, need ({batch}, {seq_len})"
+                             f" on {dev}")
+        model = state["params"]
+        loss, grads = vg(model, b)
+        step_fn.log = vg.log
+        lr = warmup_cosine(state["opt"]["step"], peak_lr=scfg.peak_lr,
+                           warmup_steps=scfg.warmup_steps,
+                           total_steps=scfg.total_steps)
+        adamw_update(dict(model.named_parameters()), grads, state["opt"],
+                     lr, scfg.adam)
+        return state, loss
+
+    step_fn.log = vg.log
+    return step_fn
 
 
 def make_cache(cfg: lm.ModelConfig, scfg: StepConfig, *, batch: int,

@@ -1,22 +1,25 @@
-"""Weights and caches carried across from the JAX package.
+"""Weights, caches, gradients and optimizer state across the two layouts.
 
 The JAX package keeps parameters as a nested dict whose per-layer
 entries are stacked on a leading L axis; the port keeps one module per
 layer with the same names and shapes.  Carry-over is therefore a copy:
 ``tree["layers"]["attn"]["wq"][i]`` becomes ``layers.{i}.attn.wq``.
-The functions take NumPy arrays (``jax.tree.map(np.asarray, params)``),
-so this module imports nothing of JAX.
+The functions take and give NumPy arrays (``jax.tree.map(np.asarray,
+params)``), so this module imports nothing of JAX.  The training state
+is ``{"params": LM, "opt": {"step", "m", "v"}}`` with the moments keyed
+by parameter name; in the JAX layout it is ``{"params": tree, "opt":
+{"step", "m": tree, "v": tree}}``, the tree the checkpoints hold.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ..core.fabric_torch import resolve_device
-from .lm import LM, ModelConfig
+from .lm import LM, ModelConfig, param_leaves
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -78,3 +81,68 @@ def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's cache as f32 NumPy arrays, in the JAX layout."""
     return {name: t.detach().float().cpu().numpy()
             for name, t in cache.items()}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 (which NumPy lacks) widens exactly to f32."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()
+
+
+def named_to_jax(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Port tensors by parameter name (parameters, gradients or moments)
+    -> the JAX package's nested tree of NumPy arrays, the layers stacked
+    on a leading L axis."""
+    tree: Dict[str, Any] = {}
+    for name, segs in param_leaves(named.items()):
+        arrs = [_to_numpy(t) for t in segs]
+        parts = name.split(".")
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = np.stack(arrs) if parts[0] == "layers" else arrs[0]
+    return tree
+
+
+def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's training state as the JAX package's state tree."""
+    opt = state["opt"]
+    return {"params": named_to_jax(dict(state["params"].named_parameters())),
+            "opt": {"step": np.asarray(int(opt["step"]), np.int32),
+                    "m": named_to_jax(opt["m"]), "v": named_to_jax(opt["v"])}}
+
+
+@torch.no_grad()
+def opt_state_from_jax(opt: Dict, model: LM) -> Dict[str, Any]:
+    """The JAX package's AdamW state ``{"step", "m", "v"}`` (NumPy
+    trees) as the port's, the moments in f32 on ``model``'s device."""
+    params = dict(model.named_parameters())
+    dev = model.embed.device
+    out: Dict[str, Any] = {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                                dtype=torch.int32,
+                                                device=dev)}
+    for key in ("m", "v"):
+        arrays = _state_dict(opt[key], model.cfg.n_layers)
+        if set(arrays) != set(params):
+            raise ValueError(f"opt {key}: names differ from the model's")
+        out[key] = {}
+        for name, p in params.items():
+            a = np.asarray(arrays[name])
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"opt {key} {name}: JAX shape {a.shape},"
+                                 f" port shape {tuple(p.shape)}")
+            out[key][name] = torch.from_numpy(
+                np.array(a, dtype=np.float32)).to(dev)
+    return out
+
+
+def state_from_jax(tree: Dict, cfg: ModelConfig, device="cuda",
+                   dtype=None) -> Dict[str, Any]:
+    """The JAX package's state tree (NumPy) as the port's training
+    state, the parameters in ``dtype`` (default: the config's) and
+    requiring gradients."""
+    model = params_from_jax(tree["params"], cfg, device=device, dtype=dtype)
+    model.requires_grad_(True)
+    return {"params": model, "opt": opt_state_from_jax(tree["opt"], model)}

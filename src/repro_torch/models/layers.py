@@ -1,10 +1,9 @@
 """Basic neural-net layers as plain functions on tensors.
 
 The port's counterpart of the JAX package's ``models/layers.py``:
-RMSNorm, soft-capping, SiLU, rotary position embeddings and the
-parameter initialisers, which draw from an explicit ``torch.Generator``.
-``chunked_cross_entropy`` belongs to the training slice and is not
-ported yet (ROADMAP queue 1).
+RMSNorm, soft-capping, SiLU, rotary position embeddings, the parameter
+initialisers, which draw from an explicit ``torch.Generator``, and the
+chunked cross entropy of training.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
@@ -87,3 +87,63 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy, chunked over the sequence to bound logit memory
+# ---------------------------------------------------------------------------
+
+def _chunk_loss(h, y, m, head, final_softcap, valid_vocab, gather_targets):
+    """(sum of masked token losses, sum of the mask) of one chunk."""
+    v = head.shape[-1]
+    logits = torch.einsum("bsd,dv->bsv", h.float(), head.float())
+    logits = softcap(logits, final_softcap)
+    vids = torch.arange(v, device=logits.device)
+    if valid_vocab is not None and valid_vocab < v:
+        logits = torch.where(vids < valid_vocab, logits, -torch.inf)
+    lse = torch.logsumexp(logits, dim=-1)
+    if gather_targets:
+        tgt = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    else:
+        # select and reduce instead of a gather (the JAX package's
+        # default: it keeps a vocab-sharded logits chunk sharded)
+        tgt = torch.where(vids == y[..., None], logits, 0.0).sum(dim=-1)
+    return ((lse - tgt) * m).sum(), m.sum()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512,
+                          final_softcap: Optional[float] = None,
+                          mask: Optional[torch.Tensor] = None,
+                          valid_vocab: Optional[int] = None,
+                          gather_targets: bool = False) -> torch.Tensor:
+    """Mean CE of ``hidden @ head`` vs labels without materializing
+    (B, S, V).
+
+    hidden: (B, S, D); head: (D, V); labels: (B, S) int.  The (B, chunk,
+    V) f32 logits exist one chunk at a time: each chunk runs under
+    ``torch.utils.checkpoint``, so backward recomputes its logits instead
+    of keeping them.  The chunk sums are added in sequence order, then
+    the ragged remainder, as the JAX package's scan does.  ``valid_vocab``
+    masks logit columns at or beyond it (vocab padding).
+    """
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    args = (head, final_softcap, valid_vocab, gather_targets)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        l, n = torch.utils.checkpoint.checkpoint(
+            _chunk_loss, hidden[:, sl], labels[:, sl], mask[:, sl], *args,
+            use_reentrant=False)
+        tot, cnt = tot + l, cnt + n
+    if s > n_chunks * chunk:
+        rem = s - n_chunks * chunk
+        l, n = _chunk_loss(hidden[:, -rem:], labels[:, -rem:],
+                           mask[:, -rem:], *args)
+        tot, cnt = tot + l, cnt + n
+    return tot / cnt.clamp_min(1.0)

@@ -1,4 +1,4 @@
-"""Language model: config, init, forward, prefill and decode.
+"""Language model: config, init, forward, loss, prefill and decode.
 
 The port's counterpart of the JAX package's ``models/lm.py``.  One
 ``ModelConfig`` (field for field the reference's, with copies of
@@ -7,9 +7,9 @@ architecture; the port runs the dense-GQA ones (llama, gemma, qwen).
 Parameters live in an :class:`LM` module whose per-layer blocks sit in an
 ``nn.ModuleList`` instead of the stacked L axis; their shapes and names
 are the JAX package's, so weights carry over by a copy
-(``models/convert.py``).  The decode cache is a dict of preallocated
-``(L, B, S_max, n_kv, head_dim)`` tensors, written in place.
-``loss_fn`` waits for the training slice (ROADMAP queue 1).
+(``models/convert.py``), and :func:`param_leaves` lists them in the order
+of JAX's flattened parameter tree.  The decode cache is a dict of
+preallocated ``(L, B, S_max, n_kv, head_dim)`` tensors, written in place.
 """
 
 from __future__ import annotations
@@ -17,15 +17,17 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.fabric_torch import resolve_device
 from .attention import head_to_kv_map, init_attention
 from .blocks import Block, block_fwd
-from .layers import dense_init, embed_init, rms_norm, softcap
+from .layers import chunked_cross_entropy, dense_init, embed_init, rms_norm, \
+    softcap
 
 
 @dataclass(frozen=True)
@@ -187,8 +189,8 @@ class LM(nn.Module):
     """The parameters of a dense-GQA language model, allocated
     uninitialised on ``device`` in ``dtype`` (default: the config's):
     ``embed`` (V, d), ``final_norm`` (d,), ``head`` (d, V) unless tied,
-    and ``layers``, one :class:`Block` per layer.  Inference only: no
-    parameter requires a gradient."""
+    and ``layers``, one :class:`Block` per layer.  No parameter requires
+    a gradient until training asks for it (``requires_grad_()``)."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype=None):
         super().__init__()
@@ -205,6 +207,26 @@ class LM(nn.Module):
             self.head = p(d, vp)
         self.layers = nn.ModuleList(
             Block(cfg, dtype=dt, device=device) for _ in range(cfg.n_layers))
+
+
+def param_leaves(named: Iterable[Tuple[str, torch.Tensor]]
+                 ) -> List[Tuple[str, List[torch.Tensor]]]:
+    """The leaves of the JAX package's parameter tree, in its flattening
+    order (dict keys sorted at every level), from port names and
+    tensors: ``(name, segments)`` where the per-layer tensors
+    ``layers.<i>.<rest>`` form one leaf ``layers.<rest>`` whose segments
+    are the layers in order -- the slices of JAX's stacked array."""
+    groups: Dict[str, list] = {}
+    for name, t in named:
+        parts = name.split(".")
+        if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+            key = ".".join(["layers", *parts[2:]])
+            groups.setdefault(key, []).append((int(parts[1]), t))
+        else:
+            groups[name] = [(0, t)]
+    return [(k, [t for _, t in sorted(v, key=lambda it: it[0])])
+            for k, v in sorted(groups.items(),
+                               key=lambda kv: tuple(kv[0].split(".")))]
 
 
 def _norm_init(cfg: ModelConfig, w: torch.Tensor) -> None:
@@ -300,20 +322,35 @@ def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int,
 
 def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_pos: Optional[int] = None, flash: bool = True
+            cache_pos: Optional[int] = None, flash: bool = True,
+            remat: bool = False,
+            param_hook: Callable[[Block], Block] = lambda lp: lp
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Run the decoder stack: returns (hidden (B, S, D) after the final
     norm, the cache written in place or None).  ``flash=False`` runs a
     prefill's attention through ``masked_attention`` instead of the
-    flash kernel."""
+    flash kernel.
+
+    ``param_hook`` is called on each layer's module before the layer
+    runs -- the attach point of the early-bird gradient sync
+    (``core.earlybird``).  ``remat`` recomputes each layer in backward
+    (``torch.utils.checkpoint``) instead of keeping its activations; the
+    hook is called outside the checkpointed region, so a recomputation
+    does not call it again."""
     h = _embed_inputs(cfg, params, batch)
     b, s = h.shape[0], h.shape[1]
     positions = _positions(cfg, batch, b, s, cache_pos, h.device)
     for i, (lp, window) in enumerate(zip(params.layers, cfg.windows())):
+        lp = param_hook(lp)
         layer_cache = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _ = block_fwd(cfg, lp, h, positions=positions, window=window,
-                         cache=layer_cache, cache_pos=cache_pos, flash=flash)
+        kw = dict(positions=positions, window=window, cache=layer_cache,
+                  cache_pos=cache_pos, flash=flash)
+        if remat and cache is None:
+            h, _ = torch.utils.checkpoint.checkpoint(
+                block_fwd, cfg, lp, h, use_reentrant=False, **kw)
+        else:
+            h, _ = block_fwd(cfg, lp, h, **kw)
     h = rms_norm(h, params.final_norm, zero_centered=cfg.zero_centered_norm)
     return h, cache
 
@@ -331,6 +368,20 @@ def _final_logits(cfg: ModelConfig, h_last: torch.Tensor,
     if cfg.vocab_padded > cfg.vocab:
         logits[:, cfg.vocab:] = -torch.inf
     return logits
+
+
+def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *,
+            remat: bool = True,
+            param_hook: Callable[[Block], Block] = lambda lp: lp,
+            gather_targets: bool = False) -> torch.Tensor:
+    """Next-token cross entropy (labels = ``batch['labels']``), f32."""
+    h, _ = forward(cfg, params, batch, remat=remat, param_hook=param_hook)
+    return chunked_cross_entropy(
+        h, output_head(cfg, params), batch["labels"],
+        chunk=cfg.loss_chunk, final_softcap=cfg.final_softcap,
+        mask=batch.get("loss_mask"),
+        valid_vocab=(cfg.vocab if cfg.vocab_padded > cfg.vocab else None),
+        gather_targets=gather_targets)
 
 
 @torch.no_grad()

@@ -1,0 +1,163 @@
+"""Gradient bucketing of the port against the JAX package's.
+
+The bucket plans decide which leaves travel together, so the port must
+list the leaves in JAX's order and plan over JAX's stacked shapes:
+``make_plan`` must equal ``repro.core.bucketing.make_plan`` field for
+field (``leaf_ids``, ``sizes``, ``nbytes``, ``channel``) on the
+llama3.2-1b full-width parameters -- the whole stacked tree (bulk and
+per_leaf modes) and one layer (partitioned mode) -- built without
+allocation (JAX's ``lm.param_shapes``; the port's model on the ``meta``
+device).  ``pack``/``unpack`` must equal JAX's bit for bit, with leaves
+given as one tensor or as per-layer segments.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.core import bucketing as jb
+from repro.models import lm as jlm
+from repro_torch.configs import get_config as pget
+from repro_torch.core import bucketing as pb
+from repro_torch.models import lm as plm
+
+AGGRS = (0, 1 << 20, 4 << 20, 256 << 20)
+
+
+def _fields(plan):
+    return [(b.leaf_ids, b.sizes, b.nbytes, b.channel) for b in plan.buckets]
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    """JAX's abstract llama3.2-1b tree and the port's leaves (meta)."""
+    jshapes = jlm.param_shapes(jget("llama3.2-1b"))
+    model = plm.LM(pget("llama3.2-1b"), device="meta")
+    return jshapes, model
+
+
+def test_port_leaves_follow_jax_order(full_width):
+    jshapes, model = full_width
+    jpaths = [jax.tree_util.keystr(k) for k, _ in
+              jax.tree_util.tree_flatten_with_path(jshapes)[0]]
+    leaves = plm.param_leaves(model.named_parameters())
+    assert jpaths == ["".join(f"[{p!r}]" for p in name.split("."))
+                      for name, _ in leaves]
+    for (_, segs), j in zip(leaves, jax.tree.leaves(jshapes)):
+        shape = segs[0].shape if len(segs) == 1 else (len(segs),
+                                                      *segs[0].shape)
+        assert tuple(shape) == tuple(j.shape)
+
+
+@pytest.mark.parametrize("aggr", AGGRS)
+@pytest.mark.parametrize("channels", [1, 3])
+def test_plan_equals_jax_stacked_tree(full_width, aggr, channels):
+    jshapes, model = full_width
+    want = jb.make_plan(jax.tree.leaves(jshapes), aggr, channels)
+    leaves = [segs for _, segs in plm.param_leaves(model.named_parameters())]
+    got = pb.make_plan(leaves, aggr, channels)
+    assert _fields(got) == _fields(want)
+    assert got.n_leaves == want.n_leaves
+    assert got.total_bytes == want.total_bytes
+
+
+@pytest.mark.parametrize("aggr", AGGRS)
+def test_plan_equals_jax_one_layer(full_width, aggr):
+    jshapes, model = full_width
+    jlayer = jax.tree.map(lambda s: jax.ShapeDtypeStruct(s.shape[1:],
+                                                         s.dtype),
+                          jshapes["layers"])
+    want = jb.make_plan(jax.tree.leaves(jlayer), aggr)
+    leaves = [segs for _, segs in
+              plm.param_leaves(model.layers[0].named_parameters())]
+    assert _fields(pb.make_plan(leaves, aggr)) == _fields(want)
+
+
+def test_full_width_multi_leaf_buckets(full_width):
+    """The buckets that the pack kernels carry at llama3.2-1b width in
+    f32: [ln1, ln2] per layer at 1 MiB (partitioned), and two buckets of
+    the stacked tree at 256 MiB (bulk)."""
+    _, model = full_width
+    names = [n for n, _ in plm.param_leaves(model.named_parameters())]
+    layer = [n for n, _ in plm.param_leaves(model.layers[0].named_parameters())]
+    part = [b for b in pb.make_plan(
+        [s for _, s in plm.param_leaves(model.layers[0].named_parameters())],
+        1 << 20).buckets if len(b.leaf_ids) > 1]
+    assert [[layer[i] for i in b.leaf_ids] for b in part] == [["ln1", "ln2"]]
+    bulk = [b for b in pb.make_plan(
+        [s for _, s in plm.param_leaves(model.named_parameters())],
+        256 << 20).buckets if len(b.leaf_ids) > 1]
+    assert [[names[i] for i in b.leaf_ids] for b in bulk] == [
+        ["final_norm", "layers.attn.wk"],
+        ["layers.attn.wv", "layers.ln1", "layers.ln2"]]
+    assert [b.nbytes for b in bulk] == [8192 + (64 << 20),
+                                        (64 << 20) + 2 * 16 * 8192]
+
+
+def test_auto_needs_the_planner():
+    with pytest.raises(NotImplementedError, match="planner"):
+        pb.make_plan([torch.ones(3)], "auto")
+
+
+def _mixed(seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = [(5, 3), (7,), (2, 4, 3), (), (11,)]
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("aggr", [0, 64, 200, 1 << 20])
+def test_pack_unpack_equal_jax(aggr):
+    arrs = _mixed()
+    jl = [jnp.asarray(a) for a in arrs]
+    # leaf 2 travels as per-layer segments of a stacked (2, 4, 3) leaf
+    pl = [torch.from_numpy(a) for a in arrs]
+    pl[2] = [torch.from_numpy(arrs[2][i]) for i in range(2)]
+    plan = pb.make_plan(pl, aggr)
+    assert _fields(plan) == _fields(jb.make_plan(jl, aggr))
+    for bucket in plan.buckets:
+        for dt, jdt in ((None, None), (torch.bfloat16, jnp.bfloat16)):
+            flat = pb.pack(pl, bucket, dtype=dt)
+            want = jb.pack(jl, bucket, dtype=jdt)
+            np.testing.assert_array_equal(flat.float().numpy(),
+                                          np.asarray(want, np.float32))
+            got = pb.unpack(flat, bucket, pl)
+            want_l = jb.unpack(want, bucket, jl)
+            for segs, w in zip(got, want_l):
+                g = segs[0] if len(segs) == 1 else torch.stack(segs)
+                assert g.dtype == torch.float32
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_pack_promotes_mixed_dtypes_as_concatenate():
+    leaves = [torch.ones(3, dtype=torch.bfloat16), torch.full((2,), 0.1)]
+    (bucket,) = pb.make_plan(leaves, 1 << 20).buckets
+    flat = pb.pack(leaves, bucket)
+    want = jb.pack([jnp.ones(3, jnp.bfloat16),
+                    jnp.asarray(np.full(2, 0.1, np.float32))], bucket)
+    assert flat.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("aggr", [0, 100, 1 << 20])
+def test_bucketed_apply_in_place(aggr):
+    """fn sees each bucket once, its result lands back in the leaves."""
+    arrs = _mixed(1)
+    leaves = [torch.from_numpy(a.copy()) for a in arrs]
+    leaves[2] = [torch.from_numpy(arrs[2][i].copy()) for i in range(2)]
+    seen = []
+
+    def fn(flat, bucket):
+        seen.append(bucket.leaf_ids)
+        return flat * 2.0
+
+    pb.bucketed_apply(leaves, fn, aggr_bytes=aggr)
+    plan = pb.make_plan(leaves, aggr)
+    want_calls = sum(len(pb.segments(leaves[b.leaf_ids[0]]))
+                     if len(b.leaf_ids) == 1 else 1 for b in plan.buckets)
+    assert len(seen) == want_calls
+    for leaf, a in zip(leaves, arrs):
+        got = leaf if isinstance(leaf, torch.Tensor) else torch.stack(leaf)
+        np.testing.assert_array_equal(got.numpy(), a * 2.0)

@@ -1,0 +1,137 @@
+"""The hand-written bucket pack/unpack and quant8 kernels on the card.
+
+These tests need a CUDA device and no JAX, so they run on the GPU
+machine (``python -m pytest tests/test_torch_train_kernels.py -m gpu``)
+and skip elsewhere.  On CUDA tensors the ``ops`` entry points must
+launch the kernels (each count grows by one) and equal the plain
+versions bit for bit; a training step of the llama3.2-1b smoke model
+must launch the pack kernels once per multi-leaf bucket of the plan and
+agree with the same step on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import bucketing
+from repro_torch.data import pipeline
+from repro_torch.kernels import bucket_pack as pbp
+from repro_torch.kernels import ops
+from repro_torch.kernels import quant8 as pq8
+from repro_torch.launch import steps
+from repro_torch.models import lm
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _rand(shape, dtype, device, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.standard_normal(shape).astype(np.float32)) \
+        .to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_dt,bucket_dt", [(F32, F32), (F32, BF16),
+                                              (BF16, F32), (BF16, BF16)])
+@pytest.mark.parametrize("sizes", [(1,), (13, 127, 128, 129), (),
+                                   tuple(range(1, 301))])
+def test_pack_unpack_bitwise(cuda_device, seg_dt, bucket_dt, sizes):
+    segs = [_rand((n,) if n else (), seg_dt, cuda_device, i)
+            for i, n in enumerate(sizes or (0,))]
+    before = dict(pbp.LAUNCHES)
+    flat = ops.bucket_pack(segs, bucket_dt)
+    assert pbp.LAUNCHES["bucket_pack"] == before["bucket_pack"] + 1
+    assert flat.device.type == "cuda" and flat.dtype == bucket_dt
+    want = pbp.bucket_pack_plain(segs, bucket_dt)
+    assert torch.equal(flat.view(torch.int16 if bucket_dt == BF16
+                                 else torch.int32),
+                       want.view(torch.int16 if bucket_dt == BF16
+                                 else torch.int32))
+    outs = [torch.empty_like(s) for s in segs]
+    ops.bucket_unpack(flat, segs, out=outs)
+    assert pbp.LAUNCHES["bucket_unpack"] == before["bucket_unpack"] + 1
+    for o, w in zip(outs, pbp.bucket_unpack_plain(flat, segs)):
+        assert torch.equal(o, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 20, (1 << 22) + 100])
+@pytest.mark.parametrize("scale", [1e-6, 1.0, 1e4])
+def test_quant8_bitwise(cuda_device, n, scale):
+    x = _rand((n,), F32, cuda_device, n) * scale
+    if n > 512:
+        x[:256] = 0.0  # an all-zero block
+    before = dict(pq8.LAUNCHES)
+    q, s = ops.quantize_blockwise(x)
+    y = ops.dequantize_blockwise(q, s)
+    assert pq8.LAUNCHES["quantize_blockwise"] == \
+        before["quantize_blockwise"] + 1
+    assert pq8.LAUNCHES["dequantize_blockwise"] == \
+        before["dequantize_blockwise"] + 1
+    qw, sw = pq8.quantize_blockwise_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qw)
+    assert torch.equal(s.view(torch.int32), sw.view(torch.int32))
+    yw = pq8.dequantize_blockwise_plain(qw, sw)
+    assert torch.equal(y.view(torch.int32), yw.view(torch.int32))
+
+
+@pytest.fixture
+def group(tmp_path):
+    if dist.is_initialized():
+        yield
+        return
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bulk", "per_leaf", "partitioned"])
+def test_train_step_launches_pack_per_plan(cuda_device, group, mode):
+    cfg = get_smoke_config("llama3.2-1b").replace(param_dtype="float32")
+    scfg = steps.StepConfig(sync_mode=mode, aggr_bytes=1 << 12,
+                            param_dtype="float32", warmup_steps=1)
+    batch = pipeline.for_model(cfg, 32, 2).batch(0)
+    state = steps.build_state(cfg, 0, cuda_device)
+    model = state["params"]
+    leaves = [s for _, s in lm.param_leaves(model.named_parameters())]
+    layer = [s for _, s in lm.param_leaves(model.layers[0]
+                                           .named_parameters())]
+    multi = lambda ls, aggr: sum(  # noqa: E731
+        len(b.leaf_ids) > 1 for b in bucketing.make_plan(ls, aggr).buckets)
+    if mode == "partitioned":
+        rest = [s for n, s in lm.param_leaves(model.named_parameters())
+                if not n.startswith("layers.")]
+        want = cfg.n_layers * multi(layer, 1 << 12) + multi(rest, 1 << 12)
+    else:
+        want = multi(leaves, 256 << 20 if mode == "bulk" else 0)
+    step = steps.make_train_step(cfg, scfg, seq_len=32, batch=2,
+                                 device=cuda_device)
+    before = dict(pbp.LAUNCHES)
+    _, loss = step(state, steps.batch_to_device(batch, cuda_device))
+    assert pbp.LAUNCHES["bucket_pack"] - before["bucket_pack"] == want
+    assert pbp.LAUNCHES["bucket_unpack"] - before["bucket_unpack"] == want
+    cpu = steps.build_state(cfg, 0, "cpu")
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(cpu["params"].named_parameters(),
+                                  steps.build_state(cfg, 0, cuda_device)
+                                  ["params"].named_parameters()):
+            a.copy_(b.cpu())
+    cpu_step = steps.make_train_step(cfg, scfg, seq_len=32, batch=2,
+                                     group=dist.new_group(backend="gloo"),
+                                     device="cpu")
+    _, cpu_loss = cpu_step(cpu, steps.batch_to_device(batch, "cpu"))
+    np.testing.assert_allclose(loss.item(), cpu_loss.item(), rtol=1e-5)
