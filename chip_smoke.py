@@ -9,7 +9,9 @@ model serving and training -- phase by phase; every phase prints one line and an
 failure exits non-zero without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
-     every kernel source, one ``nvcc`` each, started together;
+     every kernel source, one ``nvcc`` each, started together, with
+     each flash kernel's registers and spills (``-Xptxas -v``) and the
+     HGMMA and UTMALDG instructions in its SASS (``cuobjdump``);
   2. the fused fabric kernel against its plain PyTorch version
      (``fabric_scan_ref``) on the card, bitwise, in finish and arrivals
      mode at the 32768-rank ``weak_scaling_xxl`` shapes and on a random
@@ -25,20 +27,23 @@ failure exits non-zero without a result:
   6. times at the XXL shapes: the kernel's per super-batch, the plain
      version's, the torch engine's, and the XXL smoke tier's wall time
      with its host assembly;
-  7. the flash-attention kernel against its plain version
-     (``flash_attention_plain``) on the card, f32 and bf16, at the
-     llama3.2-1b prefill shape, a gemma2 shape where the window bites,
-     ragged, decode-like, and head dims 16 and 128;
+  7. the flash-attention kernels against their plain version
+     (``flash_attention_plain``) on the card, f32 (the SIMT kernel) and
+     bf16 (the wgmma kernel), at the llama3.2-1b prefill shape, a gemma2
+     shape where the window bites, ragged, decode-like, and head dims 16
+     and 128;
   8. the serving path: llama3.2-1b at full width (random weights from
      seed 0), the prefill/decode check in f32, then 4 prompts of 1024
      tokens prefilled in bf16 into a 1056-position cache and 32 tokens
-     decoded greedily, with the flash kernel's launch count over that
-     run and the prefill's logits against the same prefill through
-     ``masked_attention``;
-  9. times at the llama prefill shape: the flash kernel, its plain
-     version and ``scaled_dot_product_attention`` (a yardstick only,
-     never on the port's path), the batch's prefill and decode per
-     token;
+     decoded greedily, with the flash kernels' launch counts over that
+     run (every launch through the wgmma kernel) and the prefill's
+     logits against the same prefill through ``masked_attention``;
+  9. times at the llama prefill shape and the gemma2 window shape: the
+     bf16 flash kernel, its plain version and
+     ``scaled_dot_product_attention`` (a yardstick only, never on the
+     port's path), the bound, the share of it and the ratio to SDPA;
+     the f32 SIMT kernel at the llama shape; the batch's prefill and
+     decode per token and the prefill's profile;
  10. the bucket pack/unpack and quant8 kernels, built in phase 1 with
      the others (one ``nvcc`` per source, all four started together),
      bound;
@@ -85,14 +90,16 @@ BASELINE = ROOT / "BENCH_scenarios.json"
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 BF16_TC_FLOPS = 989e12
+F32_FLOPS = 67e12  # f32 on the CUDA cores (the SIMT flash kernel)
 
 # Flash kernel vs its plain version: the reference's own tolerances
 # (tests/test_kernels.py), as rtol = atol.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Prefill logits through the flash kernel vs through masked_attention,
-# both bf16, max |dlogit|.  The two softmaxes round differently (the
-# kernel keeps P.V in f32, the model path casts probabilities to bf16
-# first) and the difference passes through 16 bf16 layers; the logits
+# both bf16, max |dlogit|.  Both round the probabilities to bf16 before
+# P.V, but different values (the kernel unnormalised, per key tile
+# against the running max; the model path normalised) and they sum in
+# other orders; the difference passes through 16 bf16 layers; the logits
 # are themselves bf16 products, whose ulp is 0.03 near the top logit of
 # about 4, so 0.25 allows eight ulps.
 SERVE_LOGIT_TOL = 0.25
@@ -282,29 +289,40 @@ def _attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 
 def _flash_bound(case, itemsize: int):
-    """Least time of one call: the larger of its tensor-core FLOPs
-    (QK^T and PV, 2 * 2 * D per kept pair) at the bf16 peak and q, k, v
+    """Least time of one call: the larger of its FLOPs (QK^T and PV,
+    2 * 2 * D per kept pair) at the peak of its type (bf16: the dense
+    tensor cores; f32: the CUDA cores, the SIMT kernel's) and q, k, v
     and o read or written once at the HBM rate."""
     _, b, h, hkv, sq, sk, d, causal, window, _ = case
     flops = 4 * b * h * d * _attn_pairs(sq, sk, causal, window)
     nbytes = itemsize * d * (2 * b * h * sq + 2 * b * hkv * sk)
-    t_ops, t_bytes = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
+    rate = BF16_TC_FLOPS if itemsize == 2 else F32_FLOPS
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def flash_phase(dev, small: bool = False) -> float:
-    """Phase 7: the flash kernel against its plain version on every case
-    in f32 and bf16.  Returns the largest |difference|."""
+def flash_phase(dev, small: bool = False) -> dict:
+    """Phase 7: the flash kernels against their plain version on every
+    case, f32 through the SIMT kernel and bf16 through the wgmma kernel.
+    Returns the largest |difference| per kernel."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    errs = []
+    errs = {"simt": [], "wgmma": []}
     for case in FLASH_CASES_SMALL if small else FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs(case, dtype, dev)
             kw = _flash_kw(case)
+            variant = fa.kernel_variant(q.dtype, k.dtype, v.dtype)
+            check(variant == ("wgmma" if dtype == torch.bfloat16
+                              else "simt"), f"flash {case[0]} {dtype}:"
+                  f" dispatched to the {variant} kernel")
+            before = fa.LAUNCHES[f"flash_attention_{variant}"]
             got = ops.flash_attention(q, k, v, **kw)
+            check(fa.LAUNCHES[f"flash_attention_{variant}"] == before + 1
+                  or dev.type != "cuda",
+                  f"flash {case[0]}: the {variant} kernel did not launch")
             want = fa.flash_attention_plain(q, k, v, **kw)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
@@ -318,12 +336,13 @@ def flash_phase(dev, small: bool = False) -> float:
             ok = bool(((g32 - w32).abs() <= tol + tol * w32.abs()).all())
             check(ok, f"flash {case[0]} {dtype}: max|diff| {err!r} beyond"
                       f" rtol = atol = {tol}")
-            errs.append(err)
+            errs[variant].append(err)
             del q, k, v, got, want, g32, w32
-    print(f"flash kernel vs plain: {len(errs)} cases (f32 within"
-          f" {FLASH_TOL['float32']}, bf16 within {FLASH_TOL['bfloat16']}),"
-          f" max_abs_err={max(errs)!r}")
-    return max(errs)
+    print(f"flash kernels vs plain: {len(errs['simt'])} cases each (f32"
+          f" SIMT within {FLASH_TOL['float32']}, max_abs_err"
+          f" {max(errs['simt'])!r}; bf16 wgmma within"
+          f" {FLASH_TOL['bfloat16']}, max_abs_err {max(errs['wgmma'])!r})")
+    return {k: max(e) for k, e in errs.items()}
 
 
 def serving_phase(dev, small: bool = False) -> dict:
@@ -355,12 +374,18 @@ def serving_phase(dev, small: bool = False) -> dict:
     prompts = serve.make_prompts(cfg, batch, prompt_len, 2, dev)
     t_setup = time.perf_counter() - t0
 
-    fa.LAUNCHES["flash_attention"] = 0
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
     out = serve.generate(cfg, scfg, model, prompts, gen)
-    launches = fa.LAUNCHES["flash_attention"]
-    check(launches == cfg.n_layers or dev.type != "cuda",
-          f"serving path launched the flash kernel {launches} times, not"
-          f" once per layer ({cfg.n_layers})")
+    launches = dict(fa.LAUNCHES)
+    check(launches["flash_attention"] == cfg.n_layers or dev.type != "cuda",
+          f"serving path launched the flash kernel"
+          f" {launches['flash_attention']} times, not once per layer"
+          f" ({cfg.n_layers})")
+    check(launches["flash_attention_wgmma"] == launches["flash_attention"]
+          and launches["flash_attention_simt"] == 0,
+          f"serving path's flash launches did not all go through the wgmma"
+          f" kernel: {launches}")
     logits = out["prefill_logits"]
     toks = out["tokens"]
     check(tuple(logits.shape) == (batch, cfg.vocab_padded)
@@ -383,7 +408,10 @@ def serving_phase(dev, small: bool = False) -> dict:
           f" matrix parameters == param_count; prefill/decode f32 max|d|"
           f" {err_cd!r} (< {serve.CONSISTENCY_TOL}); bf16 prefill"
           f" {batch}x{prompt_len} + {gen} decode steps, flash launches"
-          f" {launches}; flash vs masked_attention prefill max|dlogit|"
+          f" {launches['flash_attention']} (wgmma"
+          f" {launches['flash_attention_wgmma']}, simt"
+          f" {launches['flash_attention_simt']}); flash vs"
+          f" masked_attention prefill max|dlogit|"
           f" {diff!r} (tol {SERVE_LOGIT_TOL}), argmax equal {same}/{batch}"
           f" (top gap {gap!r}); setup {t_setup:.3f} s")
     check(diff <= SERVE_LOGIT_TOL,
@@ -439,41 +467,79 @@ def _profile_serving(dev, serving: dict) -> None:
             print(f"profile {name}: no device time traced")
             continue
         tops = ", ".join(f"{k[:40]} {t / n:.3f} ms" for t, k, _ in top[:3])
+        flash = [(t, c) for t, k, c in top if "flash" in k]
         print(f"profile {name} (per call): wall {wall / n:.3f} ms, device"
               f" busy {busy / n:.3f} ms, idle share {1 - busy / wall:.3f},"
-              f" {events / n:.1f} device events; top: {tops}")
+              f" {events / n:.1f} device events; flash kernels"
+              f" {sum(t for t, _ in flash) / n:.3f} ms in"
+              f" {sum(c for _, c in flash) / n:.1f} launches; top: {tops}")
 
 
-def serving_times(dev, serving: dict, small: bool = False) -> dict:
-    """Phase 9: times at the llama prefill shape and of the serving
-    path.  Returns the flash kernel's table entry."""
+def _sdpa(q, k, v, case):
+    """One ``scaled_dot_product_attention`` call on the operands of a
+    flash case: GQA by ``enable_gqa`` (K/V expanded outside where the
+    PyTorch has no such argument); a window as a boolean mask.  It has
+    no softcap: for a softcap case it is a yardstick of the same shape,
+    not the same function."""
     import torch
     import torch.nn.functional as F
-    from repro_torch import serve
+    _, _, h, hkv, sq, sk, _, causal, window, _ = case
+    kw = {}
+    if window > 0:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        kw["attn_mask"] = (cols <= rows) & (rows - cols < window)
+    else:
+        kw["is_causal"] = causal
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=True, **kw)
+    except TypeError:  # a PyTorch without enable_gqa: expand outside
+        ke = k.repeat_interleave(h // hkv, dim=1)
+        ve = v.repeat_interleave(h // hkv, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, ke, ve, **kw)
+
+
+def _flash_times(case, dtype, dev, reps: int) -> dict:
+    """Kernel, plain version and SDPA times of one flash case, with its
+    bound, the share of the bound and the kernel/SDPA ratio."""
+    import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-
-    case = (FLASH_CASES_SMALL if small else FLASH_CASES)[0]
-    q, k, v = _flash_inputs(case, torch.bfloat16, dev, seed=1)
+    q, k, v = _flash_inputs(case, dtype, dev, seed=1)
     kw = _flash_kw(case)
-    reps = 10 if dev.type == "cuda" else 3
     ms = _timed(lambda: ops.flash_attention(q, k, v, **kw), dev, reps)
     plain_ms = _timed(lambda: fa.flash_attention_plain(q, k, v, **kw), dev,
-                      max(5, reps // 2))
-    group = q.shape[1] // k.shape[1]
-    try:
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
-        sdpa()
-    except TypeError:  # a PyTorch without enable_gqa: expand outside
-        ke = k.repeat_interleave(group, dim=1)
-        ve = v.repeat_interleave(group, dim=1)
+                      max(3, reps // 4))
+    lib_ms = _timed(_sdpa(q, k, v, case), dev, reps)
+    bound_ms, bound_by, flops, nbytes = _flash_bound(
+        case, torch.finfo(dtype).bits // 8)
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"times flash {case[0]} {tuple(case[1:7])}"
+          f" {str(dtype).split('.')[1]}"
+          f" ({fa.kernel_variant(q.dtype, k.dtype, v.dtype)} kernel):"
+          f" {ms:.4f} ms, flash_attention_plain {plain_ms:.4f} ms,"
+          f" scaled_dot_product_attention {lib_ms:.4f} ms"
+          f"{' (no softcap)' if case[-1] else ''}; bound {bound_ms:.4f} ms"
+          f" ({bound_by}: {flops} FLOPs, {nbytes} bytes), share of bound"
+          f" {bound_ms / ms:.4f}, kernel/SDPA {ms / lib_ms:.3f}")
+    return out
 
-        def sdpa():
-            return F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
-    lib_ms = _timed(sdpa, dev, reps)
-    bound_ms, bound_by, flops, nbytes = _flash_bound(case, 2)
+
+def serving_times(dev, serving: dict, errs: dict,
+                  small: bool = False) -> list:
+    """Phase 9: times at the llama prefill and gemma2 window shapes and
+    of the serving path.  Returns the flash kernels' table entries."""
+    import torch
+    from repro_torch import serve
+
+    cases = FLASH_CASES_SMALL if small else FLASH_CASES
+    reps = 10 if dev.type == "cuda" else 3
+    wgmma = _flash_times(cases[0], torch.bfloat16, dev, reps)
+    _flash_times(cases[1], torch.bfloat16, dev, max(3, reps // 2))
+    simt = _flash_times(cases[0], torch.float32, dev, max(3, reps // 2))
     runs = [serve.generate(serving["cfg"], serving["scfg"], serving["model"],
                            serving["prompts"], serving["gen"])
             for _ in range(3)]
@@ -482,17 +548,19 @@ def serving_times(dev, serving: dict, small: bool = False) -> dict:
     b, s = serving["prompts"].shape
     if dev.type == "cuda":
         _profile_serving(dev, serving)
-    print(f"times llama prefill shape {case[1:7]} bf16 causal: flash kernel"
-          f" {ms:.4f} ms, flash_attention_plain {plain_ms:.4f} ms,"
-          f" scaled_dot_product_attention {lib_ms:.4f} ms, bound"
-          f" {bound_ms:.4f} ms ({bound_by}: {flops} FLOPs, {nbytes} bytes);"
-          f" serving {b}x{s} prefill {prefill_ms:.3f} ms, decode"
+    print(f"times serving {b}x{s} prefill {prefill_ms:.3f} ms, decode"
           f" {decode_ms:.3f} ms per token (median of 3, host clock)")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:124",
-            "launches": serving["launches"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    entry = {"route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:124"}
+    launches = serving["launches"]
+    return [
+        {"name": "flash_attention", **entry,
+         "launches": launches["flash_attention_wgmma"],
+         "max_abs_err": errs["wgmma"], **wgmma},
+        {"name": "flash_attention_simt", **entry,
+         "launches": launches["flash_attention_simt"],
+         "max_abs_err": errs["simt"], **simt}]
 
 
 # ---------------------------------------------------------------------------
@@ -946,6 +1014,35 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
     return entries
 
 
+def _flash_build_report(build, lib_path) -> None:
+    """Each flash kernel's registers and spills from the ``-Xptxas -v``
+    log, and the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
+    in the wgmma kernels' SASS; fails if the wgmma kernel has none."""
+    log = build.log_path("flash_attention").read_text()
+    for m in re.finditer(r"Compiling entry function '(\S+)'.*?\n(.*?)"
+                         r"Used (\d+) registers", log, re.S):
+        inst = re.search(r"flash_wgmma_kernelILi(\d+)E", m.group(1))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill"
+                          r" loads", m.group(2))
+        if inst:
+            print(f"ptxas flash_wgmma_kernel<NC={inst.group(1)}>:"
+                  f" {m.group(3)} registers at entry (setmaxnreg: 240 in"
+                  f" the consumers), spill stores {spill.group(1)},"
+                  f" loads {spill.group(2)} bytes")
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    per_fn = re.split(r"\n\s*Function : ", sass)
+    wg = [f for f in per_fn if f.split("\n", 1)[0].find("flash_wgmma") >= 0]
+    counts = [(len(re.findall(r"\bHGMMA\.", f)),
+               len(re.findall(r"\bUTMALDG\b", f))) for f in wg]
+    print(f"sass flash_wgmma_kernel: {len(wg)} instances, (HGMMA, UTMALDG)"
+          f" each {counts}")
+    check(len(wg) == 4 and all(h > 0 and t > 0 for h, t in counts),
+          "the wgmma flash kernel's SASS lacks HGMMA or UTMALDG")
+
+
 def run(device_name: str = "cuda", small: bool = False) -> dict:
     """All phases on ``device_name``; returns the kernel table.
     ``small`` cuts the serving and training phases to the llama smoke
@@ -993,6 +1090,7 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
                          re.findall(r"(\d+) bytes spill stores", log))
             print(f"ptxas {name}: {len(regs)} kernels, registers {regs},"
                   f" spill stores {spills} bytes")
+        _flash_build_report(build, paths["flash_attention"])
 
     # 2. kernel vs plain version ----------------------------------------
     part_xxl = _smoke_point(xxl, "part")
@@ -1126,10 +1224,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
         "library_ms": None}
 
     # 7-9. the serving path and its flash kernel -------------------------
-    flash_err = flash_phase(dev, small)
+    flash_errs = flash_phase(dev, small)
     serving = serving_phase(dev, small)
-    flash = serving_times(dev, serving, small)
-    flash["max_abs_err"] = flash_err
+    flash = serving_times(dev, serving, flash_errs, small)
     del serving
     if on_card:
         torch.cuda.empty_cache()
@@ -1151,7 +1248,7 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
             train_kernels = train_times(dev, train, errs, small)
         finally:
             dist.destroy_process_group()
-    return {"kernels": [fabric, flash, *train_kernels]}
+    return {"kernels": [fabric, *flash, *train_kernels]}
 
 
 def main() -> int:

@@ -4,9 +4,10 @@ Each source ``csrc/<name>.cu`` exports plain C entry points and is
 compiled by ``nvcc`` into a shared library, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries go into
 ``build/repro_torch/`` at the root of the checkout, named by a hash of
-the source and the flags: an edited source builds anew at first use,
-an unchanged one is loaded as it is.  Nothing is built at import time,
-and the CPU path never calls this module.
+the source and its own flags (:func:`nvcc_flags`): an edited source
+builds anew at first use, an unchanged one is loaded as it is.
+Nothing is built at import time, and the CPU path never calls this
+module.
 """
 
 from __future__ import annotations
@@ -26,12 +27,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # The kernels on the port's paths, one source each.
 KERNELS = ("fabric_scan", "flash_attention", "bucket_pack", "quant8")
 
-# sm_90a (Hopper), exact IEEE arithmetic: no fast-math, no FMA
-# contraction (the fabric, pack and quant8 kernels' results are bitwise;
-# the flash kernel shares the flags).
+# sm_90a (Hopper, for wgmma and setmaxnreg), no fast-math; ptxas prints
+# each kernel's registers and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Kernels whose results are bitwise against their plain versions: exact
+# IEEE arithmetic, no FMA contraction.
+BITWISE = ("fabric_scan", "bucket_pack", "quant8")
+EXACT_FLAGS = ("-fmad=false",)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -48,11 +51,18 @@ def nvcc() -> str:
                        " machine with the CUDA toolkit")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The compiler flags of ``csrc/<name>.cu``: the bitwise kernels add
+    ``-fmad=false``; the flash kernels (within 2e-5 and 2e-2 of their
+    plain versions) may contract multiply-adds."""
+    return NVCC_FLAGS + (EXACT_FLAGS if name in BITWISE else ())
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
     source and flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -77,7 +87,8 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-",
                                    suffix=".so")
         os.close(fd)
-        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *nvcc_flags(name), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
