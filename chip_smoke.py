@@ -49,7 +49,11 @@ failure exits non-zero without a result:
      bound;
  11. pack and unpack against their plain versions, bitwise: every
      f32/bf16 pair, sizes 1 to 129, scalar leaves, 300 leaves, a stacked
-     leaf of 16 segments, the 64 MiB bulk bucket, round trips;
+     leaf of 16 segments, the 64 MiB bulk bucket, segments that are
+     views at odd element offsets (every pair, unpacked from a bucket
+     view at an odd offset), a bf16 bucket whose segments sit at odd
+     offsets, a bucket above the by-value descriptor capacity (the
+     device-table route), round trips;
  12. quantize and dequantize against their plain versions, bitwise: n =
      1, 255, 256, 257 and 2^24 + 100, a zero block, magnitudes 1e-6 and
      1e4, exact ties, round trips;
@@ -57,14 +61,19 @@ failure exits non-zero without a result:
      (random weights from seed 0), 4 x 1024 tokens a step, through
      ``make_train_step`` on a one-rank ``nccl`` group: partitioned for 6
      steps, bulk and per_leaf for 2; the step-0 loss band, pack/unpack
-     launches per step equal to the plan's multi-leaf buckets, equal
+     launches per step equal to the plan's multi-leaf buckets, every
+     bucket's descriptors passed by value, equal
      step-0 losses and gradients across the modes, and the smoke config
      trained on the CPU and on the card within the CPU tests'
      tolerances;
  14. times: pack/unpack at the 64 MiB and 16 KiB buckets beside
-     ``torch.cat``, quantize/dequantize at 2^24 elements, each with its
-     bound, the train step and tokens/s per mode, peak memory and the
-     profile of one step; then the kernel table as one JSON line.
+     ``torch.cat`` / ``torch._foreach_copy_``, with their host enqueue
+     times, and a profile of ten pack and unpack calls on each that must
+     show no host-to-device copy; quantize/dequantize at 2^24 elements
+     (dequantize beside ``torch.mul`` of the int8 values and their
+     scales), each with its bound; the train step and tokens/s per mode,
+     peak memory and the profile of one step; then the kernel table as
+     one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -617,40 +626,74 @@ def _bulk_bucket(dev, small: bool):
     return bulk, ln
 
 
+def _odd_views(dtype, dev, sizes, seed):
+    """Contiguous views of one seeded buffer at odd element offsets
+    (1, 3, 5, ...), 16 elements apart."""
+    offs = [sum(sizes[:i]) + 16 * i + 2 * i + 1 for i in range(len(sizes))]
+    buf = _seeded((offs[-1] + sizes[-1] + 1,), dtype, dev, seed)
+    return [buf[o:o + n] for o, n in zip(offs, sizes)]
+
+
 def pack_phase(dev, small: bool = False) -> float:
     """Phase 11: bucket pack/unpack against their plain versions, bit for
     bit: every f32/bf16 pair at sizes 1, 13, 127, 128 and 129, scalar
     leaves, 300 leaves of mixed dtype, a stacked leaf of 16 segments, the
-    64 MiB bulk bucket, the [ln1, ln2] bucket, and the round trip.
-    Returns the largest |difference| (0.0 when all are bitwise)."""
+    64 MiB bulk bucket, the [ln1, ln2] bucket, segments that are views at
+    odd element offsets (every pair; unpacked from a bucket view at an
+    odd offset into views at odd offsets), a bf16 bucket whose segments
+    sit at odd offsets, a bucket above the by-value capacity (the
+    device-table route), and the round trip.  Returns the largest
+    |difference| (0.0 when all are bitwise)."""
     import torch
     from repro_torch.kernels import bucket_pack as bp
     from repro_torch.kernels import ops
     F32, BF16 = torch.float32, torch.bfloat16
-    cases = []
+    on_card = dev.type == "cuda"
+    cases = []  # (name, segments, bucket dtype, unpack into odd views)
     for sd in (F32, BF16):
         for bd in (F32, BF16):
             cases.append((f"{str(sd)[6:]}->{str(bd)[6:]}",
                           [_seeded((n,), sd, dev, n)
-                           for n in (1, 13, 127, 128, 129)], bd))
+                           for n in (1, 13, 127, 128, 129)], bd, False))
     cases.append(("scalars", [_seeded((), F32, dev, i) for i in range(3)]
-                  + [_seeded((5,), BF16, dev, 9)], F32))
+                  + [_seeded((5,), BF16, dev, 9)], F32, False))
     cases.append(("300 leaves", [
         _seeded(((7 * i) % 131 + 1,), BF16 if i % 3 == 0 else F32, dev, i)
-        for i in range(300)], F32))
+        for i in range(300)], F32, False))
     bulk, ln = _bulk_bucket(dev, small)
-    cases += [("stacked leaf, 16 segments", bulk[1:], F32),
-              ("bulk bucket", bulk, F32), ("[ln1, ln2]", ln, F32)]
+    cases += [("stacked leaf, 16 segments", bulk[1:], F32, False),
+              ("bulk bucket", bulk, F32, False),
+              ("[ln1, ln2]", ln, F32, False)]
+    odd = (1, 13, 127, 128, 129, 4099, 70001)
+    for sd in (F32, BF16):
+        for bd in (F32, BF16):
+            cases.append((f"odd-offset views {str(sd)[6:]}->{str(bd)[6:]}",
+                          _odd_views(sd, dev, odd, 11), bd, True))
+    cases.append(("bf16 bucket, odd offsets", [
+        _seeded((n,), F32, dev, 20 + n) for n in (13, 127, 129, 4099, 70001)],
+        BF16, True))
+    cap = bp.capacity() if on_card else 1016
+    cases.append((f"{cap + 1} segments, above the by-value capacity",
+                  [_seeded((i % 37 + 1,), F32, dev, i)
+                   for i in range(cap + 1)], F32, False))
     err = 0.0
-    for name, segs, bd in cases:
+    for name, segs, bd, shifted in cases:
+        routes = dict(bp.ROUTES)
         flat = ops.bucket_pack(segs, bd)
         want = bp.bucket_pack_plain(segs, bd)
-        outs = [torch.empty_like(s) for s in segs]
-        ops.bucket_unpack(flat, segs, out=outs)
-        fresh = ops.bucket_unpack(flat, segs)
+        src = flat
+        if shifted:  # the bucket read from a view at an odd offset
+            src = torch.empty(flat.numel() + 4, dtype=bd, device=dev)[
+                3:3 + flat.numel()]
+            src.copy_(flat)
+            outs = [o.zero_() for o in _odd_views(
+                segs[0].dtype, dev, [s.numel() for s in segs], 12)]
+        else:
+            outs = [torch.empty_like(s) for s in segs]
+        ops.bucket_unpack(src, segs, out=outs)
+        fresh = ops.bucket_unpack(src, segs)
         back = bp.bucket_unpack_plain(want, segs)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        _sync(dev)
         check(_same_bits(flat, want),
               f"pack {name}: kernel differs from bucket_pack_plain")
         check(all(_same_bits(o, w) and _same_bits(f, w)
@@ -659,11 +702,17 @@ def pack_phase(dev, small: bool = False) -> float:
         if bd == F32:  # f32 holds every f32 and bf16 value: exact trip
             check(all(_same_bits(o, s) for o, s in zip(outs, segs)),
                   f"round trip {name} is not exact")
+        above = len(segs) > cap
+        check(not on_card or bp.ROUTES["table" if above else "by_value"]
+              - routes["table" if above else "by_value"] == 3,
+              f"{name}: launches took the wrong descriptor route")
         err = max(err, float((flat.float() - want.float()).abs().max()))
     print(f"bucket pack/unpack vs plain: {len(cases)} cases bitwise equal"
           f" (4 dtype pairs, scalars, 300 leaves, 16-segment stacked leaf,"
-          f" {sum(s.numel() for s in bulk) * 4} B bulk bucket, [ln1, ln2]),"
-          f" round trips exact, max_abs_err={err!r}")
+          f" {sum(s.numel() for s in bulk) * 4} B bulk bucket, [ln1, ln2],"
+          f" odd-offset views in 4 pairs, bf16 bucket at odd offsets,"
+          f" {cap + 1} segments on the device-table route), round trips"
+          f" exact, max_abs_err={err!r}; by-value capacity {cap}")
     return err
 
 
@@ -776,6 +825,8 @@ def training_phase(dev, small: bool = False) -> dict:
     grads0 = None
     for k in bp.LAUNCHES:
         bp.LAUNCHES[k] = 0
+    for k in bp.ROUTES:
+        bp.ROUTES[k] = 0
     for k in q8.LAUNCHES:
         q8.LAUNCHES[k] = 0
     t_main = time.perf_counter()
@@ -839,6 +890,7 @@ def training_phase(dev, small: bool = False) -> dict:
         if on_card:
             torch.cuda.empty_cache()
     out["launches"] = {**bp.LAUNCHES, **q8.LAUNCHES}
+    out["routes"] = dict(bp.ROUTES)
     out["main_s"] = time.perf_counter() - t_main
     del grads0
     for mode, rec in out["modes"].items():
@@ -853,7 +905,10 @@ def training_phase(dev, small: bool = False) -> dict:
               f" step ms {[round(t, 3) for t in rec['times_ms']]}")
     check(not on_card or out["launches"]["bucket_pack"] > 0,
           "the training path launched no pack kernel")
-    print(f"training main path: launches {out['launches']} over"
+    check(out["routes"]["table"] == 0,
+          "a bucket of the training path took the device-table route")
+    print(f"training main path: launches {out['launches']}, descriptor"
+          f" routes {out['routes']} over"
           f" {sum(n + on_card for _, n in TRAIN_MODES)} steps,"
           f" {out['main_s']:.3f} s")
     if on_card:
@@ -918,9 +973,17 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
     """Phase 14: CUDA-event medians of the pack kernels at the 64 MiB bulk
     bucket and the 16 KiB [ln1, ln2] bucket beside their plain versions
     and one PyTorch call for the same function (``torch.cat`` of the
-    flattened leaves; ``torch._foreach_copy_`` into the leaves), of
-    quantize/dequantize at 2^24 elements beside their plain versions,
-    each with its bound in bytes at 3.35 TB/s; the train step per mode
+    flattened leaves; ``torch._foreach_copy_`` into the leaves, which
+    unpack writes back into as the main path does), timed
+    with the flattening views made inside the timed call and, for the
+    table's ``library_ms``, beforehand; the kernels' host enqueue times;
+    device time per call of the kernels and the two library calls from
+    ``torch.profiler``, whose trace of 10 pack and 10 unpack calls per
+    bucket must hold all 20 kernels and no host-to-device copy; medians of
+    quantize/dequantize at 2^24 elements beside their plain versions
+    (dequantize also beside ``torch.mul`` of the int8 values and their
+    scales, checked bitwise equal), each with its bound in bytes at 3.35
+    TB/s; the train step per mode
     and the profile of one partitioned step.  Returns the four kernels'
     table entries."""
     import torch
@@ -932,10 +995,14 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
     rows = {}
     for name, segs in (("bulk", bulk), ("ln1_ln2", ln)):
         flat = ops.bucket_pack(segs)
-        outs = [torch.empty_like(s) for s in segs]
+        # unpack writes back into the segments it was packed from, as
+        # bucketed_apply does (the same values)
+        outs = segs
         sizes = [s.numel() for s in segs]
         nbytes = 2 * flat.numel() * flat.element_size()
         foreach = getattr(torch, "_foreach_copy_", None)
+        flats = [s.reshape(-1) for s in segs]
+        views = [p.view_as(o) for p, o in zip(flat.split(sizes), outs)]
         rows[name] = {
             "pack": (_timed(lambda: ops.bucket_pack(segs), dev, reps),
                      _timed(lambda: bp.bucket_pack_plain(segs), dev, reps),
@@ -950,7 +1017,34 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
                            lambda: foreach(outs, [
                                p.view_as(o) for p, o in
                                zip(flat.split(sizes), outs)]), dev, reps)),
-            "bound": _bytes_bound(nbytes), "bytes": nbytes}
+            "bound": _bytes_bound(nbytes), "bytes": nbytes,
+            # the two library calls alone, their views made beforehand
+            "ready": (_timed(lambda: torch.cat(flats), dev, reps),
+                      None if foreach is None else _timed(
+                          lambda: foreach(outs, views), dev, reps)),
+            "host": (_host_ms(lambda: ops.bucket_pack(segs), dev, reps),
+                     _host_ms(lambda: ops.bucket_unpack(flat, segs,
+                                                        out=outs),
+                              dev, reps))}
+        if dev.type == "cuda":  # device time per call, and no HtoD copy
+            prof = [_device_profile(fn) for fn in (
+                lambda: ops.bucket_pack(segs),
+                lambda: ops.bucket_unpack(flat, segs, out=outs),
+                lambda: torch.cat(flats), lambda: foreach(outs, views))]
+            print(f"profile pack/unpack {name} bucket, 10 calls each after"
+                  f" a dropped warm-up step: device ms per call pack kernel"
+                  f" {prof[0][0]!r}, unpack kernel {prof[1][0]!r},"
+                  f" torch.cat {prof[2][0]!r}, torch._foreach_copy_"
+                  f" {prof[3][0]!r}; the kernels' device events"
+                  f" {prof[0][3]} and {prof[1][3]}; HtoD memcpy events"
+                  f" {prof[0][2]} and {prof[1][2]}")
+            for (_, events, htod, names), what in zip(prof, ("pack",
+                                                            "unpack")):
+                check(events == 10 and all("bucket_kernel" in k
+                                           for k, _ in names),
+                      f"{what} {name}: 10 calls did not trace 10 kernels")
+                check(htod == 0,
+                      f"{what} {name}: the calls issued HtoD copies")
         print(f"times pack/unpack {name} bucket ({len(segs)} segments,"
               f" {flat.numel() * 4} B f32): pack kernel"
               f" {rows[name]['pack'][0]:.4f} ms, plain"
@@ -959,7 +1053,12 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
               f" {rows[name]['unpack'][0]:.4f} ms, plain"
               f" {rows[name]['unpack'][1]:.4f} ms, torch._foreach_copy_"
               f" {rows[name]['unpack'][2]!r} ms; bound"
-              f" {rows[name]['bound'][0]:.5f} ms ({nbytes} bytes each)")
+              f" {rows[name]['bound'][0]:.5f} ms ({nbytes} bytes each);"
+              f" with their views made beforehand torch.cat"
+              f" {rows[name]['ready'][0]:.4f} ms, torch._foreach_copy_"
+              f" {rows[name]['ready'][1]!r} ms; host enqueue pack"
+              f" {rows[name]['host'][0]:.4f} ms, unpack"
+              f" {rows[name]['host'][1]:.4f} ms")
     n = (1 << 16) if small else (1 << 24)
     x = _seeded((n,), torch.float32, dev, 3)
     q, s = ops.quantize_blockwise(x)
@@ -968,14 +1067,21 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
         "quantize_blockwise": (
             _timed(lambda: ops.quantize_blockwise(x), dev, reps),
             _timed(lambda: q8.quantize_blockwise_plain(x), dev, reps),
-            _bytes_bound(4 * n + n + 4 * nb)),
+            _bytes_bound(4 * n + n + 4 * nb), None),
         "dequantize_blockwise": (
             _timed(lambda: ops.dequantize_blockwise(q, s), dev, reps),
             _timed(lambda: q8.dequantize_blockwise_plain(q, s), dev, reps),
-            _bytes_bound(n + 4 * nb + 4 * n))}
-    for name, (ms, plain, (bound, _)) in quant.items():
+            _bytes_bound(n + 4 * nb + 4 * n),
+            _timed(lambda: torch.mul(q.view(-1, q8.BLOCK), s[:, None]),
+                   dev, reps))}
+    # the library call is the same function: int8 -> f32, one rounding
+    check(_same_bits(torch.mul(q.view(-1, q8.BLOCK), s[:, None]).reshape(-1),
+                     ops.dequantize_blockwise(q, s)),
+          "torch.mul(q, scale) differs from the dequantize kernel")
+    for name, (ms, plain, (bound, _), lib) in quant.items():
         print(f"times {name} n={n}: kernel {ms:.4f} ms, plain {plain:.4f}"
-              f" ms, bound {bound:.5f} ms")
+              f" ms, bound {bound:.5f} ms, library"
+              f" {'none' if lib is None else f'{lib:.4f} ms (torch.mul)'}")
     for mode, rec in train["modes"].items():
         print(f"times train {train['cfg'].name} {mode}: step"
               f" {rec['step_ms']:.3f} ms (median after step 0),"
@@ -986,16 +1092,18 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
             tops = ", ".join(f"{k[:48]} {t:.3f} ms" for t, k, _ in evs[:4])
             sync = {w: (sum(t for t, k, _ in evs if w in k.lower()),
                         sum(c for _, k, c in evs if w in k.lower()))
-                    for w in ("nccl", "pack_kernel", "memcpy")}
+                    for w in ("nccl", "bucket_kernel", "memcpy", "htod")}
             print(f"profile train step ({mode}): wall {wall:.3f} ms, device"
                   f" busy {busy:.3f} ms, idle share {1 - busy / wall:.3f},"
                   f" {events} device events; top: {tops}; (device ms,"
-                  f" events) of nccl / pack kernels / memcpy: {sync}")
+                  f" events) of nccl / pack kernels / memcpy / HtoD"
+                  f" memcpy: {sync}")
     entries = []
     src = "src/repro_torch/csrc/"
-    for name, line, key in (("bucket_pack", 76, "pack"),
-                            ("bucket_unpack", 111, "unpack")):
-        ms, plain, lib = rows["bulk"][key]
+    for name, line, key, i in (("bucket_pack", 76, "pack", 0),
+                               ("bucket_unpack", 111, "unpack", 1)):
+        ms, plain, _ = rows["bulk"][key]
+        lib = rows["bulk"]["ready"][i]  # one library call, nothing else
         entries.append({
             "name": name, "route": "cuda", "source": src + "bucket_pack.cu",
             "replaces": f"src/repro/kernels/bucket_pack.py:{line}",
@@ -1004,14 +1112,40 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
             "bound_by": "bytes", "library_ms": lib})
     for name, line in (("quantize_blockwise", 59),
                        ("dequantize_blockwise", 80)):
-        ms, plain, (bound, by) = quant[name]
+        ms, plain, (bound, by), lib = quant[name]
         entries.append({
             "name": name, "route": "cuda", "source": src + "quant8.cu",
             "replaces": f"src/repro/kernels/quant8.py:{line}",
             "launches": train["launches"][name], "max_abs_err": errs["quant"],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None})
+            "library_ms": lib})
     return entries
+
+
+def _device_profile(fn, n: int = 10):
+    """Device ms per call, device events and host-to-device copies of
+    ``n`` calls of ``fn`` under ``torch.profiler``, after a warm-up step
+    that the profiler traces and drops (a trace may lose the first events
+    after it starts).  Also the device events' names and counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [(e.key, e.count, e.self_device_time_total / 1e3)
+           for e in traced[-1]
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(t for _, _, t in evs) / n, sum(c for _, c, _ in evs),
+            sum(c for k, c, _ in evs if "htod" in k.lower()),
+            [(k[:60], c) for k, c, _ in evs])
 
 
 def _flash_build_report(build, lib_path) -> None:

@@ -34,7 +34,7 @@ def bucket_pack(leaves: Sequence[torch.Tensor],
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Flatten, cast to ``out_dtype`` (default: the first leaf's) and
     concatenate f32/bf16 leaves into one flat bucket."""
-    if leaves and leaves[0].device.type == "cpu":
+    if leaves and leaves[0].is_cpu:
         return _bp.bucket_pack_plain(leaves, out_dtype)
     return _bp.bucket_pack(leaves, out_dtype)
 
@@ -44,7 +44,7 @@ def bucket_unpack(flat: torch.Tensor, templates: Sequence[torch.Tensor],
                   ) -> List[torch.Tensor]:
     """Split a flat bucket into pieces shaped and typed like
     ``templates``; written into ``out`` in place when given."""
-    if flat.device.type == "cpu":
+    if flat.is_cpu:
         return _bp.bucket_unpack_plain(flat, templates, out)
     return _bp.bucket_unpack(flat, templates, out)
 

@@ -4,9 +4,11 @@ These tests need a CUDA device and no JAX, so they run on the GPU
 machine (``python -m pytest tests/test_torch_train_kernels.py -m gpu``)
 and skip elsewhere.  On CUDA tensors the ``ops`` entry points must
 launch the kernels (each count grows by one) and equal the plain
-versions bit for bit; a training step of the llama3.2-1b smoke model
-must launch the pack kernels once per multi-leaf bucket of the plan and
-agree with the same step on the CPU.
+versions bit for bit, also for segments, destinations and buckets that
+are views at odd element offsets and for buckets above the by-value
+descriptor capacity (the device-table route); a training step of the
+llama3.2-1b smoke model must launch the pack kernels once per
+multi-leaf bucket of the plan and agree with the same step on the CPU.
 """
 
 import numpy as np
@@ -61,6 +63,72 @@ def test_pack_unpack_bitwise(cuda_device, seg_dt, bucket_dt, sizes):
     assert pbp.LAUNCHES["bucket_unpack"] == before["bucket_unpack"] + 1
     for o, w in zip(outs, pbp.bucket_unpack_plain(flat, segs)):
         assert torch.equal(o, w)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == BF16 else torch.int32)
+
+
+def _views(buf, offsets, sizes):
+    """Contiguous views of ``buf`` at the given element offsets."""
+    return [buf[o:o + n] for o, n in zip(offsets, sizes)]
+
+
+# sizes around a 16-byte vector and past one tile, at odd element offsets
+MISALIGNED_SIZES = (1, 13, 127, 128, 129, 4099, 70001)
+MISALIGNED_OFFSETS = (1, 3, 5, 7, 9, 11, 13)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_dt,bucket_dt", [(F32, F32), (F32, BF16),
+                                              (BF16, F32), (BF16, BF16)])
+@pytest.mark.parametrize("flat_offset", [0, 1, 3])
+def test_pack_unpack_bitwise_misaligned_views(cuda_device, seg_dt, bucket_dt,
+                                              flat_offset):
+    """Segments (and unpack's destinations and bucket) that are views at
+    odd element offsets: heads, tails and all-scalar segments."""
+    n_buf = sum(MISALIGNED_SIZES) + 16 * len(MISALIGNED_SIZES)
+    offs = [sum(MISALIGNED_SIZES[:i]) + 16 * i + MISALIGNED_OFFSETS[i]
+            for i in range(len(MISALIGNED_SIZES))]
+    segs = _views(_rand((n_buf,), seg_dt, cuda_device, 7), offs,
+                  MISALIGNED_SIZES)
+    flat = ops.bucket_pack(segs, bucket_dt)
+    want = pbp.bucket_pack_plain(segs, bucket_dt)
+    assert torch.equal(_bits(flat), _bits(want))
+    total = flat.numel()
+    shifted = torch.empty(total + 8, dtype=bucket_dt, device=cuda_device)
+    src = shifted[flat_offset:flat_offset + total]
+    src.copy_(flat)
+    outs = _views(torch.zeros(n_buf, dtype=seg_dt, device=cuda_device),
+                  offs, MISALIGNED_SIZES)
+    ops.bucket_unpack(src, segs, out=outs)
+    for o, w in zip(outs, pbp.bucket_unpack_plain(src, segs)):
+        assert torch.equal(_bits(o), _bits(w))
+    if bucket_dt == F32:  # f32 holds every f32 and bf16 value: exact trip
+        assert all(torch.equal(_bits(o), _bits(s))
+                   for o, s in zip(outs, segs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_dt,bucket_dt", [(F32, F32), (BF16, F32),
+                                              (F32, BF16)])
+def test_pack_unpack_bitwise_above_capacity(cuda_device, seg_dt, bucket_dt):
+    """More segments than a launch takes by value: the device-table
+    route, one launch each way."""
+    k = pbp.capacity() + 1
+    segs = [_rand((i % 37 + 1,), seg_dt, cuda_device, i) for i in range(k)]
+    before, routes = dict(pbp.LAUNCHES), dict(pbp.ROUTES)
+    flat = ops.bucket_pack(segs, bucket_dt)
+    outs = [torch.empty_like(s) for s in segs]
+    ops.bucket_unpack(flat, segs, out=outs)
+    assert pbp.LAUNCHES["bucket_pack"] == before["bucket_pack"] + 1
+    assert pbp.LAUNCHES["bucket_unpack"] == before["bucket_unpack"] + 1
+    assert pbp.ROUTES["table"] == routes["table"] + 2
+    assert pbp.ROUTES["by_value"] == routes["by_value"]
+    assert torch.equal(_bits(flat),
+                       _bits(pbp.bucket_pack_plain(segs, bucket_dt)))
+    for o, w in zip(outs, pbp.bucket_unpack_plain(flat, segs)):
+        assert torch.equal(_bits(o), _bits(w))
 
 
 @pytest.mark.gpu
