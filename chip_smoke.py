@@ -15,18 +15,22 @@ failure exits non-zero without a result:
   2. the fused fabric kernel against its plain PyTorch version
      (``fabric_scan_ref``) on the card, bitwise, in finish and arrivals
      mode at the 32768-rank ``weak_scaling_xxl`` shapes and on a random
-     grid whose stages need masked buckets;
+     grid whose rank-records are ragged, one Zipf-heavy rank far the
+     deepest;
   3. the main path: the ``weak_scaling_xxl`` smoke tier on engine
      ``cuda``, held against the golden ``BENCH_scenarios.json``, with
-     the kernel's launch count over that run;
+     the kernel's launch count over that run: one per super-batch;
   4. engine agreement: the ``weak_scaling_xl`` smoke tier on engines
      ``torch`` and ``cuda``, bitwise equal and both on the baseline;
   5. the warm path: a 512-rank stencil through ``CudaFabric`` with the
      normal adaptive routing, and a second warm batch, exact against the
      NumPy engine;
-  6. times at the XXL shapes: the kernel's per super-batch, the plain
-     version's, the torch engine's, and the XXL smoke tier's wall time
-     with its host assembly;
+  6. times at the XXL shapes: the kernel's per super-batch (event
+     window, host enqueue and profiler device time, against the bound
+     in the bytes of the earlier stage-bucketed layout and in its own),
+     the plain version's, the torch engine's, the kernel's on the random
+     grid of phase 2, and the XXL smoke tier's wall time with its host
+     assembly;
   7. the flash-attention kernels against their plain version
      (``flash_attention_plain``) on the card, f32 (the SIMT kernel) and
      bf16 (the wgmma kernel), at the llama3.2-1b prefill shape, a gemma2
@@ -61,8 +65,10 @@ failure exits non-zero without a result:
      (random weights from seed 0), 4 x 1024 tokens a step, through
      ``make_train_step`` on a one-rank ``nccl`` group: partitioned for 6
      steps, bulk and per_leaf for 2; the step-0 loss band, pack/unpack
-     launches per step equal to the plan's multi-leaf buckets, every
-     bucket's descriptors passed by value, equal
+     launches per step equal to the plan's multi-leaf buckets,
+     all-reduces per step equal to the plan's buckets plus the loss's
+     (a stacked leaf is one), every bucket's descriptors passed by
+     value, equal
      step-0 losses and gradients across the modes, and the smoke config
      trained on the CPU and on the card within the CPU tests'
      tolerances;
@@ -77,6 +83,14 @@ failure exits non-zero without a result:
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
+
+    python3 chip_smoke.py --fabric-times [TREE]
+
+times only the fabric kernel of the source tree ``TREE`` (default: this
+checkout; an earlier commit unpacked with ``git archive`` works too), on
+the XXL super-batch and the random grid of phase 2, and prints one JSON
+line: the way to hold two versions of the kernel against each other in
+one session on one card.
 """
 
 from __future__ import annotations
@@ -192,9 +206,10 @@ def _max_abs_err(a, b) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
-def _random_masked_grid(device):
-    """A random super-batch whose stage and finish groups span many
-    distinct depths, so every stage is bucketed with masks."""
+def _random_ragged_grid(device):
+    """A random super-batch whose rank-records are ragged: Zipf-skewed
+    senders, so rank 0's record is far the deepest (about a quarter of
+    the messages) and one thread's chain the longest."""
     import numpy as np
     from repro_torch.core import fabric_cuda as fc
     from repro_torch.core.fabric import DEFAULT_NET
@@ -219,39 +234,39 @@ def _random_masked_grid(device):
 
 
 def _scan_bytes(ops) -> int:
-    """Bytes the super-batch must move at least: every input read once,
-    the per-rank output written once."""
-    seen = {}
+    """Bytes the super-batch moves at least in the kernel's layout:
+    every input read once (three float64 columns, the slot and output
+    words, the finish offsets, the record descriptors and block starts,
+    warm clocks), every output written once."""
+    n, (g1, r, g3) = ops.n, ops.sizes
+    inputs = 32 * n + 4 * ops.desc.numel() + 4 * ops.cta.numel()
+    if ops.init is not None:
+        inputs += 8 * (g1 + r + g3)
+    if ops.finish:
+        return inputs + 8 * n + 8 * ops.n_out
+    return inputs + 8 * n + 8 * (g1 + r + g3)
 
-    def add(t):
-        if t is not None:
-            seen[t.data_ptr()] = t.numel() * t.element_size()
-    for t in (ops.t_ready, ops.c1, ops.c3, ops.rdv, *ops.init, ops.pos3,
-              ops.fperm, ops.foff):
-        add(t)
-    for bks in ops.stages:
-        for b in bks:
-            add(b.ridx)
-            add(b.cidx)
-            add(b.mask)
-    for b in (*ops.fin_flows, *ops.fin_ranks):
-        add(b.idx)
-        add(b.mask)
-    out = ops.n_rank_out if ops.finish else ops.n + sum(
-        a.numel() for a in ops.init)
-    return sum(seen.values()) + 8 * out
+
+def _legacy_bytes(ops, fins) -> int:
+    """The same work's bytes as the earlier stage-bucketed layout counted
+    them (finish mode, exact-depth buckets): four float64 columns, five
+    int32 bucket indices per message, the stage clocks, per flow its
+    permutation, offset and rank index, and one float per receiving
+    rank.  The bound's reference, kept for continuity."""
+    import numpy as np
+    g1, r, g3 = ops.sizes
+    flows = sum(len(f.foff) for f in fins)
+    recv = sum(len(np.unique(f.fdst)) for f in fins)
+    return 52 * ops.n + 8 * (g1 + r + g3) + 16 * flows + 8 * recv
 
 
 def _scan_ops(ops) -> int:
-    """Float64 operations of the super-batch: max and add per lane of
-    stages 1 and 2, three adds more per wire lane (rendezvous, delivery
-    tail), a max per reduced lane and one add per flow."""
-    s1, s2, s3 = ops.sizes
-    n = 2 * s1 + 2 * s2 + 5 * s3
-    if ops.finish:
-        n += sum(b.K * b.G for b in (*ops.fin_flows, *ops.fin_ranks))
-        n += ops.fperm.numel()
-    return n
+    """Float64 operations of the super-batch: max and add in each of the
+    three queues and the two adds of the delivery tail per message, the
+    rendezvous add where one is paid, and in finish mode the offset add
+    and the max into the rank."""
+    n_rdv = int((ops.slot < 0).sum())
+    return (10 if ops.finish else 8) * ops.n + n_rdv
 
 
 # (name, B, H, Hkv, Sq, Sk, D, causal, window, softcap)
@@ -789,6 +804,23 @@ def _expected_packs(model, mode: str, aggr: int) -> int:
     return multi(leaves, 256 << 20 if mode == "bulk" else 0)
 
 
+def _expected_all_reduces(model, mode: str, aggr: int) -> int:
+    """All-reduces of one step's sync: one per bucket of the plan, as the
+    JAX package issues them (a stacked leaf is one), plus the loss's."""
+    from repro_torch.core import bucketing
+    from repro_torch.models import lm
+
+    def buckets(leaves, a):
+        return bucketing.make_plan([s for _, s in leaves], a).n_buckets
+    leaves = lm.param_leaves(model.named_parameters())
+    if mode == "partitioned":
+        rest = [lf for lf in leaves if not lf[0].startswith("layers.")]
+        return 1 + buckets(rest, aggr) + sum(
+            buckets(lm.param_leaves(lp.named_parameters()), aggr)
+            for lp in model.layers)
+    return 1 + buckets(leaves, 256 << 20 if mode == "bulk" else 0)
+
+
 def _sync(dev):
     import torch
     if dev.type == "cuda":
@@ -840,7 +872,8 @@ def training_phase(dev, small: bool = False) -> dict:
         step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=batch,
                                      device=dev)
         want = _expected_packs(state["params"], mode, TRAIN_AGGR)
-        losses, times, packs = [], [], []
+        want_ar = _expected_all_reduces(state["params"], mode, TRAIN_AGGR)
+        losses, times, packs, n_ar = [], [], [], []
         for i in range(n_steps):
             before = dict(bp.LAUNCHES)
             _sync(dev)
@@ -852,6 +885,7 @@ def training_phase(dev, small: bool = False) -> dict:
             packs.append((bp.LAUNCHES["bucket_pack"] - before["bucket_pack"],
                           bp.LAUNCHES["bucket_unpack"]
                           - before["bucket_unpack"]))
+            n_ar.append(step.log.count())
             if i == 0:  # step-0 synced gradients, kept on the host
                 g = {n: p.grad.cpu() for n, p in
                      state["params"].named_parameters()}
@@ -878,9 +912,13 @@ def training_phase(dev, small: bool = False) -> dict:
         check(not on_card or all(p == (want, want) for p in packs),
               f"{mode}: pack/unpack launches per step {packs}, the plan"
               f" has {want} multi-leaf buckets")
+        check(all(c == want_ar for c in n_ar),
+              f"{mode}: all-reduces per step {n_ar}, the plan has"
+              f" {want_ar - 1} buckets and the loss one")
         rec = out["modes"].setdefault(mode, {"grad_diff": []})
         rec.update(losses=losses, times_ms=times, packs=packs,
-                   plan_multi=want, n_all_reduce=step.log.count(),
+                   plan_multi=want, n_all_reduce=n_ar,
+                   plan_all_reduce=want_ar,
                    peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
                              if on_card else None))
         if on_card:  # one more step, under the profiler
@@ -899,8 +937,9 @@ def training_phase(dev, small: bool = False) -> dict:
         rec["tokens_per_s"] = out["tokens"] / (rec["step_ms"] / 1e3)
         print(f"train {cfg.name} {mode}: losses {rec['losses']}, pack/unpack"
               f" launches per step {rec['packs']} (plan: {rec['plan_multi']}"
-              f" multi-leaf buckets), {rec['n_all_reduce']} all-reduces a"
-              f" step, step-0 gradients vs partitioned:"
+              f" multi-leaf buckets), all-reduces per step"
+              f" {rec['n_all_reduce']} (plan: {rec['plan_all_reduce'] - 1}"
+              f" buckets + the loss), step-0 gradients vs partitioned:"
               f" {'bitwise equal' if not rec['grad_diff'] else rec['grad_diff'][:3]},"
               f" step ms {[round(t, 3) for t in rec['times_ms']]}")
     check(not on_card or out["launches"]["bucket_pack"] > 0,
@@ -1229,18 +1268,19 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     # 2. kernel vs plain version ----------------------------------------
     part_xxl = _smoke_point(xxl, "part")
     items, fins = _grid([part_xxl])
-    random_item, random_fin = _random_masked_grid(dev)
+    random_item, random_fin = _random_ragged_grid(dev)
+    per_rank = np.bincount(random_item.src, minlength=random_item.n_ranks)
+    sent = per_rank[per_rank > 0]
+    heavy = float(sent.max() / sent.mean())
+    check(heavy > 20 and len(np.unique(sent)) > 100,
+          f"random grid: rank-records not ragged and heavy-ranked"
+          f" (max/mean {heavy:.1f}, {len(np.unique(sent))} depths)")
     errs = []
     cases = (("xxl-finish", items, fins), ("xxl-arrivals", items, None),
-             ("masked-finish", [random_item], [random_fin]),
-             ("masked-arrivals", [random_item], None))
+             ("random-finish", [random_item], [random_fin]),
+             ("random-arrivals", [random_item], None))
     for name, its, fs in cases:
         ops, _ = fc.grid_ops(its, fs, dev)
-        if name.startswith("masked"):
-            masked = [b.mask is not None for bks in ops.stages for b in bks]
-            masked += [b.mask is not None
-                       for b in (*ops.fin_flows, *ops.fin_ranks)]
-            check(sum(masked) >= 3, f"{name}: too few masked buckets")
         got, ref = fc.fabric_scan(ops), fc.fabric_scan_ref(ops)
         if on_card:
             torch.cuda.synchronize()
@@ -1248,18 +1288,32 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
               f"{name}: kernel differs from fabric_scan_ref")
         errs.append(_max_abs_err(got, ref))
     print(f"kernel vs plain: {len(cases)} cases bitwise equal"
-          f" (n={len(items[0])} XXL messages, {len(random_item)} random"
-          f" masked), max_abs_err={max(errs)!r}")
+          f" (n={len(items[0])} XXL messages, {len(random_item)} random:"
+          f" {len(sent)} rank-records of {sent.min()} to {sent.max()}"
+          f" messages, max/mean {heavy:.1f}), max_abs_err={max(errs)!r}")
 
     # 3. the main path: XXL smoke tier on engine cuda -------------------
     cold()
+    batches = []
+    real_scan = fc.fabric_scan
+
+    def counted(ops):
+        batches.append(ops.n)
+        return real_scan(ops)
+    fc.fabric_scan = counted
     fc.LAUNCHES["fabric_scan"] = 0
-    t0 = time.perf_counter()
-    res_xxl = run_spec(xxl, "smoke", engine="cuda", device=dev)
-    wall_xxl = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        res_xxl = run_spec(xxl, "smoke", engine="cuda", device=dev)
+        wall_xxl = time.perf_counter() - t0
+    finally:
+        fc.fabric_scan = real_scan
     launches = fc.LAUNCHES["fabric_scan"]
     check(launches > 0 or not on_card,
           "main path did not launch fabric_scan")
+    check(launches == len(batches) or not on_card,
+          f"fabric_scan: {launches} launches for {len(batches)}"
+          f" super-batches")
     v = compare_to_baseline(baseline, {xxl.name: res_xxl})
     check(not v, "weak_scaling_xxl baseline drift: " + "; ".join(v))
     for key, m in res_xxl.items():
@@ -1269,7 +1323,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
         check(all(np.isfinite(x) for x in m.values()), f"{key}: not finite")
     print(f"main path weak_scaling_xxl smoke (cuda): {len(res_xxl)} records,"
           f" 0 baseline violations, n_messages exact, fabric_scan launches"
-          f" {launches}, wall {wall_xxl:.3f} s")
+          f" {launches} over {len(batches)} super-batches of {batches}"
+          f" messages ({launches / max(1, len(batches)):g} per"
+          f" super-batch), wall {wall_xxl:.3f} s")
 
     # 4. engine agreement on the XL smoke tier --------------------------
     recs = {}
@@ -1319,21 +1375,41 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     reps = 20 if on_card else 3
     ms = _timed(lambda: fc.fabric_scan(ops), dev, reps)
     enqueue_ms = _host_ms(lambda: fc.fabric_scan(ops), dev, reps)
+    prof_ms, prof_events = None, None
+    if on_card:  # ten calls in one traced window: device time a call
+        _, busy, n_ev, _ = _device_split(
+            lambda: [fc.fabric_scan(ops) for _ in range(10)], dev)
+        prof_ms, prof_events = busy / 10, n_ev / 10
     plain_ms = _timed(lambda: fc.fabric_scan_ref(ops), dev, max(3, reps // 4))
     t_ops = ft._bucket_operands(items, dev)
     torch_ms = _timed(lambda: ft._pipeline(t_ops), dev, max(3, reps // 4))
-    nbytes, nops = _scan_bytes(ops), _scan_ops(ops)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP64_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP64_OPS_PER_S
-                else "operations")
+    old_bytes, nbytes = _legacy_bytes(ops, fins), _scan_bytes(ops)
+    nops = _scan_ops(ops)
+    bound_ms = max(old_bytes / HBM_BYTES_PER_S, nops / FP64_OPS_PER_S) * 1e3
+    new_bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                       nops / FP64_OPS_PER_S) * 1e3
+    bound_by = ("bytes" if old_bytes / HBM_BYTES_PER_S
+                >= nops / FP64_OPS_PER_S else "operations")
     per_batch = fc.LAUNCHES["fabric_scan"]
     fc.fabric_scan(ops)
     per_batch = fc.LAUNCHES["fabric_scan"] - per_batch
-    print(f"times XXL super-batch ({ops.n} messages, {per_batch} launches):"
-          f" fabric_scan {ms:.4f} ms (host enqueue {enqueue_ms:.4f} ms),"
-          f" fabric_scan_ref {plain_ms:.4f} ms,"
-          f" torch engine pipeline {torch_ms:.4f} ms, bound {bound_ms:.4f} ms"
-          f" ({nbytes} bytes, {nops} fp64 ops)")
+    print(f"times XXL super-batch ({ops.n} messages, {ops.sizes[1]}"
+          f" rank-records, {per_batch} launch): fabric_scan event window"
+          f" {ms:.4f} ms, host enqueue {enqueue_ms:.4f} ms, profiler"
+          f" device time {prof_ms} ms a call ({prof_events} device events"
+          f" a call); bound {bound_ms:.4f} ms ({old_bytes} bytes as the"
+          f" stage-bucketed layout counted them, {nops} fp64 ops), share"
+          f" {bound_ms / ms:.3f} of the event window and"
+          f" {bound_ms / prof_ms if prof_ms else float('nan'):.3f} of the"
+          f" device time; this layout's {nbytes} bytes give"
+          f" {new_bound_ms:.4f} ms; fabric_scan_ref {plain_ms:.4f} ms,"
+          f" torch engine pipeline {torch_ms:.4f} ms")
+    r_ops, _ = fc.grid_ops([random_item], [random_fin], dev)
+    r_ms = _timed(lambda: fc.fabric_scan(r_ops), dev, reps)
+    print(f"times random grid ({r_ops.n} messages, {r_ops.sizes[1]}"
+          f" rank-records, the deepest {sent.max()}): fabric_scan"
+          f" {r_ms:.4f} ms (finish), bound"
+          f" {_scan_bytes(r_ops) / HBM_BYTES_PER_S * 1e3:.4f} ms in bytes")
     cold()
     t0 = time.perf_counter()
     sim._grid_entries(pts)
@@ -1385,21 +1461,85 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     return {"kernels": [fabric, *flash, *train_kernels]}
 
 
-def main() -> int:
+def fabric_times(tree: Path) -> dict:
+    """The fabric kernel of the source tree ``tree`` on the card: median
+    event-window ms of one super-batch, finish and arrivals mode, at the
+    XXL shapes and on the random ragged grid of phase 2, the finish
+    mode's host enqueue time and launches per super-batch, and the
+    median of three cold XXL super-batch assemblies and uploads (phase
+    6's figure).  Uses only what every version of the port's fabric
+    engine offers (``grid_ops``, ``fabric_scan``, ``LAUNCHES``)."""
+    import torch
+    from repro_torch.core import fabric_cuda as fc
+    from repro_torch.core import simulator as sim
+    from repro_torch.experiments import SPECS
+    dev = torch.device("cuda")
+    pts = [_smoke_point(SPECS["weak_scaling_xxl"], ap)
+           for ap in ("pt2pt_single", "part")]
+    asm = []
+    for _ in range(3):  # phase 6's super-batch assembly and upload, cold
+        sim.clear_merge_memo()
+        sim._grid_entries(pts)
+        t0 = time.perf_counter()
+        items, fins = _grid(pts)
+        fc.grid_ops(items, fins, dev)
+        torch.cuda.synchronize()
+        asm.append(time.perf_counter() - t0)
+    random_item, random_fin = _random_ragged_grid(dev)
+    out = {"tree": str(tree), "card": torch.cuda.get_device_name(0),
+           "assembly_s": sorted(asm)[1]}
+    for name, its, fs in (("xxl", items, fins),
+                          ("random", [random_item], [random_fin])):
+        ops, _ = fc.grid_ops(its, fs, dev)
+        before = fc.LAUNCHES["fabric_scan"]
+        fc.fabric_scan(ops)
+        launches = fc.LAUNCHES["fabric_scan"] - before
+        arr_ops, _ = fc.grid_ops(its, None, dev)
+        out[name] = {"n": sum(len(i) for i in its), "launches": launches,
+                     "ms": _timed(lambda: fc.fabric_scan(ops), dev, 20),
+                     "enqueue_ms": _host_ms(lambda: fc.fabric_scan(ops),
+                                            dev, 20),
+                     "arrivals_ms": _timed(lambda: fc.fabric_scan(arr_ops),
+                                           dev, 20)}
+    return out
+
+
+def _card_ready() -> bool:
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 1
+        return False
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is"
               " False)", file=sys.stderr)
+        return False
+    return True
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not _card_ready():
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir() or not BASELINE.exists():
+    import torch
+    tree = ROOT
+    if argv[:1] == ["--fabric-times"]:
+        tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
+    elif argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 1
+    if not (tree / "src" / "repro_torch").is_dir() or not BASELINE.exists():
         print("chip_smoke: run from a checkout of the repository"
               " (src/repro_torch and BENCH_scenarios.json)", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(tree / "src"))
+    if argv:
+        try:
+            print(json.dumps(fabric_times(tree)))
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     try:
         table = run("cuda")
     except Exception:  # report the failing phase, then fail the run

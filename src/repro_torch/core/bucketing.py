@@ -130,6 +130,19 @@ def unpack(flat: torch.Tensor, bucket: Bucket, templates: Sequence[Leaf],
     return res
 
 
+def _covering_view(segs: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
+    """One flat view over ``segs`` when they are consecutive contiguous
+    slices of one tensor (a stacked leaf's gradient buffer), else None."""
+    base, first = segs[0]._base, segs[0]
+    off = first.storage_offset()
+    for s in segs:
+        if (base is None or s._base is not base or s.dtype != first.dtype
+                or not s.is_contiguous() or s.storage_offset() != off):
+            return None
+        off += s.numel()
+    return first.as_strided((off - first.storage_offset(),), (1,))
+
+
 def bucketed_apply(leaves: Sequence[Leaf],
                    fn: Callable[[torch.Tensor, Bucket], torch.Tensor], *,
                    aggr_bytes: int, n_channels: int = 1) -> Sequence[Leaf]:
@@ -140,21 +153,25 @@ def bucketed_apply(leaves: Sequence[Leaf],
     ``flat`` in place and return it); a cast for the wire is ``fn``'s
     business, as in the JAX package's early-bird sync.  This is the
     workhorse of both the bulk (one large bucket) and the partitioned
-    (per-layer, bounded buckets) gradient-sync modes.
+    (per-layer, bounded buckets) gradient-sync modes.  ``fn`` runs once
+    per bucket, as the JAX package's collective does: a single-leaf
+    bucket whose leaf is one tensor, or segments that are consecutive
+    slices of one buffer, is reduced in place through one view, with no
+    pack and no copy; any other bucket, a stacked leaf with scattered
+    segments included, is packed and unpacked.
     """
     if not leaves:
         return leaves
     plan = make_plan(leaves, aggr_bytes, n_channels)
     for bucket in plan.buckets:
         if len(bucket.leaf_ids) == 1:
-            # Single-leaf bucket (any leaf at or above the aggregation
-            # threshold): apply the collective in place on each segment,
-            # no pack and no copy.
-            for seg in segments(leaves[bucket.leaf_ids[0]]):
-                y = fn(seg, bucket)
-                if y is not seg:
-                    seg.copy_(y)
-            continue
+            segs = segments(leaves[bucket.leaf_ids[0]])
+            whole = segs[0] if len(segs) == 1 else _covering_view(segs)
+            if whole is not None:
+                y = fn(whole, bucket)
+                if y is not whole:
+                    whole.copy_(y)
+                continue
         flat = fn(pack(leaves, bucket), bucket)
         unpack(flat, bucket, leaves, out=leaves)
     return leaves

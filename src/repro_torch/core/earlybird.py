@@ -155,6 +155,21 @@ def finalize_grads(model, sync: SyncConfig, log: SyncLog,
     _bucketed_pmean(grads, sync, log, "final", aggr_override=aggr)
 
 
+def stack_layer_grads(model, layers_key: str = "layers") -> None:
+    """Back each stacked leaf's gradients with one zeroed ``[L, ...]``
+    buffer: layer ``i``'s parameter gets slice ``i`` as its ``.grad``,
+    into which backward accumulates in place.  The leaf then travels as
+    one collective over the whole buffer, as JAX's stacked array does,
+    instead of one per layer."""
+    for name, segs in param_leaves(model.named_parameters()):
+        if name.split(".")[0] != layers_key or len(segs) < 2:
+            continue
+        buf = torch.zeros((len(segs), *segs[0].shape), dtype=segs[0].dtype,
+                          device=segs[0].device)
+        for p, g in zip(segs, buf):
+            p.grad = g
+
+
 def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
     """Backward + the configured gradient synchronization.
 
@@ -163,6 +178,9 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
     ``wrapped(model, *args) -> (loss, grads)`` leaves the synced
     gradients in each parameter's ``.grad`` (cleared first) and returns
     them by parameter name; the loss is averaged over the group too.
+    In bulk and per_leaf mode each stacked leaf's gradients are slices
+    of one buffer (:func:`stack_layer_grads`), so every bucket of the
+    plan is one all-reduce.
     ``wrapped.log`` is the :class:`SyncLog` of the last call.
     """
     def wrapped(model, *args):
@@ -170,6 +188,8 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
         wrapped.log = log
         for p in model.parameters():
             p.grad = None
+        if sync.mode != "partitioned":  # its layer hooks reduce per layer
+            stack_layer_grads(model)
         hook = make_layer_hook(sync, log)
         try:
             val = loss_fn(model, *args, param_hook=hook)

@@ -4,27 +4,30 @@ Hopper, behind the same host-side super-batch assembly as the TPU engine.
 Fourth engine of the port's fabric family (``engine="cuda"``), the
 counterpart of the JAX package's ``core/fabric_pallas.py``.  It advances
 the three-stage resource model — per-rank VCI banks, per-rank NIC,
-per-directed-link wires — and the finish reductions with the kernels of
-``csrc/fabric_scan.cu``:
+per-directed-link wires — and the finish reduction with the one kernel
+of ``csrc/fabric_scan.cu``, one launch per super-batch:
 
   * the whole grid of sweep points is flattened into one cfg-bucketed
-    super-batch; per-stage jagged groups are re-bucketed by segment
-    depth — **exact-depth, mask-free buckets** when a stage has at most
-    :data:`MAX_EXACT_DEPTHS` distinct depths (the common stencil case),
-    padded power-of-two classes with masks otherwise;
+    super-batch and laid out *source-rank-major*: every queue a message
+    passes (VCI ``(src, vci)``, NIC ``src``, wire ``(src, dst)``)
+    belongs to its source rank, so each *rank-record* — one grid item's
+    messages from one rank, in merge order — is walked by one thread,
+    independent of every other (:func:`_rank_layout`);
   * per-message stage-1 costs (previous-owner injection chain, protocol
     copy costs) are precomputed on the host in float64 with exactly the
     scalar engine's operation order, so the device work is nothing but
-    the queue recurrences ``t[i] = max(r[i], t[i-1]) + c[i]``, maxima
-    and one gather-add;
-  * the finish reduction (per-flow max arrival + affine finish offsets +
-    per-rank max) runs on the device — a 32k-rank point returns 32768
-    floats instead of 1.6M arrivals.
+    the queue recurrences ``t[i] = max(r[i], t[i-1]) + c[i]`` and maxima;
+  * the finish reduction (per-flow max arrival + affine finish offset,
+    then the per-rank max) is one max per destination rank over the
+    messages into it of ``arrival + foff[flow]``: ``fl(x + c)`` is
+    monotonic in ``x``, so this equals the flow-max form bit for bit, in
+    any order — a 32k-rank point returns 32768 floats instead of 1.6M
+    arrivals.
 
 The kernel's wrapper is :func:`fabric_scan`; its plain PyTorch version,
-the same bucket walk as torch tensor steps, is :func:`fabric_scan_ref`.
+the same record walk as torch tensor steps, is :func:`fabric_scan_ref`.
 The wrapper takes the plain version only for operands on the CPU; for
-CUDA operands it launches the kernels or raises.
+CUDA operands it launches the kernel or raises.
 
 Precision contract: float64, bit-for-bit equal to ``ReferenceFabric``
 (host costs in float64 with the reference operation order; adding
@@ -46,9 +49,17 @@ from .fabric import NetConfig
 from .fabric_torch import (DTYPE, GridItem, TorchFabric, _raw_layouts,
                            resolve_device)
 
-# A stage whose groups span at most this many distinct depths is
-# bucketed by *exact* depth — no padding, no masks, no wasted lanes.
-MAX_EXACT_DEPTHS = 8
+# The kernel's launch shape and operand encoding (csrc/fabric_scan.cu):
+THREADS = 128          # rank-records (threads) per block
+WARP = 32
+SMEM_DOUBLES = 6144    # VCI + link carries a block keeps in shared memory
+VCI_LIMIT = 1 << 8     # slot word: VCI slot in bits 0-7,
+LINK_LIMIT = 1 << 23   # link slot in bits 8-30,
+RDV_BIT = 1 << 31      # the rendezvous flag in bit 31
+# Columns of a record's descriptor (the kernel's ``Record``: 12 int32,
+# the last one padding to 48 bytes).
+M0, STRIDE, KW, TAIL, DEPTH, REC, CV0, NV, CL0, NL, SOFF = range(11)
+DESC_FIELDS = 12
 
 
 @dataclass
@@ -56,67 +67,15 @@ class FinishSpec:
     """Device-side finish reduction of one grid item.
 
     Valid only for *affine* finishes (``finish_batch(flows, None, x) ==
-    x + foff`` elementwise — the caller probes this): the kernels then
-    compute per-flow max arrival + ``foff`` and the per-rank max of
-    those, returning per-rank completion times directly.
+    x + foff`` elementwise — the caller probes this) with offsets >= 0:
+    the kernel then takes, per destination rank, the max over the
+    messages into it of arrival + ``foff`` of the message's flow, which
+    is the per-flow max arrival + ``foff``, maxed per rank.
     """
     fid: np.ndarray    # (n,) flow id of each merge-ordered message
     foff: np.ndarray   # (F,) affine finish offset per flow
     fdst: np.ndarray   # (F,) destination rank per flow
     n_ranks: int
-
-
-@dataclass
-class _Bucket:
-    """One depth-class of a stage: ``idx[k, g]`` is the global message
-    id of the k-th member of the bucket's g-th segment; ``mask`` marks
-    real slots (None when the bucket is exact-depth); ``sel`` names the
-    segments as indices into the stage's concatenated group list."""
-    idx: np.ndarray
-    mask: Optional[np.ndarray]
-    sel: np.ndarray
-
-
-def _stage_buckets(order: np.ndarray, counts: np.ndarray,
-                   offsets: np.ndarray, n: int
-                   ) -> Tuple[List[_Bucket], np.ndarray, int]:
-    """Re-bucket one stage's jagged segments by depth class.
-
-    Returns ``(buckets, pos, size)``: ``pos[i]`` is message i's slot in
-    the stage's flat scan-output vector (concatenation of the buckets'
-    raveled ``(K, G)`` matrices, ``size`` total slots).
-    """
-    exact = len(np.unique(counts)) <= MAX_EXACT_DEPTHS
-    if exact:
-        kcls = counts
-    else:  # counts >= 1 always; log2 of an exact power of two is exact
-        kcls = (1 << np.ceil(np.log2(np.maximum(counts, 1)))
-                .astype(np.int64))
-    pos = np.empty(n, dtype=np.int64)
-    buckets: List[_Bucket] = []
-    base = 0
-    for K in np.unique(kcls).tolist():
-        sel = np.nonzero(kcls == K)[0]
-        G = len(sel)
-        cnt = counts[sel]
-        offs = offsets[sel]
-        total = int(cnt.sum())
-        starts = np.zeros(G, dtype=np.int64)
-        np.cumsum(cnt[:-1], out=starts[1:])
-        within = np.arange(total, dtype=np.int64) - np.repeat(starts, cnt)
-        col = np.repeat(np.arange(G, dtype=np.int64), cnt)
-        members = order[np.repeat(offs, cnt) + within]
-        idx = np.zeros((K, G), dtype=np.int32)
-        idx[within, col] = members
-        if int(cnt.min()) == K:
-            mask = None
-        else:
-            mask = np.zeros((K, G), dtype=bool)
-            mask[within, col] = True
-        pos[members] = base + within * G + col
-        buckets.append(_Bucket(idx=idx, mask=mask, sel=sel))
-        base += K * G
-    return buckets, pos, base
 
 
 def _cost_columns(t_ready, nbytes, thread, put, am_copy, cfg: NetConfig,
@@ -160,65 +119,173 @@ def _cost_columns(t_ready, nbytes, thread, put, am_copy, cfg: NetConfig,
 
 
 # ---------------------------------------------------------------------------
+# The source-rank-major layout
+# ---------------------------------------------------------------------------
+
+def _item_records(lays, n_vcis: int, n_ranks: int):
+    """One grid item's rank-records from its stage layouts.
+
+    A record is one source rank's messages in merge order (the stage-2
+    groups of ``lays``).  Its VCI carries are the stage-1 groups of that
+    rank and its link carries the stage-3 groups, consecutive in their
+    stages' group order, so a message's *slot* is its group's index
+    minus the record's first group.  Returns ``(order, offs, depth, cv0,
+    nv, cl0, nl, vslot, lslot)``: per record the message list in
+    ``order[offs:offs + depth]`` and the carry ranges; per message (in
+    input order) its two slots.
+    """
+    (o1, u1, n1, _), (o2, u2, n2, f2), (o3, u3, n3, _) = lays
+    n = o2.shape[0]
+
+    def group_of(order, counts):
+        g = np.empty(n, dtype=np.int64)
+        g[order] = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+        return g
+    rec = group_of(o2, n2)
+    cv0 = np.searchsorted(u1 // n_vcis, u2)
+    cl0 = np.searchsorted(u3 // n_ranks, u2)
+    nv = np.diff(np.append(cv0, len(u1)))
+    nl = np.diff(np.append(cl0, len(u3)))
+    return (o2, f2, n2, cv0, nv, cl0, nl, group_of(o1, n1) - cv0[rec],
+            group_of(o3, n3) - cl0[rec])
+
+
+def _positions(desc: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Where each record's messages lie: ``(rep, k, pos)`` over every
+    (record, step) pair, record-major — record index, step and layout
+    position (``m0 + stride * k`` while ``k < kw``, else ``tail + k -
+    kw``)."""
+    d = desc[:, DEPTH].astype(np.int64)
+
+    def per_step(col):
+        return np.repeat(desc[:, col].astype(np.int64), d)
+    starts = np.zeros(len(d), dtype=np.int64)
+    np.cumsum(d[:-1], out=starts[1:])
+    rep = np.repeat(np.arange(len(d), dtype=np.int64), d)
+    k = np.arange(rep.shape[0], dtype=np.int64) - np.repeat(starts, d)
+    kw = per_step(KW)
+    pos = np.where(k < kw, per_step(M0) + per_step(STRIDE) * k,
+                   per_step(TAIL) + (k - kw))
+    return rep, k, pos
+
+
+@dataclass
+class RankLayout:
+    """Source-rank-major structure of one super-batch (host arrays, a
+    pure function of the items' ``(src, dst, vci)`` columns)."""
+    perm: np.ndarray    # (n,) message id at each layout position
+    slot: np.ndarray    # (n,) uint32 VCI slot | link slot << 8
+    desc: np.ndarray    # (R, DESC_FIELDS) int32, records in launch order
+    cta: np.ndarray     # (C + 1,) int32 first record of each block
+    smem: int           # doubles of shared memory a block takes
+    n_global: int       # records whose carries live in device memory
+    sizes: tuple        # (VCI carries, records, link carries)
+
+
+def _rank_layout(lays_list, n_vcis_list, n_ranks_list) -> RankLayout:
+    """Lay a super-batch's items out for the kernel.
+
+    Records go deepest first (the longest chains start first, and a
+    warp's records have near-equal depths).  A block takes up to
+    :data:`THREADS` consecutive records whose carries fit
+    :data:`SMEM_DOUBLES` together; a record whose carries alone exceed
+    that keeps them in device memory.  Within each warp, message k of
+    lane j lies at ``base + k * lanes + j`` up to the warp's least depth
+    ``kw``, so a step's loads coalesce; each lane's further messages
+    follow, lane after lane.
+    """
+    parts, mbase, b1, b3 = [], 0, 0, 0
+    for lays, nvc, nrk in zip(lays_list, n_vcis_list, n_ranks_list):
+        o, f, d, cv0, nv, cl0, nl, vs, ls = _item_records(lays, nvc, nrk)
+        parts.append((o + mbase, f + mbase, d, cv0 + b1, nv, cl0 + b3, nl,
+                      vs, ls))
+        mbase += o.shape[0]
+        b1 += len(lays[0][1])
+        b3 += len(lays[2][1])
+    order, offs, depth, cv0, nv, cl0, nl, vslot, lslot = (
+        np.concatenate(c) for c in zip(*parts))
+    n, R = order.shape[0], len(depth)
+    if max(n, b1, b3) >= 2 ** 31:
+        raise ValueError("super-batch too large for int32 indices")
+    if R and (int(vslot.max()) >= VCI_LIMIT or int(lslot.max()) >= LINK_LIMIT):
+        raise ValueError(f"a rank has more than {VCI_LIMIT} VCIs or"
+                         f" {LINK_LIMIT} links")
+    srt = np.argsort(-depth, kind="stable")
+    d = depth[srt]
+    need = (nv + nl)[srt]
+    on_device = need > SMEM_DOUBLES
+    cs = np.zeros(R + 1, dtype=np.int64)
+    np.cumsum(np.where(on_device, 0, need), out=cs[1:])
+    firsts = [0]
+    while firsts[-1] < R:
+        a = firsts[-1]
+        fit = int(np.searchsorted(cs, cs[a] + SMEM_DOUBLES, side="right")) - 1
+        firsts.append(max(a + 1, min(a + THREADS, fit)))
+    cta = np.asarray(firsts, dtype=np.int64)
+    blk = np.repeat(np.arange(len(cta) - 1), np.diff(cta))
+    t = np.arange(R, dtype=np.int64) - cta[blk]
+    g0 = cta[blk] + (t // WARP) * WARP       # first record of the warp
+    lanes = np.minimum(WARP, cta[blk + 1] - g0)
+    lane = t % WARP
+    kw = d[g0 + lanes - 1]                   # the warp's least depth
+    cd = np.zeros(R + 1, dtype=np.int64)
+    np.cumsum(d, out=cd[1:])
+    desc = np.zeros((R, DESC_FIELDS), dtype=np.int64)
+    desc[:, M0] = cd[g0] + lane
+    desc[:, STRIDE] = lanes
+    desc[:, KW] = kw
+    desc[:, TAIL] = cd[g0] + kw * lanes + (cd[:-1] - cd[g0]) - kw * lane
+    desc[:, DEPTH] = d
+    desc[:, REC] = srt
+    desc[:, CV0], desc[:, NV] = cv0[srt], nv[srt]
+    desc[:, CL0], desc[:, NL] = cl0[srt], nl[srt]
+    desc[:, SOFF] = np.where(on_device, -1, cs[:-1] - cs[cta[blk]])
+    rep, k, pos = _positions(desc)
+    perm = np.empty(n, dtype=np.int64)
+    perm[pos] = order[offs[srt][rep] + k]
+    slot = (vslot | (lslot << 8))[perm].astype(np.uint32)
+    smem = int((cs[cta[1:]] - cs[cta[:-1]]).max()) if R else 0
+    return RankLayout(perm=perm, slot=slot, desc=desc.astype(np.int32),
+                      cta=cta.astype(np.int32), smem=smem,
+                      n_global=int(on_device.sum()), sizes=(b1, R, b3))
+
+
+# ---------------------------------------------------------------------------
 # The kernel's operands
 # ---------------------------------------------------------------------------
 
 @dataclass
-class ScanBucket:
-    """One depth-class of one stage, as the scan kernel takes it: the
-    bucket's ``(K, G)`` lanes, step-major and flattened (lane
-    ``k * G + g`` is the k-th message of segment g).  ``ridx[lane]``
-    names where the lane's release time is gathered from (stage 1: the
-    message's ``t_ready``; stages 2 and 3: the previous stage's scan
-    output), ``cidx[lane]`` the message whose per-message costs it pays
-    (stages 1 and 3; None for the NIC's constant service).  ``fo`` and
-    ``go`` place the bucket in its stage's flat scan vector and group
-    vector."""
-    K: int
-    G: int
-    fo: int
-    go: int
-    ridx: object                # (K*G,) int32
-    cidx: object                # (K*G,) int32 or None
-    mask: object                # (K*G,) bool, None when exact-depth
-
-
-@dataclass
-class ReduceBucket:
-    """One depth-class of a finish reduction: output ``go + g`` is the
-    max over k of ``src[idx[k * G + g]]``, masked lanes 0-filled."""
-    K: int
-    G: int
-    go: int
-    idx: object                 # (K*G,) int32
-    mask: object                # (K*G,) bool or None
-
-
-@dataclass
 class ScanOps:
-    """Everything one super-batch hands the kernels.  Index structure
-    and per-call values are held as NumPy arrays while assembled and
-    as tensors on the target device once uploaded (:func:`_upload`)."""
+    """Everything one super-batch hands the kernel, per layout position
+    (:class:`RankLayout`).  Held as NumPy arrays while assembled and as
+    tensors on the target device once uploaded (:func:`_upload`)."""
     t_ready: object             # (n,) float64
     c1: object                  # (n,) float64 stage-1 costs
     c3: object                  # (n,) float64 wire service times
-    rdv: object                 # (n,) float64 rendezvous round trips
-    init: tuple                 # per stage (G_s,) float64 busy-until
-    alpha_wire: float
-    alpha_nic: float
-    alpha_recv: float
-    stages: tuple               # per stage, a list of ScanBucket
-    sizes: tuple                # per stage, flat scan-vector slots
-    pos3: object = None         # arrivals mode: (n,) int32 into ys3
-    fin_flows: tuple = ()       # finish mode: ReduceBuckets over ys3
-    fperm: object = None        # (F,) int32: flow -> flow-max slot
-    foff: object = None         # (F,) float64 affine finish offsets
-    fin_ranks: tuple = ()       # ReduceBuckets over per-flow finishes
-    n_rank_out: int = 0
+    slot: object                # (n,) int32 VCI | link << 8 | rdv << 31
+    out: object                 # (n,) int32 finish: output rank;
+                                #   arrivals: message id
+    desc: object                # (R, DESC_FIELDS) int32
+    cta: object                 # (C + 1,) int32
+    smem: int
+    n_global: int
+    sizes: tuple                # (VCI carries, records, link carries)
+    alpha_wire: float = 0.0
+    alpha_nic: float = 0.0
+    alpha_recv: float = 0.0
+    rdv_add: float = 0.0        # the rendezvous round trip, 2 alpha_wire
+    init: Optional[tuple] = None  # warm busy-until clocks per carry
+                                # (stage group order); None: cold
+    foff: object = None         # finish: (n,) float64 offset per message
+    n_out: int = 0              # finish: ranks in the output
+    # the wrapper's checked launch arguments, made at the first launch
+    # (``dataclasses.replace`` gives a new super-batch without them)
+    launch: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def finish(self) -> bool:
-        return self.fperm is not None
+        return self.foff is not None
 
     @property
     def n(self) -> int:
@@ -226,78 +293,58 @@ class ScanOps:
 
 
 def _set_costs(ops: ScanOps, cfg: NetConfig) -> ScanOps:
-    return dataclasses.replace(ops, alpha_wire=float(cfg.alpha_wire),
-                               alpha_nic=float(cfg.alpha_nic),
-                               alpha_recv=float(cfg.alpha_recv))
+    return dataclasses.replace(
+        ops, alpha_wire=float(cfg.alpha_wire), alpha_nic=float(cfg.alpha_nic),
+        alpha_recv=float(cfg.alpha_recv), rdv_add=2.0 * float(cfg.alpha_wire))
 
 
-def _pack_stage_ops(b1, b2, b3, pos1, pos2):
-    """The three stages' scan buckets in launch order, plus each
-    stage's bucket-major group permutation (for warm-state init and
-    readback vectors).  Stage 2 gathers stage-1 outputs by ``pos1``,
-    stage 3 stage-2 outputs by ``pos2``; the permutations are resolved
-    here on the host, once per structure."""
-    stages = []
-    grp_orders = []
-    for s, bks in enumerate((b1, b2, b3)):
-        out = []
-        fo = go = 0
-        for bk in bks:
-            K, G = bk.idx.shape
-            idx = bk.idx.ravel()
-            if s == 0:
-                ridx, cidx = idx, idx
-            elif s == 1:
-                ridx, cidx = pos1[idx].astype(np.int32), None
-            else:
-                ridx, cidx = pos2[idx].astype(np.int32), idx
-            out.append(ScanBucket(
-                K=K, G=G, fo=fo, go=go, ridx=ridx, cidx=cidx,
-                mask=None if bk.mask is None else bk.mask.ravel()))
-            fo += K * G
-            go += G
-        stages.append(out)
-        grp_orders.append(np.concatenate([bk.sel for bk in bks]))
-    return tuple(stages), grp_orders
-
-
-def _reduce_buckets(buckets: List[_Bucket], values) -> List[ReduceBucket]:
-    """Finish-reduction buckets; ``values`` maps each bucket's member
-    ids to the positions the reduction reads."""
-    out = []
-    go = 0
-    for bk in buckets:
-        K, G = bk.idx.shape
-        out.append(ReduceBucket(
-            K=K, G=G, go=go, idx=values(bk.idx.ravel()).astype(np.int32),
-            mask=None if bk.mask is None else bk.mask.ravel()))
-        go += G
-    return out
+def _slot_words(slot: np.ndarray, rdv: np.ndarray) -> np.ndarray:
+    """The kernel's slot words: structure plus each message's rendezvous
+    flag (``rdv`` per layout position, 0.0 where none is paid)."""
+    return (slot | np.where(rdv != 0.0, np.uint32(RDV_BIT), np.uint32(0))
+            ).view(np.int32)
 
 
 def _check_indices(ops: ScanOps) -> None:
-    """Bounds of every host index array, checked before upload: the
-    kernels trust their indices."""
-    n, (s1, s2, s3) = ops.n, ops.sizes
-    if max(n, s1, s2, s3) >= 2 ** 31:
+    """Every host index, checked before upload: the kernel trusts them.
+    The records' positions cover the layout once, each slot lies within
+    its record's carries, and each block's records fit its shared
+    memory."""
+    n = ops.n
+    (G1, R, G3), desc = ops.sizes, ops.desc.astype(np.int64)
+    if max(n, G1, G3) >= 2 ** 31:
         raise ValueError("super-batch too large for int32 indices")
-
-    def within(a, hi, what):
-        if a is not None and a.size and (int(a.min()) < 0
-                                         or int(a.max()) >= hi):
-            raise ValueError(f"{what} index outside [0, {hi})")
-    for s, (src_len, bks) in enumerate(zip((n, s1, s2), ops.stages)):
-        for b in bks:
-            within(b.ridx, src_len, f"stage-{s + 1} release")
-            within(b.cidx, n, f"stage-{s + 1} cost")
-    within(ops.pos3, s3, "arrival")
-    if ops.finish:
-        F = ops.fperm.shape[0]
-        for b in ops.fin_flows:
-            within(b.idx, s3, "flow-max")
-        within(ops.fperm, F, "flow permutation")
-        for b in ops.fin_ranks:
-            within(b.idx, F, "rank-max")
+    if desc.shape != (R, DESC_FIELDS) or np.any(desc[:, DEPTH] < 1) \
+            or int(desc[:, DEPTH].sum()) != n:
+        raise ValueError("record depths do not cover the messages")
+    if not np.array_equal(np.sort(desc[:, REC]), np.arange(R)):
+        raise ValueError("record carry index outside [0, records)")
+    for lo, cnt, hi, what in ((CV0, NV, G1, "VCI"), (CL0, NL, G3, "link")):
+        if np.any(desc[:, lo] < 0) or np.any(desc[:, lo] + desc[:, cnt] > hi):
+            raise ValueError(f"record {what} carries outside [0, {hi})")
+    rep, _, pos = _positions(desc)
+    if pos.size and (pos.min() < 0 or pos.max() >= n):
+        raise ValueError(f"record position outside [0, {n})")
+    seen = np.zeros(n, dtype=bool)
+    seen[pos] = True
+    if not seen.all():
+        raise ValueError("record positions do not cover the layout once")
+    word = ops.slot[pos].view(np.uint32)
+    if np.any((word & 0xFF) >= desc[rep, NV]) \
+            or np.any(((word >> 8) & (LINK_LIMIT - 1)) >= desc[rep, NL]):
+        raise ValueError("slot index outside its record's carries")
+    hi = ops.n_out if ops.finish else n
+    if n and (int(ops.out.min()) < 0 or int(ops.out.max()) >= hi):
+        raise ValueError(f"output index outside [0, {hi})")
+    cta = ops.cta.astype(np.int64)
+    if cta[0] != 0 or cta[-1] != R or np.any(np.diff(cta) < 1) \
+            or np.any(np.diff(cta) > THREADS):
+        raise ValueError(f"blocks must take 1 to {THREADS} records each")
+    shared = desc[:, SOFF] >= 0
+    if ops.smem > SMEM_DOUBLES or int((~shared).sum()) != ops.n_global or \
+            np.any(desc[shared, SOFF] + desc[shared, NV] + desc[shared, NL]
+                   > ops.smem):
+        raise ValueError("record carries outside the block's shared memory")
 
 
 def _upload(ops: ScanOps, device) -> ScanOps:
@@ -308,93 +355,138 @@ def _upload(ops: ScanOps, device) -> ScanOps:
         if a is None:
             return None
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    def bucket(b):
-        ridx = t(b.ridx)  # stage 1 gathers and pays by the same index
-        cidx = ridx if b.cidx is b.ridx else t(b.cidx)
-        return dataclasses.replace(b, ridx=ridx, cidx=cidx, mask=t(b.mask))
-
-    def rbucket(b):
-        return dataclasses.replace(b, idx=t(b.idx), mask=t(b.mask))
     return dataclasses.replace(
         ops, t_ready=t(ops.t_ready), c1=t(ops.c1), c3=t(ops.c3),
-        rdv=t(ops.rdv), init=tuple(t(a) for a in ops.init),
-        stages=tuple([bucket(b) for b in bks] for bks in ops.stages),
-        pos3=t(ops.pos3),
-        fin_flows=tuple(rbucket(b) for b in ops.fin_flows),
-        fperm=t(ops.fperm), foff=t(ops.foff),
-        fin_ranks=tuple(rbucket(b) for b in ops.fin_ranks))
+        slot=t(ops.slot), out=t(ops.out), desc=t(ops.desc), cta=t(ops.cta),
+        foff=t(ops.foff),
+        init=None if ops.init is None else tuple(t(a) for a in ops.init))
 
 
 # ---------------------------------------------------------------------------
 # The plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _lanes(src: torch.Tensor, idx: torch.Tensor, K: int, G: int):
-    return src[idx.long()].view(K, G)
+def rank_max(n_out: int, dst: torch.Tensor, vals: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The finish reduction: ``out[r]`` is the max of ``vals`` into rank
+    ``r``, 0.0 where none arrives.  Max is exact and order-free, so any
+    order of the messages gives the same bits."""
+    if out is None:
+        out = torch.zeros(n_out, dtype=DTYPE, device=vals.device)
+    return out.scatter_reduce_(0, dst.long(), vals, "amax")
+
+
+# Below this many active records the plain version walks each of them
+# on host floats: a torch step costs more than that many scalar steps.
+LONE_RECORDS = 32
+
+
+def _walk_alone(ops: ScanOps, p: torch.Tensor, vci: list, nic: float,
+                wire: list) -> Tuple[float, list]:
+    """One record's steps at positions ``p`` on host floats (Python's
+    float is an IEEE double, its ``max`` and ``+`` those of the kernel),
+    one message at a time.  ``vci`` and ``wire`` are the record's
+    carries, updated in place.  Returns the NIC carry and the arrivals
+    (plus offsets in finish mode)."""
+    cols = [ops.t_ready[p], ops.c1[p], ops.c3[p], ops.slot[p]]
+    if ops.finish:
+        cols.append(ops.foff[p])
+    out = []
+    for tr, c1, c3, s, *fo in zip(*(c.tolist() for c in cols)):
+        v, li = s & 0xFF, (s >> 8) & (LINK_LIMIT - 1)
+        t1 = max(tr, vci[v]) + c1
+        vci[v] = t1
+        nic = t2 = max(t1, nic) + ops.alpha_nic
+        if s < 0:
+            t2 = t2 + ops.rdv_add
+        t3 = max(t2, wire[li]) + c3
+        wire[li] = t3
+        a = (t3 + ops.alpha_wire) + ops.alpha_recv
+        out.append(a + fo[0] if fo else a)
+    return nic, out
 
 
 def fabric_scan_ref(ops: ScanOps):
     """The fused fabric kernel's plain PyTorch version.
 
-    Walks the same buckets in the same order as the kernels — a Python
-    loop down each bucket's depth axis, vectorized over its segments —
-    with the same IEEE-754 operations.  Finish mode returns the
-    ``(n_rank_out,)`` per-rank times; arrivals mode returns
-    ``(arrivals (n,), carry1, carry2, carry3)``, the carries being each
-    stage's per-group busy-until time without the delivery tail.
+    Walks the same records with the same IEEE-754 operations as the
+    kernel — a Python loop down the depth axis, vectorized over the
+    records still active at each step (the deepest come first, so they
+    are a prefix); once at most :data:`LONE_RECORDS` remain, each walks
+    its remaining steps on host floats (:func:`_walk_alone`).  Finish
+    mode returns the ``(n_out,)`` per-rank times; arrivals mode returns
+    ``(arrivals (n,), carry1, carry2, carry3)``, each stage's busy-until
+    clocks per group in stage group order, the wire carries without the
+    delivery tail.
     """
     dev = ops.t_ready.device
-    ys = [torch.empty(s, dtype=DTYPE, device=dev) for s in ops.sizes]
-    carry = [a.clone() for a in ops.init]
-    srcs = (ops.t_ready, ys[0], ys[1])
-    for s, bks in enumerate(ops.stages):
-        for b in bks:
-            r = _lanes(srcs[s], b.ridx, b.K, b.G)
-            if s == 2:  # rendezvous RTS/CTS delays the wire-queue entry
-                r = r + _lanes(ops.rdv, b.cidx, b.K, b.G)
-            c = (_lanes(ops.c1, b.cidx, b.K, b.G) if s == 0 else
-                 None if s == 1 else _lanes(ops.c3, b.cidx, b.K, b.G))
-            m = None if b.mask is None else b.mask.view(b.K, b.G)
-            cur = carry[s][b.go:b.go + b.G].clone()
-            out = ys[s][b.fo:b.fo + b.K * b.G].view(b.K, b.G)
-            for k in range(b.K):
-                t = torch.maximum(r[k], cur) + \
-                    (ops.alpha_nic if c is None else c[k])
-                out[k] = t
-                cur = t if m is None else torch.where(m[k], t, cur)
-            if s == 2:  # the carried state excludes the delivery tail
-                out.add_(ops.alpha_wire).add_(ops.alpha_recv)
-            carry[s][b.go:b.go + b.G] = cur
-    if not ops.finish:
-        return (ys[2][ops.pos3.long()], *carry)
+    R = ops.sizes[1]
+    desc = ops.desc.long()
+    m0, stride, kw, tail, _, rec, cv0, nv, cl0, nl = \
+        desc[:, :NL + 1].unbind(1)
+    d = ops.desc[:, DEPTH].cpu().numpy()
+    n_act = R - np.searchsorted(d[::-1], np.arange(int(d.max()) if R else 0),
+                                side="right")
+    vectorized = int(np.count_nonzero(n_act > LONE_RECORDS))
+    if ops.init is None:
+        vci, nic, wire = (torch.zeros(s, dtype=DTYPE, device=dev)
+                          for s in ops.sizes)
+    else:
+        vci, nic, wire = (a.clone() for a in ops.init)
+    nic_l = nic[rec]
+    slot = ops.slot.long()
+    arr = None if ops.finish else torch.empty(ops.n, dtype=DTYPE, device=dev)
+    rank_out = rank_max(ops.n_out, ops.out[:0], ops.t_ready[:0]) \
+        if ops.finish else None
 
-    def colmax(src, b, out):
-        v = _lanes(src, b.idx, b.K, b.G)
-        if b.mask is not None:  # arrivals > 0: 0-fill is safe
-            v = torch.where(b.mask.view(b.K, b.G), v, torch.zeros_like(v))
-        out[b.go:b.go + b.G] = v.amax(dim=0)
-    F = ops.fperm.shape[0]
-    fmb = torch.empty(F, dtype=DTYPE, device=dev)
-    for b in ops.fin_flows:
-        colmax(ys[2], b, fmb)
-    fin = fmb[ops.fperm.long()] + ops.foff
-    rank_out = torch.empty(ops.n_rank_out, dtype=DTYPE, device=dev)
-    for b in ops.fin_ranks:
-        colmax(fin, b, rank_out)
-    return rank_out
+    def emit(p, arrival):
+        if ops.finish:
+            rank_max(ops.n_out, ops.out[p], arrival, rank_out)
+        else:
+            arr[ops.out[p].long()] = arrival
+    for k, a in enumerate(n_act[:vectorized].tolist()):
+        p = torch.where(k < kw[:a], m0[:a] + stride[:a] * k,
+                        tail[:a] + (k - kw[:a]))
+        s = slot[p]
+        vi = cv0[:a] + (s & 0xFF)
+        li = cl0[:a] + ((s >> 8) & (LINK_LIMIT - 1))
+        t1 = torch.maximum(ops.t_ready[p], vci[vi]) + ops.c1[p]
+        vci[vi] = t1
+        t2 = torch.maximum(t1, nic_l[:a]) + ops.alpha_nic
+        nic_l[:a] = t2
+        t2 = torch.where(s < 0, t2 + ops.rdv_add, t2)
+        t3 = torch.maximum(t2, wire[li]) + ops.c3[p]
+        wire[li] = t3
+        arrival = (t3 + ops.alpha_wire) + ops.alpha_recv
+        emit(p, arrival + ops.foff[p] if ops.finish else arrival)
+    for i in range(int(n_act[vectorized]) if vectorized < len(n_act) else 0):
+        ks = torch.arange(vectorized, int(d[i]), device=dev)
+        p = torch.where(ks < kw[i], m0[i] + stride[i] * ks,
+                        tail[i] + (ks - kw[i]))
+        v0, w0 = int(cv0[i]), int(cl0[i])
+        vl = vci[v0:v0 + int(nv[i])].tolist()
+        wl = wire[w0:w0 + int(nl[i])].tolist()
+        nic_l[i], vals = _walk_alone(ops, p, vl, float(nic_l[i]), wl)
+        vci[v0:v0 + len(vl)] = torch.tensor(vl, dtype=DTYPE)
+        wire[w0:w0 + len(wl)] = torch.tensor(wl, dtype=DTYPE)
+        emit(p, torch.tensor(vals, dtype=DTYPE, device=dev))
+    if ops.finish:
+        return rank_out
+    nic[rec] = nic_l
+    return arr, vci, nic, wire
 
 
 # ---------------------------------------------------------------------------
 # The kernel's wrapper
 # ---------------------------------------------------------------------------
 
-# Launch count of the hand-written kernels: one per CUDA kernel launch
-# the wrapper makes (a super-batch is several), and nowhere else.
+# Launch count of the hand-written kernel: one per launch the wrapper
+# makes (one per super-batch), and nowhere else.
 LAUNCHES = {"fabric_scan": 0}
 
 _LIB: Dict[str, ctypes.CDLL] = {}
-_VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_VP, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
+    ctypes.c_longlong
 
 
 def _library() -> ctypes.CDLL:
@@ -403,136 +495,106 @@ def _library() -> ctypes.CDLL:
     if lib is None:
         from ..kernels import build
         lib = build.load("fabric_scan")
-        lib.fabric_bucket_scan.argtypes = [
-            _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _D, _VP, _VP, _VP, _VP,
-            _I, _D, _D]
-        lib.fabric_bucket_colmax.argtypes = [_VP, _I, _I, _VP, _VP, _VP,
-                                             _VP]
-        lib.fabric_gather_add.argtypes = [_VP, _I, _VP, _VP, _VP, _VP]
-        for fn in (lib.fabric_bucket_scan, lib.fabric_bucket_colmax,
-                   lib.fabric_gather_add):
-            fn.restype = _I
+        lib.fabric_rank_scan.argtypes = [
+            _VP, _I, _I, _I, *[_VP] * 11, _D, _D, _D, _D, *[_VP] * 5, _LL,
+            _VP, _VP]
+        lib.fabric_rank_scan.restype = _I
         lib.fabric_scan_error_string.argtypes = [_I]
         lib.fabric_scan_error_string.restype = ctypes.c_char_p
         _LIB["fabric_scan"] = lib
     return lib
 
 
-def _launch(lib, fn, *args) -> None:
-    rc = fn(*args)
-    LAUNCHES["fabric_scan"] += 1
-    if rc != 0:
-        msg = lib.fabric_scan_error_string(rc).decode()
-        raise RuntimeError(f"fabric_scan launch failed: CUDA error {rc}"
-                           f" ({msg})")
-
-
-def _need(t, dtype, numel, dev, what) -> None:
+def _need(t, dtype, shape, dev, what) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t)}")
-    if t.device != dev or t.dtype != dtype or t.numel() != numel \
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
         raise ValueError(
-            f"{what}: need a contiguous {dtype} tensor of {numel} elements"
+            f"{what}: need a contiguous {dtype} tensor of shape {shape}"
             f" on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _check_operands(ops: ScanOps, dev) -> None:
     """Device, dtype, contiguity and shape of every operand."""
-    n = ops.n
-    for name in ("t_ready", "c1", "c3", "rdv"):
-        _need(getattr(ops, name), DTYPE, n, dev, name)
-    for s, bks in enumerate(ops.stages):
-        G = sum(b.G for b in bks)
-        _need(ops.init[s], DTYPE, G, dev, f"stage-{s + 1} init")
-        if sum(b.K * b.G for b in bks) != ops.sizes[s]:
-            raise ValueError(f"stage-{s + 1} buckets do not fill its size")
-        for b in bks:
-            _need(b.ridx, torch.int32, b.K * b.G, dev, "release index")
-            if (b.cidx is None) != (s == 1):
-                raise ValueError(f"stage-{s + 1} cost index misplaced")
-            if b.cidx is not None:
-                _need(b.cidx, torch.int32, b.K * b.G, dev, "cost index")
-            if b.mask is not None:
-                _need(b.mask, torch.bool, b.K * b.G, dev, "mask")
-    if not ops.finish:
-        _need(ops.pos3, torch.int32, n, dev, "pos3")
-        return
-    F = ops.fperm.numel()
-    _need(ops.fperm, torch.int32, F, dev, "fperm")
-    _need(ops.foff, DTYPE, F, dev, "foff")
-    for b in (*ops.fin_flows, *ops.fin_ranks):
-        _need(b.idx, torch.int32, b.K * b.G, dev, "reduction index")
-        if b.mask is not None:
-            _need(b.mask, torch.bool, b.K * b.G, dev, "reduction mask")
-    if sum(b.G for b in ops.fin_flows) != F \
-            or sum(b.G for b in ops.fin_ranks) != ops.n_rank_out:
-        raise ValueError("finish buckets do not cover flows and ranks")
+    n, R = ops.n, ops.sizes[1]
+    for name in ("t_ready", "c1", "c3"):
+        _need(getattr(ops, name), DTYPE, (n,), dev, name)
+    _need(ops.slot, torch.int32, (n,), dev, "slot")
+    _need(ops.out, torch.int32, (n,), dev, "out")
+    _need(ops.desc, torch.int32, (R, DESC_FIELDS), dev, "desc")
+    if not isinstance(ops.cta, torch.Tensor) or ops.cta.dim() != 1:
+        raise ValueError("cta: need a 1-D tensor of block starts")
+    _need(ops.cta, torch.int32, (ops.cta.numel(),), dev, "cta")
+    if ops.init is not None:
+        for a, size, what in zip(ops.init, ops.sizes, ("VCI", "NIC", "link")):
+            _need(a, DTYPE, (size,), dev, f"{what} init")
+    if ops.finish:
+        _need(ops.foff, DTYPE, (n,), dev, "foff")
+    if not 0 <= ops.smem <= SMEM_DOUBLES:
+        raise ValueError(f"smem: {ops.smem} doubles, at most {SMEM_DOUBLES}")
 
 
-def _ptr(t: Optional[torch.Tensor], offset: int = 0) -> Optional[int]:
-    """Device address of element ``offset`` of ``t`` (None -> NULL)."""
-    return None if t is None else t.data_ptr() + offset * t.element_size()
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """Device address of ``t`` (None -> NULL)."""
+    return None if t is None else t.data_ptr()
 
 
 def fabric_scan(ops: ScanOps):
-    """Advance one super-batch: the hand-written CUDA kernels of
+    """Advance one super-batch: the hand-written CUDA kernel of
     ``csrc/fabric_scan.cu`` for operands on the card, the plain version
     :func:`fabric_scan_ref` for operands on the CPU.
 
     Replaces the Pallas kernel built by the JAX package's
     ``core/fabric_pallas.py:_build_call``.  On the H100 it is bound by
-    bytes moved (about 100 bytes per wire message: four float64 columns,
-    the int32 bucket indices and the three stage scan vectors) and by
-    the serial chain depth of each stage (24 VCI, 48 NIC and 8 wire
-    steps per resource in the 32k-rank partitioned record).  The design
-    gives every segment of a bucket one thread that walks its column
-    down the depth axis, so each step's reads of row k are coalesced
-    across neighbouring segments and the chain depth is the only serial
-    work; one launch per bucket, in stage order, on PyTorch's current
-    stream and without synchronisation, orders the cross-segment gathers
-    between stages.  Returns what :func:`fabric_scan_ref` returns.
+    bytes moved (40 bytes per wire message in finish mode: three float64
+    columns, the slot word, the output slot and the finish offset) and
+    by the serial chain of the deepest rank-record.  One thread walks
+    each rank-record through all three queues and the finish, with its
+    carries in shared memory, so the whole super-batch is one launch on
+    PyTorch's current stream, without synchronisation; the per-rank
+    output is zeroed by a memset inside the same call.  Returns what
+    :func:`fabric_scan_ref` returns.
     """
     dev = ops.t_ready.device
     if dev.type == "cpu":
         return fabric_scan_ref(ops)
     if dev.type != "cuda":
         raise ValueError(f"fabric_scan: unsupported device {dev}")
-    _check_operands(ops, dev)
     lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ys = [torch.empty(s, dtype=DTYPE, device=dev) for s in ops.sizes]
-    carry = None if ops.finish else [torch.empty_like(a) for a in ops.init]
-    srcs = (ops.t_ready, ys[0], ys[1])
-    costs = (ops.c1, None, ops.c3)
-    for s, bks in enumerate(ops.stages):
-        for b in bks:
-            _launch(lib, lib.fabric_bucket_scan, stream, b.K, b.G,
-                    _ptr(srcs[s]), _ptr(b.ridx),
-                    _ptr(ops.rdv) if s == 2 else None,
-                    _ptr(costs[s]), _ptr(b.cidx),
-                    ops.alpha_nic if s == 1 else 0.0, _ptr(b.mask),
-                    _ptr(ops.init[s], b.go), _ptr(ys[s], b.fo),
-                    None if carry is None else _ptr(carry[s], b.go),
-                    int(s == 2), ops.alpha_wire, ops.alpha_recv)
-    if not ops.finish:
-        arr = torch.empty(ops.n, dtype=DTYPE, device=dev)
-        _launch(lib, lib.fabric_gather_add, stream, ops.n, _ptr(ys[2]),
-                _ptr(ops.pos3), None, _ptr(arr))
-        return (arr, *carry)
-    F = ops.fperm.numel()
-    fmb = torch.empty(F, dtype=DTYPE, device=dev)
-    for b in ops.fin_flows:
-        _launch(lib, lib.fabric_bucket_colmax, stream, b.K, b.G,
-                _ptr(ys[2]), _ptr(b.idx), _ptr(b.mask), _ptr(fmb, b.go))
-    fin = torch.empty(F, dtype=DTYPE, device=dev)
-    _launch(lib, lib.fabric_gather_add, stream, F, _ptr(fmb),
-            _ptr(ops.fperm), _ptr(ops.foff), _ptr(fin))
-    rank_out = torch.empty(ops.n_rank_out, dtype=DTYPE, device=dev)
-    for b in ops.fin_ranks:
-        _launch(lib, lib.fabric_bucket_colmax, stream, b.K, b.G,
-                _ptr(fin), _ptr(b.idx), _ptr(b.mask), _ptr(rank_out, b.go))
-    return rank_out
+    if ops.launch is None or ops.launch[0] != dev:  # once per super-batch
+        _check_operands(ops, dev)
+        i1, i2, i3 = (None, None, None) if ops.init is None else ops.init
+        ops.launch = (dev, (
+            int(ops.finish), ops.cta.numel() - 1, ops.smem, _ptr(ops.cta),
+            _ptr(ops.desc), _ptr(ops.t_ready), _ptr(ops.c1), _ptr(ops.c3),
+            _ptr(ops.slot), _ptr(ops.out), _ptr(ops.foff), _ptr(i1),
+            _ptr(i2), _ptr(i3), ops.alpha_nic, ops.rdv_add,
+            ops.alpha_wire, ops.alpha_recv))
+    args = ops.launch[1]
+    G1, R, G3 = ops.sizes
+
+    def empty(size):
+        return torch.empty(size, dtype=DTYPE, device=dev)
+    if ops.finish:
+        arr = o1 = o2 = o3 = None
+        rank_out = empty(ops.n_out)
+        w1, w3 = (empty(G1), empty(G3)) if ops.n_global else (None, None)
+    else:
+        arr, o1, o2, o3 = empty(ops.n), empty(G1), empty(R), empty(G3)
+        rank_out, w1, w3 = None, o1, o3
+    rc = lib.fabric_rank_scan(
+        torch.cuda.current_stream(dev).cuda_stream, *args, _ptr(arr),
+        _ptr(o1), _ptr(o2), _ptr(o3), _ptr(rank_out), ops.n_out, _ptr(w1),
+        _ptr(w3))
+    n_cta = args[1]
+    if n_cta:
+        LAUNCHES["fabric_scan"] += 1
+    if rc != 0:
+        msg = lib.fabric_scan_error_string(rc).decode()
+        raise RuntimeError(f"fabric_scan launch failed: CUDA error {rc}"
+                           f" ({msg})")
+    return rank_out if ops.finish else (arr, o1, o2, o3)
 
 
 # ---------------------------------------------------------------------------
@@ -542,37 +604,26 @@ def fabric_scan(ops: ScanOps):
 def _assemble(items: List[GridItem],
               finishes: Optional[List[FinishSpec]]
               ) -> Tuple[ScanOps, dict]:
-    """Flatten one cfg-uniform bucket of grid items into the kernels'
+    """Flatten one cfg-uniform bucket of grid items into the kernel's
     operands (host arrays).  Per-item stage layouts (memoized, shared
-    with the torch engine) compose by message-base offset — no global
-    argsort; only the finish reduction's flow/rank groupings sort
-    globally.  Returns ``(ops, aux)``, ``aux`` holding the host-side
-    unpack info."""
+    with the torch engine) give each item's rank-records; the per-call
+    values are permuted into the layout once, here.  Returns ``(ops,
+    aux)``, ``aux`` holding the host-side unpack info."""
     N = sum(len(it) for it in items)
-    tr = np.empty(N)
-    c1 = np.empty(N)
-    c3 = np.empty(N)
-    rdv = np.empty(N)
-    st_orders: Tuple[list, ...] = ([], [], [])
-    st_counts: Tuple[list, ...] = ([], [], [])
-    st_offs: Tuple[list, ...] = ([], [], [])
-    fid_l, foff_l, fdst_l, item_ranks = [], [], [], []
-    item_lens = []
+    tr, c1, c3, rdv = (np.empty(N) for _ in range(4))
+    lays_list, item_lens, item_ranks = [], [], []
+    fid_l, foff_l, fdst_l = [], [], []
     base = fbase = rbase = 0
     for k, it in enumerate(items):
         n = len(it)
         sl = slice(base, base + n)
         lays = _raw_layouts(it.src, it.dst, it.vci % it.n_vcis,
                             it.n_vcis, it.n_ranks, it.key)
+        lays_list.append(lays)
         tr[sl] = it.t_ready
         c1[sl], c3[sl], rdv[sl] = _cost_columns(
             it.t_ready, it.nbytes, it.thread, it.put, it.am_copy,
             it.cfg, lays[0], None)
-        for s in range(3):
-            o, _, cnt, f = lays[s]
-            st_orders[s].append(o + base)
-            st_counts[s].append(cnt)
-            st_offs[s].append(f + base)
         if finishes is not None:
             fin = finishes[k]
             fid_l.append(fin.fid + fbase)
@@ -583,54 +634,34 @@ def _assemble(items: List[GridItem],
             rbase += fin.n_ranks
         item_lens.append(n)
         base += n
-    stages = []
-    for s in range(3):
-        stages.append(_stage_buckets(np.concatenate(st_orders[s]),
-                                     np.concatenate(st_counts[s]),
-                                     np.concatenate(st_offs[s]), N))
-    (b1, pos1, s1), (b2, pos2, s2), (b3, pos3, s3) = stages
-    scan_stages, grp_orders = _pack_stage_ops(b1, b2, b3, pos1, pos2)
+    lay = _rank_layout(lays_list, [it.n_vcis for it in items],
+                       [it.n_ranks for it in items])
+    perm = lay.perm
     ops = _set_costs(ScanOps(
-        t_ready=tr, c1=c1, c3=c3, rdv=rdv,
-        init=tuple(np.zeros(len(g)) for g in grp_orders),
-        alpha_wire=0.0, alpha_nic=0.0, alpha_recv=0.0,
-        stages=scan_stages, sizes=(s1, s2, s3)), items[0].cfg)
-    aux: dict = {"item_lens": item_lens, "grp_orders": tuple(grp_orders)}
+        t_ready=tr[perm], c1=c1[perm], c3=c3[perm],
+        slot=_slot_words(lay.slot, rdv[perm]), out=perm.astype(np.int32),
+        desc=lay.desc, cta=lay.cta, smem=lay.smem, n_global=lay.n_global,
+        sizes=lay.sizes), items[0].cfg)
     if finishes is None:
-        return dataclasses.replace(ops, pos3=pos3.astype(np.int32)), aux
-    fid = np.concatenate(fid_l)
+        return ops, {"item_lens": item_lens}
+    fid = np.concatenate(fid_l)[perm]
     foff = np.concatenate(foff_l)
-    fdst = np.concatenate(fdst_l)
-    F = len(foff)
-    of, uf, cf, ff = _fb._group_layout(fid)
-    if len(uf) != F:
+    if np.any(np.bincount(fid, minlength=len(foff)) == 0):
         raise ValueError("every flow needs at least one wire message")
-    fbuckets, _, _ = _stage_buckets(of, cf, ff, N)
-    fperm = np.empty(F, dtype=np.int32)
-    go = 0
-    for bk in fbuckets:
-        G = bk.idx.shape[1]
-        fperm[uf[bk.sel]] = go + np.arange(G, dtype=np.int32)
-        go += G
-    orr, ur, cr, fr = _fb._group_layout(fdst)
-    rbuckets, _, _ = _stage_buckets(orr, cr, fr, F)
-    aux.update(rank_out_ids=np.concatenate([ur[bk.sel] for bk in rbuckets]),
-               item_ranks=item_ranks, n_ranks_total=rbase)
+    if np.any(foff < 0):  # the kernel's max orders bit patterns
+        raise ValueError("finish offsets must be >= 0")
     ops = dataclasses.replace(
-        ops, fin_flows=tuple(_reduce_buckets(fbuckets, lambda i: pos3[i])),
-        fperm=fperm, foff=foff,
-        # values are flow ids: the rank reduction gathers per-flow times
-        fin_ranks=tuple(_reduce_buckets(rbuckets, lambda i: i)),
-        n_rank_out=sum(bk.idx.shape[1] for bk in rbuckets))
-    return ops, aux
+        ops, out=np.concatenate(fdst_l)[fid].astype(np.int32),
+        foff=foff[fid], n_out=rbase)
+    return ops, {"item_ranks": item_ranks, "n_ranks_total": rbase}
 
 
 # Whole-super-batch operands (device-resident), keyed by mode, device,
 # dtype and the member items' layout keys: benchmark repeats re-launch
-# the kernels without re-assembling or re-copying anything.
+# the kernel without re-assembling or re-copying anything.
 _OPS_MEMO = _fb.CappedMemo(8)
-# Single-batch arrivals-mode structure (stage buckets + index operands)
-# for the warm-state driver path, keyed by device, dtype and layout key.
+# Single-batch arrivals-mode structure (layout + index operands) for the
+# warm-state driver path, keyed by device, dtype and layout key.
 _ARR_MEMO = _fb.CappedMemo(32)
 
 
@@ -661,9 +692,8 @@ def grid_ops(items: List[GridItem], finishes: Optional[List[FinishSpec]],
 def _cfg_buckets(items: List[GridItem]) -> Dict[tuple, List[int]]:
     """Items bucketed by (cfg, n_ranks, n_vcis): each bucket's NetConfig
     is uniform (one set of cost scalars), and keeping rank-grid shapes
-    uniform keeps each bucket's per-resource chain depths nearly uniform
-    too, so the exact-depth (mask-free) scan buckets stay under
-    :data:`MAX_EXACT_DEPTHS`."""
+    uniform keeps the records' depths, and so the warps' loads, uniform
+    too."""
     buckets: Dict[tuple, List[int]] = {}
     for i, it in enumerate(items):
         buckets.setdefault((it.cfg, it.n_ranks, it.n_vcis), []).append(i)
@@ -672,7 +702,7 @@ def _cfg_buckets(items: List[GridItem]) -> Dict[tuple, List[int]]:
 
 def transmit_grid(items: List[GridItem], device="cuda") -> List[np.ndarray]:
     """Evaluate many independent cold-start exchanges through the
-    kernels; returns each item's per-message arrival times in its input
+    kernel; returns each item's per-message arrival times in its input
     (merge) order.  Used for points without an affine finish."""
     out: List[Optional[np.ndarray]] = [None] * len(items)
     for members in _cfg_buckets(items).values():
@@ -696,8 +726,7 @@ def transmit_grid_finish(items: List[GridItem], finishes: List[FinishSpec],
     for members in _cfg_buckets(items).values():
         ops, aux = grid_ops([items[i] for i in members],
                             [finishes[i] for i in members], device)
-        full = np.zeros(aux["n_ranks_total"])
-        full[aux["rank_out_ids"]] = fabric_scan(ops).cpu().numpy()
+        full = fabric_scan(ops).cpu().numpy()
         for (rb, R), i in zip(aux["item_ranks"], members):
             out[i] = full[rb:rb + R]
     return out  # type: ignore[return-value]
@@ -707,32 +736,30 @@ def transmit_grid_finish(items: List[GridItem], finishes: List[FinishSpec],
 # The warm-state driver fabric
 # ---------------------------------------------------------------------------
 
-def _arr_structure(lays, n: int, device) -> Tuple[ScanOps, tuple]:
-    """Stage buckets + device-resident index operands of one
+def _arr_structure(lays, n_vcis: int, n_ranks: int, device
+                   ) -> Tuple[ScanOps, np.ndarray, np.ndarray]:
+    """The layout and device-resident index operands of one
     arrivals-mode batch (the warm driver path's per-layout structure
-    cache entry); the per-call values are filled in by the caller."""
-    stages = [_stage_buckets(lays[s][0], lays[s][2], lays[s][3], n)
-              for s in range(3)]
-    (b1, pos1, s1), (b2, pos2, s2), (b3, pos3, s3) = stages
-    scan_stages, grp_orders = _pack_stage_ops(b1, b2, b3, pos1, pos2)
+    cache entry), with the host permutation and slot structure; the
+    per-call values are filled in by the caller."""
+    lay = _rank_layout([lays], [n_vcis], [n_ranks])
+    n = lay.perm.shape[0]
     zeros = np.zeros(n)
-    ops = ScanOps(t_ready=zeros, c1=zeros, c3=zeros, rdv=zeros,
-                  init=tuple(np.zeros(len(g)) for g in grp_orders),
-                  alpha_wire=0.0, alpha_nic=0.0, alpha_recv=0.0,
-                  stages=scan_stages, sizes=(s1, s2, s3),
-                  pos3=pos3.astype(np.int32))
-    return _upload(ops, device), tuple(grp_orders)
+    ops = ScanOps(t_ready=zeros, c1=zeros, c3=zeros,
+                  slot=lay.slot.view(np.int32), out=lay.perm.astype(np.int32),
+                  desc=lay.desc, cta=lay.cta, smem=lay.smem,
+                  n_global=lay.n_global, sizes=lay.sizes)
+    return _upload(ops, device), lay.perm, lay.slot
 
 
 class CudaFabric(TorchFabric):
-    """Kernel fabric: one super-batch of kernel launches per staged
-    batch.
+    """Kernel fabric: one kernel launch per staged batch.
 
     Scalar state stays authoritative on the Python side exactly as in
     the torch engine — warm semantics (steady-state iterations,
     dependent RMA traffic between batches) are identical.  A staged
     batch folds the warm VCI owners into the host cost precompute,
-    passes the per-resource busy-until clocks as the kernels' init
+    passes the per-resource busy-until clocks as the kernel's init
     vectors, and writes the carried-out clocks back.  Tiny or narrow
     batches take the same bit-identical scalar fallback as the other
     engines.
@@ -755,9 +782,10 @@ class CudaFabric(TorchFabric):
             skey = ("cuda-arr", str(self.device), str(DTYPE), layout_key)
         entry = _ARR_MEMO.get(skey)
         if entry is None:
-            entry = _arr_structure(lays, n, self.device)
+            entry = _arr_structure(lays, self.n_vcis, self.n_ranks,
+                                   self.device)
             _ARR_MEMO.put(skey, entry)
-        struct, grp_orders = entry
+        struct, perm, slot = entry
 
         order1, uniq1, counts1, offs1 = lays[0]
         banks = [(g // self.n_vcis, g % self.n_vcis)
@@ -767,39 +795,31 @@ class CudaFabric(TorchFabric):
                               for r, v in banks], dtype=np.int64)
         c1, c3, rdv = _cost_columns(t_ready, nbytes, thread, put, am_copy,
                                     self.cfg, lays[0], warm_prev)
-        state1 = np.array([self.vci_free[r][v] for r, v in banks])
         ranks = lays[1][1].tolist()
-        state2 = np.array([self.nic_free[r] for r in ranks])
         links = [(c // self.n_ranks, c % self.n_ranks)
                  for c in lays[2][1].tolist()]
-        state3 = np.array([self.wire_free.get(sd, 0.0) for sd in links])
+        state = (np.array([self.vci_free[r][v] for r, v in banks]),
+                 np.array([self.nic_free[r] for r in ranks]),
+                 np.array([self.wire_free.get(sd, 0.0) for sd in links]))
 
         def t(a):
-            return torch.from_numpy(
-                np.ascontiguousarray(a, dtype=np.float64)).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
         ops = _set_costs(dataclasses.replace(
-            struct, t_ready=t(t_ready), c1=t(c1), c3=t(c3), rdv=t(rdv),
-            init=(t(state1[grp_orders[0]]), t(state2[grp_orders[1]]),
-                  t(state3[grp_orders[2]]))), self.cfg)
+            struct, t_ready=t(np.asarray(t_ready, dtype=np.float64)[perm]),
+            c1=t(c1[perm]), c3=t(c3[perm]), slot=t(_slot_words(slot, rdv[perm])),
+            init=tuple(t(a.astype(np.float64)) for a in state)), self.cfg)
         arr, cur1, cur2, cur3 = (x.cpu().numpy() for x in fabric_scan(ops))
 
-        # warm state out: the carries are in bucket-group order; unsort
-        # them back to each stage's group (resource) order
-        s1o = np.empty(len(banks))
-        s1o[grp_orders[0]] = cur1
-        # a bank's final owner is its last queued message's thread — a
+        # warm state out, the carries in each stage's group order; a
+        # bank's final owner is its last queued message's thread — a
         # pure function of the (host-known) grouping, not of the times
         last_thread = np.asarray(thread)[order1[offs1 + counts1 - 1]]
-        for (r, v), busy, owner in zip(banks, s1o.tolist(),
+        for (r, v), busy, owner in zip(banks, cur1.tolist(),
                                        last_thread.tolist()):
             self.vci_free[r][v] = busy
             self.vci_last_thread[r][v] = int(owner)
-        s2o = np.empty(len(ranks))
-        s2o[grp_orders[1]] = cur2
-        for r, busy in zip(ranks, s2o.tolist()):
+        for r, busy in zip(ranks, cur2.tolist()):
             self.nic_free[r] = busy
-        s3o = np.empty(len(links))
-        s3o[grp_orders[2]] = cur3
-        self.wire_free.update(zip(links, s3o.tolist()))
+        self.wire_free.update(zip(links, cur3.tolist()))
         self._count_sent(n, per_src)
         return arr

@@ -2,133 +2,296 @@
 // (sm_90a).  It replaces the Pallas kernel built by the JAX package's
 // core/fabric_pallas.py:_build_call and computes, for one cost-uniform
 // super-batch of wire messages, the three serial-queue stages of the
-// simulated MPI fabric and the finish reductions:
+// simulated MPI fabric and the finish reduction, in one launch:
 //
-//   stage 1 (VCI banks):  t = max(t_ready[i], t) + c1[i]
-//   stage 2 (NICs):       t = max(ys1[pos1[i]], t) + alpha_nic
-//   stage 3 (wires):      r = ys2[pos2[i]] + rdv[i]; t = max(r, t) + c3[i];
-//                         stored as (t + alpha_wire) + alpha_recv
-//   finish:               per-flow max of arrivals, + foff via fperm,
-//                         per-rank max.
+//   VCI bank v:   t1 = max(t_ready, vci[v]) + c1            vci[v] = t1
+//   NIC:          t2 = max(t1, nic) + alpha_nic             nic    = t2
+//                 t2 = t2 + 2 alpha_wire  (rendezvous messages only)
+//   wire l:       t3 = max(t2, wire[l]) + c3                wire[l] = t3
+//   arrival:      (t3 + alpha_wire) + alpha_recv
+//   finish:       out[dst] = max over messages into dst of arrival + foff
 //
-// Bound on the H100: bytes moved (about 100 B per wire message) and the
-// serial chain depth of each queue (24 VCI, 48 NIC, 8 wire steps per
-// resource in the 32k-rank partitioned record).  Design: each bucket of
-// segments of equal depth class is one launch with one thread per
-// segment, walking its column of the step-major (K, G) lane matrix, so
-// the reads of row k are coalesced across neighbouring segments and the
-// only serial work is the chain itself.  Stages gather across segments,
-// so the host launches bucket after bucket, in stage order, on one
-// stream.
+// All three queues of a message belong to its source rank (VCI (src, v),
+// NIC src, wire (src, dst)), so each source rank-record -- one grid item's
+// messages from one rank, in merge order -- is independent of every other.
+// Design: one thread per rank-record walks its messages through all three
+// queues; its VCI and link carries sit in shared memory (in device memory
+// for a record too large for its block's share), the NIC carry in a
+// register.  Nothing crosses between threads, so there is no barrier and
+// no second pass: the finish is a max, taken with an atomic max (a
+// reduction, red.global.max.u64) on the bit patterns of the positive
+// arrival times, which order as the doubles do.
+//
+// Bound on the H100: bytes (40 per message in finish mode: three float64
+// columns, the slot word, the output slot and the finish offset) and the
+// serial chain of the deepest rank-record.  The host lays messages out
+// warp-interleaved (message k of lane j of a warp at base + k * lanes + j
+// up to the warp's least depth, each lane's rest after it), so the loads
+// of one step coalesce across the warp.  Each thread loads the next batch
+// of messages before it runs the current one's chain, and forwards the
+// carries of earlier messages of the batch in registers, so the loop
+// waits on neither device memory nor shared memory: the chain of a
+// record that walks alone is bound by the issue of its one thread's
+// instructions, the max/add chain and the bookkeeping around it.
 //
 // Exactness: float64 throughout, every add written as __dadd_rn (no
 // contraction; the build also passes -fmad=false and no fast-math), adds
-// in the reference's order, fmax for max (no NaNs occur).  Masked lanes
-// never update the carry.  Every entry point returns cudaGetLastError().
+// in the reference's order, max as a compare and a select (dmax).
+// Adding 0.0 is identity on these positive times, so the rendezvous add
+// is taken only where it is not 0.  The entry point returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kBatch = 2;
+constexpr unsigned kVciMask = 0xffu;       // slot bits 0-7: VCI slot
+constexpr unsigned kLinkMask = 0x7fffffu;  // slot bits 8-30: link slot
+constexpr unsigned kRdvBit = 1u << 31;     // slot bit 31: rendezvous
 
-inline unsigned blocks_for(int n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+// One rank-record, as the host describes it (12 int32, three int4 loads).
+struct __align__(16) Record {
+  int m0, stride, kw, tail;  // layout: message k at m0 + stride * k while
+                             // k < kw, else at tail + (k - kw)
+  int depth, rec, cv0, nv;   // messages; NIC carry index; VCI carries
+  int cl0, nl, soff, pad;    // link carries; shared offset (-1: device)
+};
+
+// max of two of these times: a compare and a select.  No NaN occurs and
+// equal times are equal bits (the only other tie, +0 against -0, adds to
+// the same sum), so it gives fmax's result without its NaN handling.
+__device__ __forceinline__ double dmax(double a, double b) {
+  return a > b ? a : b;
 }
 
-// One bucket of one stage: segment g walks lanes k * G + g, k = 0..K-1.
-//   r     = rsrc[ridx[lane]] (+ radd[cidx[lane]] when radd is given)
-//   t     = max(r, cur) + (csrc ? csrc[cidx[lane]] : cscalar)
-//   ys    = add_tail ? (t + tail1) + tail2 : t
-//   cur   = t unless the lane is masked off
-// init/ys/carry are already offset to the bucket's first group / slot;
-// carry may be null (finish mode keeps no carried state).
-__global__ void bucket_scan_kernel(
-    int K, int G, const double* __restrict__ rsrc,
-    const int* __restrict__ ridx, const double* __restrict__ radd,
-    const double* __restrict__ csrc, const int* __restrict__ cidx,
-    double cscalar, const bool* __restrict__ mask,
-    const double* __restrict__ init, double* __restrict__ ys,
-    double* __restrict__ carry, int add_tail, double tail1, double tail2) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  double cur = init[g];
-  for (int k = 0; k < K; ++k) {
-    const long long lane = static_cast<long long>(k) * G + g;
-    double r = rsrc[ridx[lane]];
-    if (radd != nullptr) r = __dadd_rn(r, radd[cidx[lane]]);
-    const double c = csrc != nullptr ? csrc[cidx[lane]] : cscalar;
-    const double t = __dadd_rn(fmax(r, cur), c);
-    ys[lane] = add_tail ? __dadd_rn(__dadd_rn(t, tail1), tail2) : t;
-    if (mask == nullptr || mask[lane]) cur = t;
+struct Msg {
+  double tr, c1, c3, fo;
+  unsigned slot;
+  int out;
+};
+
+template <bool kFinish>
+__device__ __forceinline__ void load_batch(
+    Msg (&m)[kBatch], int k0, const Record& R, const double* __restrict__ tr,
+    const double* __restrict__ c1, const double* __restrict__ c3,
+    const unsigned* __restrict__ slot, const int* __restrict__ out,
+    const double* __restrict__ foff) {
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    const int k = k0 + j;
+    if (k < R.depth) {
+      const int p = k < R.kw ? R.m0 + R.stride * k : R.tail + (k - R.kw);
+      m[j].tr = tr[p];
+      m[j].c1 = c1[p];
+      m[j].c3 = c3[p];
+      m[j].slot = slot[p];
+      m[j].out = out[p];
+      if (kFinish) m[j].fo = foff[p];
+    }
   }
-  if (carry != nullptr) carry[g] = cur;
 }
 
-// out[g] = max over k of src[idx[k * G + g]], masked lanes read as 0.0
-// (every value reduced here is a positive time, so 0-fill is safe).
-__global__ void bucket_colmax_kernel(int K, int G,
-                                     const double* __restrict__ src,
-                                     const int* __restrict__ idx,
-                                     const bool* __restrict__ mask,
-                                     double* __restrict__ out) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  double acc = 0.0;
-  for (int k = 0; k < K; ++k) {
-    const long long lane = static_cast<long long>(k) * G + g;
-    const double v =
-        (mask == nullptr || mask[lane]) ? src[idx[lane]] : 0.0;
-    acc = k == 0 ? v : fmax(acc, v);
+// out = max(out, bits of v), as a reduction with no return value: the
+// thread never waits for it.
+__device__ __forceinline__ void red_max(unsigned long long* out, double v) {
+  asm volatile("red.global.max.u64 [%0], %1;" ::"l"(out),
+               "l"(static_cast<unsigned long long>(__double_as_longlong(v)))
+               : "memory");
+}
+
+// The kernel's operands, as one struct so that the walk below can be
+// inlined twice: once with the carries in shared memory, once in device
+// memory, each with its own address space known to the compiler.
+struct Args {
+  const double* __restrict__ tr;
+  const double* __restrict__ c1;
+  const double* __restrict__ c3;
+  const unsigned* __restrict__ slot;
+  const int* __restrict__ out;
+  const double* __restrict__ foff;
+  double alpha_nic, rdv_add, alpha_wire, alpha_recv;
+  double* __restrict__ arr;
+  unsigned long long* __restrict__ rank_out;
+};
+
+// One record's walk through the three queues: V and W are its VCI and
+// link carries, nic its NIC carry.
+template <bool kFinish>
+struct Walk {
+  const Record& R;
+  const Args& A;
+  double* V;
+  double* W;
+  double nic;
+  int pend_dst;  // finish: the output slot of the running max
+  double pend;
+
+  // Messages k0 .. k0 + kBatch - 1 (those below the depth), loaded in m.
+  __device__ __forceinline__ void batch(const Msg (&m)[kBatch], int k0) {
+    unsigned vs[kBatch], ls[kBatch];
+    double bv[kBatch], bw[kBatch], t1s[kBatch], t3s[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {  // carries as the batch found them
+      vs[j] = m[j].slot & kVciMask;
+      ls[j] = (m[j].slot >> 8) & kLinkMask;
+      t1s[j] = t3s[j] = 0.0;
+      if (k0 + j < R.depth) {
+        bv[j] = V[vs[j]];
+        bw[j] = W[ls[j]];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (k0 + j < R.depth) {
+        double cv = bv[j], cw = bw[j];
+#pragma unroll
+        for (int i = 0; i < j; ++i) {  // forward earlier messages' carries
+          if (vs[i] == vs[j]) cv = t1s[i];
+          if (ls[i] == ls[j]) cw = t3s[i];
+        }
+        const double t1 = __dadd_rn(dmax(m[j].tr, cv), m[j].c1);
+        t1s[j] = t1;
+        double t2 = __dadd_rn(dmax(t1, nic), A.alpha_nic);
+        nic = t2;
+        if (m[j].slot & kRdvBit) t2 = __dadd_rn(t2, A.rdv_add);
+        const double t3 = __dadd_rn(dmax(t2, cw), m[j].c3);
+        t3s[j] = t3;
+        const double a =
+            __dadd_rn(__dadd_rn(t3, A.alpha_wire), A.alpha_recv);
+        if (kFinish) {
+          const double v = __dadd_rn(a, m[j].fo);
+          if (m[j].out == pend_dst) {
+            pend = dmax(pend, v);
+          } else {
+            if (pend_dst >= 0) red_max(A.rank_out + pend_dst, pend);
+            pend_dst = m[j].out;
+            pend = v;
+          }
+        } else {
+          A.arr[m[j].out] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {  // in order: the last write wins
+      if (k0 + j < R.depth) {
+        V[vs[j]] = t1s[j];
+        W[ls[j]] = t3s[j];
+      }
+    }
   }
-  out[g] = acc;
+
+  // The whole record, two batch buffers in turn: the next batch's loads
+  // are in flight while the current batch's chain runs.
+  __device__ __forceinline__ double run() {
+    Msg a[kBatch], b[kBatch];
+    load_batch<kFinish>(a, 0, R, A.tr, A.c1, A.c3, A.slot, A.out, A.foff);
+    for (int k0 = 0; k0 < R.depth; k0 += 2 * kBatch) {
+      const int k1 = k0 + kBatch;
+      if (k1 < R.depth)
+        load_batch<kFinish>(b, k1, R, A.tr, A.c1, A.c3, A.slot, A.out,
+                            A.foff);
+      batch(a, k0);
+      if (k1 >= R.depth) break;
+      if (k1 + kBatch < R.depth)
+        load_batch<kFinish>(a, k1 + kBatch, R, A.tr, A.c1, A.c3, A.slot,
+                            A.out, A.foff);
+      batch(b, k1);
+    }
+    if (kFinish && pend_dst >= 0) red_max(A.rank_out + pend_dst, pend);
+    return nic;
+  }
+};
+
+template <bool kFinish>
+__device__ __forceinline__ double walk(const Record& R, const Args& A,
+                                       double* V, double* W, double nic) {
+  Walk<kFinish> w{R, A, V, W, nic, -1, 0.0};
+  return w.run();
 }
 
-// out[i] = src[idx[i]] (+ add[i] when add is given).
-__global__ void gather_add_kernel(int n, const double* __restrict__ src,
-                                  const int* __restrict__ idx,
-                                  const double* __restrict__ add,
-                                  double* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const double v = src[idx[i]];
-  out[i] = add != nullptr ? __dadd_rn(v, add[i]) : v;
+template <bool kFinish>
+__global__ void __launch_bounds__(kThreads, 4) fabric_rank_kernel(
+    const int* __restrict__ cta, const Record* __restrict__ records,
+    const Args A, const double* __restrict__ i1,
+    const double* __restrict__ i2, const double* __restrict__ i3,
+    double* o1, double* __restrict__ o2, double* o3, double* w1,
+    double* w3) {  // arrivals mode: w1, w3 are o1, o3
+  extern __shared__ double smem[];
+  const int r = cta[blockIdx.x] + static_cast<int>(threadIdx.x);
+  if (r >= cta[blockIdx.x + 1]) return;
+  const Record R = records[r];
+  double nic = i2 != nullptr ? i2[R.rec] : 0.0;
+  if (R.soff >= 0) {
+    double* V = smem + R.soff;
+    double* W = V + R.nv;
+    for (int j = 0; j < R.nv; ++j) V[j] = i1 != nullptr ? i1[R.cv0 + j] : 0.0;
+    for (int j = 0; j < R.nl; ++j) W[j] = i3 != nullptr ? i3[R.cl0 + j] : 0.0;
+    nic = walk<kFinish>(R, A, V, W, nic);
+    if (!kFinish) {
+      for (int j = 0; j < R.nv; ++j) o1[R.cv0 + j] = V[j];
+      for (int j = 0; j < R.nl; ++j) o3[R.cl0 + j] = W[j];
+    }
+  } else {  // carries too many for the block's share: in device memory
+    double* V = w1 + R.cv0;
+    double* W = w3 + R.cl0;
+    for (int j = 0; j < R.nv; ++j) V[j] = i1 != nullptr ? i1[R.cv0 + j] : 0.0;
+    for (int j = 0; j < R.nl; ++j) W[j] = i3 != nullptr ? i3[R.cl0 + j] : 0.0;
+    nic = walk<kFinish>(R, A, V, W, nic);
+  }
+  if (!kFinish) o2[R.rec] = nic;
 }
 
 }  // namespace
 
 extern "C" {
 
-int fabric_bucket_scan(void* stream, int K, int G, const void* rsrc,
-                       const void* ridx, const void* radd, const void* csrc,
-                       const void* cidx, double cscalar, const void* mask,
-                       const void* init, void* ys, void* carry, int add_tail,
-                       double tail1, double tail2) {
-  bucket_scan_kernel<<<blocks_for(G), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      K, G, static_cast<const double*>(rsrc), static_cast<const int*>(ridx),
-      static_cast<const double*>(radd), static_cast<const double*>(csrc),
-      static_cast<const int*>(cidx), cscalar, static_cast<const bool*>(mask),
-      static_cast<const double*>(init), static_cast<double*>(ys),
-      static_cast<double*>(carry), add_tail, tail1, tail2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int fabric_bucket_colmax(void* stream, int K, int G, const void* src,
-                         const void* idx, const void* mask, void* out) {
-  bucket_colmax_kernel<<<blocks_for(G), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      K, G, static_cast<const double*>(src), static_cast<const int*>(idx),
-      static_cast<const bool*>(mask), static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int fabric_gather_add(void* stream, int n, const void* src, const void* idx,
-                      const void* add, void* out) {
-  gather_add_kernel<<<blocks_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      n, static_cast<const double*>(src), static_cast<const int*>(idx),
-      static_cast<const double*>(add), static_cast<double*>(out));
+// One super-batch: zero the per-rank output (finish mode), then one launch
+// of n_cta blocks.  Pointers that a mode does not use may be null; null
+// init vectors mean a cold start (every carry 0).
+int fabric_rank_scan(void* stream, int finish, int n_cta, int smem_doubles,
+                     const void* cta, const void* records, const void* tr,
+                     const void* c1, const void* c3, const void* slot,
+                     const void* out, const void* foff, const void* i1,
+                     const void* i2, const void* i3, double alpha_nic,
+                     double rdv_add, double alpha_wire, double alpha_recv,
+                     void* arr, void* o1, void* o2, void* o3, void* rank_out,
+                     long long n_out, void* w1, void* w3) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (finish) {
+    const cudaError_t rc = cudaMemsetAsync(
+        rank_out, 0, static_cast<size_t>(n_out) * sizeof(double), s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  if (n_cta == 0) return static_cast<int>(cudaGetLastError());
+  const size_t shmem = static_cast<size_t>(smem_doubles) * sizeof(double);
+  const Args A{static_cast<const double*>(tr),
+               static_cast<const double*>(c1),
+               static_cast<const double*>(c3),
+               static_cast<const unsigned*>(slot),
+               static_cast<const int*>(out),
+               static_cast<const double*>(foff),
+               alpha_nic, rdv_add, alpha_wire, alpha_recv,
+               static_cast<double*>(arr),
+               static_cast<unsigned long long*>(rank_out)};
+  const int* c = static_cast<const int*>(cta);
+  const Record* rd = static_cast<const Record*>(records);
+  const double* n1 = static_cast<const double*>(i1);
+  const double* n2 = static_cast<const double*>(i2);
+  const double* n3 = static_cast<const double*>(i3);
+  double* d1 = static_cast<double*>(o1);
+  double* d2 = static_cast<double*>(o2);
+  double* d3 = static_cast<double*>(o3);
+  double* g1 = static_cast<double*>(w1);
+  double* g3 = static_cast<double*>(w3);
+  if (finish)
+    fabric_rank_kernel<true><<<n_cta, kThreads, shmem, s>>>(
+        c, rd, A, n1, n2, n3, d1, d2, d3, g1, g3);
+  else
+    fabric_rank_kernel<false><<<n_cta, kThreads, shmem, s>>>(
+        c, rd, A, n1, n2, n3, d1, d2, d3, g1, g3);
   return static_cast<int>(cudaGetLastError());
 }
 

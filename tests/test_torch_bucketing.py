@@ -155,9 +155,92 @@ def test_bucketed_apply_in_place(aggr):
 
     pb.bucketed_apply(leaves, fn, aggr_bytes=aggr)
     plan = pb.make_plan(leaves, aggr)
-    want_calls = sum(len(pb.segments(leaves[b.leaf_ids[0]]))
-                     if len(b.leaf_ids) == 1 else 1 for b in plan.buckets)
-    assert len(seen) == want_calls
+    # one call per bucket: the scattered stacked leaf is packed
+    assert len(seen) == plan.n_buckets
     for leaf, a in zip(leaves, arrs):
         got = leaf if isinstance(leaf, torch.Tensor) else torch.stack(leaf)
         np.testing.assert_array_equal(got.numpy(), a * 2.0)
+
+
+def _count_collectives(leaves, aggr, monkeypatch):
+    """``bucketed_apply`` on ``leaves`` with a counting ``fn``; packs go
+    through the plain versions (they run on ``meta`` tensors too)."""
+    from repro_torch.kernels import bucket_pack as bpk
+    packs = []
+
+    def plain_pack(segs, dtype=None):
+        packs.append(len(segs))
+        return bpk.bucket_pack_plain(segs, dtype)
+    monkeypatch.setattr(pb.ops, "bucket_pack", plain_pack)
+    monkeypatch.setattr(pb.ops, "bucket_unpack", bpk.bucket_unpack_plain)
+    calls = []
+    pb.bucketed_apply(leaves, lambda flat, b: calls.append(flat.numel())
+                      or flat, aggr_bytes=aggr)
+    return calls, packs
+
+
+@pytest.mark.parametrize("mode,aggr,n_ref", [("bulk", 256 << 20, 8),
+                                             ("per_leaf", 0, 11)])
+def test_full_width_one_collective_per_bucket(full_width, monkeypatch, mode,
+                                              aggr, n_ref):
+    """llama3.2-1b at full width (``meta``): with the stacked gradient
+    buffers of the bulk and per_leaf modes, ``bucketed_apply`` issues
+    one collective per bucket of the reference plan on JAX's leaves
+    (8 and 11; it was 83 and 146 with one per layer slice), and packs
+    only the multi-leaf buckets."""
+    from repro_torch.core import earlybird
+    jshapes, model = full_width
+    want = jb.make_plan(jax.tree.leaves(jshapes), aggr)
+    assert want.n_buckets == n_ref
+    earlybird.stack_layer_grads(model)
+    for p in model.parameters():
+        if p.grad is None:  # embed, final_norm: one tensor each
+            p.grad = torch.empty_like(p)
+    try:
+        grads = [[p.grad for p in segs] for _, segs in
+                 plm.param_leaves(model.named_parameters())]
+        calls, packs = _count_collectives(grads, aggr, monkeypatch)
+    finally:
+        for p in model.parameters():
+            p.grad = None
+    assert len(calls) == want.n_buckets
+    assert calls == [sum(b.sizes) for b in want.buckets]
+    assert len(packs) == sum(len(b.leaf_ids) > 1 for b in want.buckets)
+
+
+def test_scattered_stacked_leaf_is_packed_once(monkeypatch):
+    """A stacked leaf whose segments are separate tensors travels as one
+    packed collective, not one per segment."""
+    segs = [torch.full((3, 2), float(i)) for i in range(4)]
+    calls, packs = _count_collectives([segs], 0, monkeypatch)
+    assert calls == [24] and packs == [4]
+    view = pb._covering_view(list(torch.zeros(4, 3, 2)))
+    assert view is not None and view.shape == (24,)
+    assert pb._covering_view(list(torch.zeros(4, 3, 2))[::2]) is None
+
+
+def test_stacked_grads_accumulate_in_place():
+    """Backward accumulates into the buffer's slices in place (autograd
+    keeps a ``.grad`` it finds), bitwise equal to fresh gradients."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import earlybird
+    from repro_torch.data import pipeline
+    from repro_torch.launch.steps import batch_to_device, build_state
+    cfg = get_smoke_config("llama3.2-1b").replace(param_dtype="float32")
+    model = build_state(cfg, 0, "cpu")["params"]
+    batch = batch_to_device(pipeline.for_model(cfg, 16, 2).batch(0), "cpu")
+    plm.loss_fn(cfg, model, batch).backward()
+    fresh = {n: p.grad.clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    earlybird.stack_layer_grads(model)
+    slices = {n: p.grad for n, p in model.named_parameters()
+              if p.grad is not None}
+    assert len(slices) == sum(len(s) for n, s in
+                              plm.param_leaves(model.named_parameters())
+                              if n.startswith("layers."))
+    plm.loss_fn(cfg, model, batch).backward()
+    for n, p in model.named_parameters():
+        if n in slices:
+            assert p.grad is slices[n], n
+        assert torch.equal(p.grad, fresh[n]), n

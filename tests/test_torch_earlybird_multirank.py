@@ -7,8 +7,9 @@ JAX package:
 
   1. the bulk, per_leaf and partitioned modes give the full-batch
      single-process gradient (``rtol=2e-4, atol=2e-5``) and loss;
-  2. the counts of issued all-reduces satisfy bulk < partitioned <
-     per_leaf;
+  2. the counts of issued all-reduces, one layer's counted once as in
+     JAX's HLO, satisfy bulk < partitioned < per_leaf, and each equals the buckets of the JAX package's plan
+     plus one for the loss;
   3. in partitioned mode every layer's reduction is issued before
      ``backward`` returns, last layer first -- the counterpart of JAX's
      all-reduces inside the backward scan -- and bulk issues none there.
@@ -144,11 +145,51 @@ def test_modes_give_the_full_batch_gradient(ranks, reference, mode):
 
 
 def test_all_reduce_counts(ranks):
+    """The ordering that ``check_earlybird.py`` asserts on the JAX
+    package's HLO, where the layer scan's body, and so one layer's
+    collectives, appears once: here one layer's reductions count, the
+    other layers' repeat them."""
     res, _ = ranks
-    n = {m: res[0][m]["n_all_reduce"] for m in MODES}
+    n = {m: sum(not t.startswith("layer ") or t == "layer 0"
+                for t in res[0][m]["tags"]) for m in MODES}
     assert n["bulk"] < n["partitioned"] < n["per_leaf"], n
     for m in MODES:  # both ranks issue the same collectives in order
         assert res[0][m]["tags"] == res[1][m]["tags"]
+
+
+def _reference_buckets(mode: str) -> int:
+    """Buckets of the JAX package's plans for one step of ``mode`` on the
+    smoke model's stacked f32 leaves: the whole tree at 256 MiB (bulk)
+    or 0 (per_leaf); each layer's leaves at ``AGGR`` plus the rest at
+    ``AGGR`` (partitioned)."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_smoke_config
+    from repro.core import bucketing as jb
+    from repro.models import lm as jlm
+    jcfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                               param_dtype="float32")
+    shapes = jlm.param_shapes(jcfg)
+    if mode != "partitioned":
+        aggr = 256 << 20 if mode == "bulk" else 0
+        return jb.make_plan(jax.tree.leaves(shapes), aggr).n_buckets
+    layer = [jax.ShapeDtypeStruct(s.shape[1:], s.dtype)
+             for s in jax.tree.leaves(shapes["layers"])]
+    rest = [v for k, v in shapes.items() if k != "layers"]
+    return (jcfg.n_layers * jb.make_plan(layer, AGGR).n_buckets
+            + jb.make_plan(jax.tree.leaves(rest), AGGR).n_buckets)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_all_reduce_counts_equal_reference_plan(ranks, mode):
+    """Each mode issues one all-reduce per bucket of the reference plan,
+    plus one for the loss: a stacked leaf is one collective, not one
+    per layer."""
+    res, _ = ranks
+    want = _reference_buckets(mode) + 1
+    for r in range(WORLD):
+        assert res[r][mode]["n_all_reduce"] == want, (mode, r)
 
 
 def test_partitioned_reduces_inside_backward(ranks):

@@ -3,15 +3,18 @@
 ``fabric_scan_ref`` (the CUDA kernel's plain PyTorch version, which the
 port's ``cuda`` engine runs for CPU tensors) is held bit for bit against
 the JAX package's ``core/fabric_pallas.py`` kernel, run as that
-package's own tests run it on the CPU: x64 on, Pallas in interpret mode.
-Both get the same grid items, built from numpy seeds.  Cases cover the
-finish and arrivals modes, exact-depth stage buckets (stencil points)
-and masked ones (random traffic with many distinct chain depths), and
-the warm ``transmit_arrays`` path with its carried-out clocks.  The
+package's own tests run it on the CPU: x64 on, Pallas in interpret mode,
+and against the scalar ``ReferenceFabric``.  Both get the same grid
+items, built from numpy seeds.  Cases cover the finish and arrivals
+modes, the source-rank-major layout (stencil points, whose warps share
+one depth, and random traffic with ragged depths, a Zipf-heavy rank and
+ranks that send or receive nothing), the finish as an order-free max,
+and the warm ``transmit_arrays`` path with its carried-out clocks.  The
 CUDA kernel itself is tested on the card in ``test_torch_fabric.py``.
 """
 
 import contextlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -52,14 +55,15 @@ def forced(monkeypatch):
     monkeypatch.setattr(pfb, "MIN_GROUP_PARALLELISM", 0)
 
 
-def random_traffic(seed, n_ranks=48, n_flows=220, max_len=30):
+def random_traffic(seed, n_ranks=48, n_flows=220, max_len=30, silent=0):
     """Numpy columns of a random super-batch: flows of 1..max_len
-    messages between skewed sender ranks, so each stage's groups and
-    the finish groups span far more than ``MAX_EXACT_DEPTHS`` depths."""
+    messages between Zipf-skewed sender ranks, so the rank-records'
+    depths are ragged and rank 0's is far the deepest; the last
+    ``silent`` ranks receive nothing."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(1, max_len, size=n_flows)
     fsrc = np.minimum(rng.zipf(1.4, size=n_flows) - 1, n_ranks - 1)
-    fdst = rng.integers(0, n_ranks, size=n_flows)
+    fdst = rng.integers(0, n_ranks - silent, size=n_flows)
     fid = rng.permutation(np.repeat(np.arange(n_flows), lens))
     n = fid.shape[0]
     cols = dict(t_ready=np.sort(rng.uniform(0.0, 40e-6, size=n)),
@@ -104,9 +108,26 @@ def stencil_items(points):
     return ref_items, ref_fins, port_items, port_fins
 
 
-def masked_bucket_count(ops):
-    return sum(b.mask is not None for bks in ops.stages for b in bks) + sum(
-        b.mask is not None for b in (*ops.fin_flows, *ops.fin_ranks))
+def reference_arrivals(cols, n_ranks, n_vcis=3):
+    """Per-message arrivals of the scalar oracle, message by message."""
+    fab = pfb.ReferenceFabric(pfb.DEFAULT_NET, n_vcis, n_ranks=n_ranks)
+    return np.array([fab.transmit(
+        float(cols["t_ready"][i]), float(cols["nbytes"][i]),
+        int(cols["vci"][i]), int(cols["thread"][i]),
+        put=bool(cols["put"][i]), am_copy=bool(cols["am_copy"][i]),
+        src=int(cols["src"][i]), dst=int(cols["dst"][i]))
+        for i in range(cols["t_ready"].shape[0])])
+
+
+def flow_then_rank_max(arrivals, fin):
+    """The finish as the reference reduces it: per-flow max arrival, +
+    the flow's offset, per-rank max (0.0 where nothing arrives)."""
+    F = len(fin["foff"])
+    fmax = np.full(F, -np.inf)
+    np.maximum.at(fmax, fin["fid"], arrivals)
+    out = np.zeros(fin["n_ranks"])
+    np.maximum.at(out, fin["fdst"], fmax + fin["foff"])
+    return out
 
 
 def test_stencil_grid_finish_mode():
@@ -127,28 +148,116 @@ def test_stencil_grid_arrivals_mode():
         assert np.array_equal(g, np.asarray(w))
 
 
-def test_stencil_buckets_are_exact_depth():
+def test_stencil_layout_coalesces():
+    """A stencil super-batch: every message at one layout position, the
+    records deepest first, and only a warp that straddles two depths has
+    records with a tail beyond the interleaved part (so nearly every
+    load is interleaved across its warp); every block's carries in
+    shared memory."""
     _, _, items, fins = stencil_items(STENCIL_POINTS)
     ops, _ = pfc.grid_ops(items, fins, "cpu")
-    assert masked_bucket_count(ops) == 0
+    desc = ops.desc.numpy()
+    depth = desc[:, pfc.DEPTH]
+    assert np.all(np.diff(depth) <= 0)
+    cta = ops.cta.numpy()
+    blk = np.repeat(np.arange(len(cta) - 1), np.diff(cta))
+    warp = blk * pfc.THREADS + (np.arange(len(desc)) - cta[blk]) // pfc.WARP
+    ragged = np.unique(warp[desc[:, pfc.KW] < depth])
+    assert len(ragged) <= len(np.unique(depth)) - 1
+    assert ops.n_global == 0 and np.all(desc[:, pfc.SOFF] >= 0)
+    _, _, pos = pfc._positions(desc)
+    assert np.array_equal(np.sort(pos), np.arange(ops.n))
+    assert len(desc) == sum(len(np.unique(it.src)) for it in items)
+    assert np.all(np.diff(cta) <= pfc.THREADS)
+    assert np.all(ops.foff.numpy() >= 0)
 
 
+@pytest.mark.parametrize("lone", [0, 32, 1 << 30])
 @pytest.mark.parametrize("mode", ["finish", "arrivals"])
-def test_masked_buckets_match_reference(mode):
-    cols, fin, n_ranks = random_traffic(0)
+def test_ragged_traffic_matches_reference(mode, lone, monkeypatch):
+    """Random traffic with ragged rank depths, one Zipf-heavy rank,
+    ranks that send nothing and ranks that receive nothing: equal to
+    the Pallas kernel and to the scalar oracle, whether the plain
+    version walks the records as tensor steps (``lone`` 0), on host
+    floats (``lone`` past the record count), or switches midway."""
+    monkeypatch.setattr(pfc, "LONE_RECORDS", lone)
+    cols, fin, n_ranks = random_traffic(0, n_ranks=96, n_flows=600,
+                                        silent=4)
     ref_item, item = both_items(cols, n_ranks)
-    fins = [pfc.FinishSpec(**fin)] if mode == "finish" else None
-    ops, _ = pfc.grid_ops([item], fins, "cpu")
-    assert masked_bucket_count(ops) >= 3  # every stage goes masked
-    with reference_kernel():
-        if mode == "finish":
-            want = rfp.transmit_grid_finish([ref_item],
-                                            [rfp.FinishSpec(**fin)])
-            got = pfc.transmit_grid_finish([item], fins, device="cpu")
-        else:
-            want = rfp.transmit_grid([ref_item])
-            got = pfc.transmit_grid([item], device="cpu")
-    assert np.array_equal(got[0], np.asarray(want[0]))
+    per_rank = np.bincount(cols["src"], minlength=n_ranks)
+    assert per_rank.max() > 5 * per_rank[per_rank > 0].mean()
+    assert np.any(per_rank == 0)
+    assert not np.isin(np.arange(n_ranks - 4, n_ranks), fin["fdst"]).any()
+    ops, _ = pfc.grid_ops([item], [pfc.FinishSpec(**fin)]
+                          if mode == "finish" else None, "cpu")
+    depth = ops.desc.numpy()[:, pfc.DEPTH]
+    assert len(np.unique(depth)) > 8 and len(depth) > 32
+    oracle = reference_arrivals(cols, n_ranks)
+    if mode == "finish":
+        got = pfc.transmit_grid_finish([item], [pfc.FinishSpec(**fin)],
+                                       device="cpu")
+        assert np.array_equal(got[0], flow_then_rank_max(oracle, fin))
+        assert np.all(got[0][n_ranks - 4:] == 0.0)
+    else:
+        got = pfc.transmit_grid([item], device="cpu")
+        assert np.array_equal(got[0], oracle)
+    if lone == 32:  # the Pallas kernel's result does not depend on it
+        with reference_kernel():
+            want = (rfp.transmit_grid_finish([ref_item],
+                                             [rfp.FinishSpec(**fin)])
+                    if mode == "finish" else rfp.transmit_grid([ref_item]))
+        assert np.array_equal(got[0], np.asarray(want[0]))
+
+
+def test_finish_max_is_order_free():
+    """The kernel's finish takes atomicMax in whatever order its threads
+    reach it.  Max is exact, so the per-rank result of the messages'
+    ``arrival + foff`` is the same bits in any order: the plain
+    reduction over a shuffled message order equals the ordered one."""
+    cols, fin, n_ranks = random_traffic(3, silent=2)
+    _, item = both_items(cols, n_ranks)
+    arr = torch.from_numpy(pfc.transmit_grid([item], device="cpu")[0])
+    vals = arr + torch.from_numpy(fin["foff"][fin["fid"]])
+    dst = torch.from_numpy(fin["fdst"][fin["fid"]])
+    ordered = pfc.rank_max(n_ranks, dst, vals)
+    for seed in range(3):
+        p = torch.from_numpy(np.random.default_rng(seed).permutation(
+            vals.shape[0]))
+        assert torch.equal(pfc.rank_max(n_ranks, dst[p], vals[p]), ordered)
+    assert torch.equal(ordered[n_ranks - 2:], torch.zeros(2,
+                                                          dtype=torch.float64))
+
+
+def test_finish_equals_flow_max_then_rank_max():
+    """``fl(x + c)`` is monotonic in ``x``, so the per-rank max over
+    messages of arrival + foff equals the flow max, + foff, then the
+    rank max, bit for bit, on random traffic."""
+    cols, fin, n_ranks = random_traffic(4, silent=3)
+    _, item = both_items(cols, n_ranks)
+    arr = pfc.transmit_grid([item], device="cpu")[0]
+    got = pfc.transmit_grid_finish([item], [pfc.FinishSpec(**fin)],
+                                   device="cpu")[0]
+    assert np.array_equal(got, flow_then_rank_max(arr, fin))
+
+
+def test_records_that_overflow_shared_memory(monkeypatch):
+    """With a small shared-memory share the heavy ranks keep their
+    carries in device memory and the blocks shrink to fit; the layout
+    stays valid and the result is unchanged."""
+    cols, fin, n_ranks = random_traffic(2)
+    _, item = both_items(cols, n_ranks)
+    want = pfc.transmit_grid_finish([item], [pfc.FinishSpec(**fin)], "cpu")
+    pfc.clear_memos()
+    monkeypatch.setattr(pfc, "SMEM_DOUBLES", 24)
+    ops, _ = pfc.grid_ops([item], [pfc.FinishSpec(**fin)], "cpu")
+    desc = ops.desc.numpy()
+    assert ops.n_global > 0 and ops.smem <= 24
+    assert np.all((desc[:, pfc.SOFF] < 0)
+                  == (desc[:, pfc.NV] + desc[:, pfc.NL] > 24))
+    assert len(ops.cta) - 1 > -(-len(desc) // pfc.THREADS)
+    got = pfc.transmit_grid_finish([item], [pfc.FinishSpec(**fin)], "cpu")
+    pfc.clear_memos()
+    assert np.array_equal(got[0], want[0])
 
 
 def test_carry_outs_match_reference_kernel():
@@ -174,7 +283,8 @@ def test_carry_outs_match_reference_kernel():
         want = rfp._build_call(rfp._runtime_meta(core, "arrivals"))(
             consts, *dyn, *statics)
         want = [np.asarray(w) for w in want]
-    ops, p_orders = pfc._arr_structure(lays, n, torch.device("cpu"))
+    ops, perm, slot = pfc._arr_structure(lays, n_vcis, n_ranks,
+                                         torch.device("cpu"))
     pc1, pc3, prdv = pfc._cost_columns(
         cols["t_ready"], cols["nbytes"], cols["thread"], cols["put"],
         cols["am_copy"], pfb.DEFAULT_NET, lays[0], warm_prev)
@@ -182,13 +292,16 @@ def test_carry_outs_match_reference_kernel():
         assert np.array_equal(a, b)
     t = torch.from_numpy
     ops = pfc._set_costs(pfc.dataclasses.replace(
-        ops, t_ready=t(cols["t_ready"]), c1=t(pc1), c3=t(pc3), rdv=t(prdv),
-        init=tuple(t(w[o]) for w, o in zip(warm, p_orders))),
-        pfb.DEFAULT_NET)
+        ops, t_ready=t(cols["t_ready"][perm]), c1=t(pc1[perm]),
+        c3=t(pc3[perm]), slot=t(pfc._slot_words(slot, prdv[perm])),
+        init=tuple(t(w) for w in warm)), pfb.DEFAULT_NET)
     got = [x.numpy() for x in pfc.fabric_scan_ref(ops)]
-    assert masked_bucket_count(ops) >= 3
-    for g, w in zip(got, want):
-        assert np.array_equal(g, w)
+    assert len(np.unique(ops.desc.numpy()[:, pfc.DEPTH])) > 8
+    assert np.array_equal(got[0], want[0])
+    # the port's carries are in stage group order, the reference's in
+    # its buckets' group order
+    for g, w, o in zip(got[1:], want[1:], orders):
+        assert np.array_equal(g[o], w)
 
 
 def test_warm_transmit_arrays_matches_pallas_fabric(forced):
@@ -229,22 +342,61 @@ def test_operand_checks_reject_bad_operands():
     bad = pfc.dataclasses.replace(ops, c1=ops.c1.float())
     with pytest.raises(ValueError, match="c1"):
         pfc._check_operands(bad, torch.device("cpu"))
-    b0 = ops.stages[0][0]
-    bad_idx = pfc.dataclasses.replace(b0, ridx=b0.ridx.long())
-    bad = pfc.dataclasses.replace(
-        ops, stages=([bad_idx, *ops.stages[0][1:]], *ops.stages[1:]))
-    with pytest.raises(ValueError, match="release index"):
+    bad = pfc.dataclasses.replace(ops, slot=ops.slot.long())
+    with pytest.raises(ValueError, match="slot"):
+        pfc._check_operands(bad, torch.device("cpu"))
+    bad = pfc.dataclasses.replace(ops, desc=ops.desc[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="desc"):
         pfc._check_operands(bad, torch.device("cpu"))
 
 
 def test_index_bounds_checked_before_upload():
-    cols, _, n_ranks = random_traffic(7, n_flows=40)
+    """A VCI or link slot beyond its record's carries, a record position
+    off the layout and an output index past the ranks are all refused
+    before anything is uploaded."""
+    cols, fin, n_ranks = random_traffic(7, n_flows=40)
     _, item = both_items(cols, n_ranks)
-    ops, _ = pfc._assemble([item], None)
-    b0 = ops.stages[1][0]
-    broken = pfc.dataclasses.replace(b0, ridx=b0.ridx + ops.sizes[0])
-    ops = pfc.dataclasses.replace(
-        ops, stages=(ops.stages[0], [broken, *ops.stages[1][1:]],
-                     ops.stages[2]))
-    with pytest.raises(ValueError, match="stage-2 release"):
-        pfc._upload(ops, torch.device("cpu"))
+    ops, _ = pfc._assemble([item], [pfc.FinishSpec(**fin)])
+    pfc._upload(ops, torch.device("cpu"))
+    desc = ops.desc
+    r = int(np.argmax(desc[:, pfc.NL]))  # a record with several links
+    _, _, pos = pfc._positions(desc[r:r + 1])
+    p = int(pos[0])
+    word = ops.slot.view(np.uint32)
+    for bad_word in (word[p] | np.uint32(pfc.VCI_LIMIT - 1),
+                     word[p] | np.uint32(desc[r, pfc.NL] << 8)):
+        slot = word.copy()
+        slot[p] = bad_word
+        with pytest.raises(ValueError, match="slot index"):
+            pfc._upload(pfc.dataclasses.replace(
+                ops, slot=slot.view(np.int32)), torch.device("cpu"))
+    bad = desc.copy()
+    bad[r, pfc.TAIL] = ops.n
+    with pytest.raises(ValueError, match="position"):
+        pfc._upload(pfc.dataclasses.replace(ops, desc=bad),
+                    torch.device("cpu"))
+    out = ops.out.copy()
+    out[0] = n_ranks
+    with pytest.raises(ValueError, match="output index"):
+        pfc._upload(pfc.dataclasses.replace(ops, out=out),
+                    torch.device("cpu"))
+
+
+def test_operands_match_kernel_source():
+    """The host's descriptor width, block size and slot encoding are
+    the kernel's (``csrc/fabric_scan.cu``), which no CPU test runs."""
+    import re
+    src = (Path(pfc.__file__).resolve().parents[1] / "csrc"
+           / "fabric_scan.cu").read_text()
+    body = re.search(r"struct __align__\(16\) Record \{(.*?)\};", src,
+                     re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = re.findall(r"\b\w+\b(?=\s*[,;])", body.replace("int ", ""))
+    assert len(fields) == pfc.DESC_FIELDS == 12
+    assert [fields.index(f) for f in ("m0", "stride", "kw", "tail", "depth",
+                                      "rec", "cv0", "nv", "cl0", "nl",
+                                      "soff")] == list(range(11))
+    assert f"kThreads = {pfc.THREADS};" in src
+    assert "kVciMask = 0xffu" in src and pfc.VCI_LIMIT == 0x100
+    assert "kLinkMask = 0x7fffffu" in src and pfc.LINK_LIMIT == 0x800000
+    assert "kRdvBit = 1u << 31" in src and pfc.RDV_BIT == 1 << 31
