@@ -155,19 +155,38 @@ def finalize_grads(model, sync: SyncConfig, log: SyncLog,
     _bucketed_pmean(grads, sync, log, "final", aggr_override=aggr)
 
 
-def stack_layer_grads(model, layers_key: str = "layers") -> None:
-    """Back each stacked leaf's gradients with one zeroed ``[L, ...]``
-    buffer: layer ``i``'s parameter gets slice ``i`` as its ``.grad``,
-    into which backward accumulates in place.  The leaf then travels as
-    one collective over the whole buffer, as JAX's stacked array does,
-    instead of one per layer."""
+def stacked_grad_slices(model, layers_key: str = "layers"):
+    """``(param, slice)`` for every layer parameter of a stacked leaf:
+    one uninitialised ``[L, ...]`` buffer per leaf ``layers.<rest>``,
+    layer ``i``'s parameter paired with slice ``i``."""
     for name, segs in param_leaves(model.named_parameters()):
         if name.split(".")[0] != layers_key or len(segs) < 2:
             continue
-        buf = torch.zeros((len(segs), *segs[0].shape), dtype=segs[0].dtype,
+        buf = torch.empty((len(segs), *segs[0].shape), dtype=segs[0].dtype,
                           device=segs[0].device)
-        for p, g in zip(segs, buf):
-            p.grad = g
+        yield from zip(segs, buf)
+
+
+def _move_grad(p: torch.Tensor, g: torch.Tensor) -> None:
+    """Post-accumulate hook: make ``p``'s gradient slice ``g``.  The
+    first accumulation leaves autograd's own tensor in ``.grad``; it is
+    copied into ``g`` once, and later accumulations add into ``g`` in
+    place."""
+    if p.grad.data_ptr() != g.data_ptr():
+        g.copy_(p.grad)
+        p.grad = g
+
+
+def stack_layer_grads(model, layers_key: str = "layers") -> List:
+    """Gather each stacked leaf's gradients into one ``[L, ...]``
+    buffer as backward produces them (:func:`stacked_grad_slices`,
+    :func:`_move_grad`), so that the leaf travels as one collective over
+    the whole buffer, as JAX's stacked array does, instead of one per
+    layer.  A parameter that backward never reaches keeps ``.grad``
+    None.  Returns the hook handles; remove them after backward."""
+    return [p.register_post_accumulate_grad_hook(
+                lambda p, g=g: _move_grad(p, g))
+            for p, g in stacked_grad_slices(model, layers_key)]
 
 
 def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
@@ -178,7 +197,7 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
     ``wrapped(model, *args) -> (loss, grads)`` leaves the synced
     gradients in each parameter's ``.grad`` (cleared first) and returns
     them by parameter name; the loss is averaged over the group too.
-    In bulk and per_leaf mode each stacked leaf's gradients are slices
+    In bulk and per_leaf mode each stacked leaf's gradients end as slices
     of one buffer (:func:`stack_layer_grads`), so every bucket of the
     plan is one all-reduce.
     ``wrapped.log`` is the :class:`SyncLog` of the last call.
@@ -188,13 +207,15 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
         wrapped.log = log
         for p in model.parameters():
             p.grad = None
-        if sync.mode != "partitioned":  # its layer hooks reduce per layer
-            stack_layer_grads(model)
+        stacked = ([] if sync.mode == "partitioned"  # reduced per layer
+                   else stack_layer_grads(model))
         hook = make_layer_hook(sync, log)
         try:
             val = loss_fn(model, *args, param_hook=hook)
             val.backward()
         finally:
+            for h in stacked:
+                h.remove()
             left = hook.close() if isinstance(hook, LayerHook) else []
         if left:
             raise RuntimeError(f"early-bird sync: layers {left} never got"

@@ -178,7 +178,6 @@ class RankLayout:
     desc: np.ndarray    # (R, DESC_FIELDS) int32, records in launch order
     cta: np.ndarray     # (C + 1,) int32 first record of each block
     smem: int           # doubles of shared memory a block takes
-    n_global: int       # records whose carries live in device memory
     sizes: tuple        # (VCI carries, records, link carries)
 
 
@@ -189,10 +188,10 @@ def _rank_layout(lays_list, n_vcis_list, n_ranks_list) -> RankLayout:
     warp's records have near-equal depths).  A block takes up to
     :data:`THREADS` consecutive records whose carries fit
     :data:`SMEM_DOUBLES` together; a record whose carries alone exceed
-    that keeps them in device memory.  Within each warp, message k of
-    lane j lies at ``base + k * lanes + j`` up to the warp's least depth
-    ``kw``, so a step's loads coalesce; each lane's further messages
-    follow, lane after lane.
+    that is rejected, as a rank with too many VCIs or links is.  Within
+    each warp, message k of lane j lies at ``base + k * lanes + j`` up to
+    the warp's least depth ``kw``, so a step's loads coalesce; each
+    lane's further messages follow, lane after lane.
     """
     parts, mbase, b1, b3 = [], 0, 0, 0
     for lays, nvc, nrk in zip(lays_list, n_vcis_list, n_ranks_list):
@@ -210,12 +209,13 @@ def _rank_layout(lays_list, n_vcis_list, n_ranks_list) -> RankLayout:
     if R and (int(vslot.max()) >= VCI_LIMIT or int(lslot.max()) >= LINK_LIMIT):
         raise ValueError(f"a rank has more than {VCI_LIMIT} VCIs or"
                          f" {LINK_LIMIT} links")
+    if R and int((nv + nl).max()) > SMEM_DOUBLES:
+        raise ValueError(f"a rank-record has more than {SMEM_DOUBLES} VCI"
+                         f" and link carries")
     srt = np.argsort(-depth, kind="stable")
     d = depth[srt]
-    need = (nv + nl)[srt]
-    on_device = need > SMEM_DOUBLES
     cs = np.zeros(R + 1, dtype=np.int64)
-    np.cumsum(np.where(on_device, 0, need), out=cs[1:])
+    np.cumsum((nv + nl)[srt], out=cs[1:])
     firsts = [0]
     while firsts[-1] < R:
         a = firsts[-1]
@@ -239,15 +239,14 @@ def _rank_layout(lays_list, n_vcis_list, n_ranks_list) -> RankLayout:
     desc[:, REC] = srt
     desc[:, CV0], desc[:, NV] = cv0[srt], nv[srt]
     desc[:, CL0], desc[:, NL] = cl0[srt], nl[srt]
-    desc[:, SOFF] = np.where(on_device, -1, cs[:-1] - cs[cta[blk]])
+    desc[:, SOFF] = cs[:-1] - cs[cta[blk]]
     rep, k, pos = _positions(desc)
     perm = np.empty(n, dtype=np.int64)
     perm[pos] = order[offs[srt][rep] + k]
     slot = (vslot | (lslot << 8))[perm].astype(np.uint32)
     smem = int((cs[cta[1:]] - cs[cta[:-1]]).max()) if R else 0
     return RankLayout(perm=perm, slot=slot, desc=desc.astype(np.int32),
-                      cta=cta.astype(np.int32), smem=smem,
-                      n_global=int(on_device.sum()), sizes=(b1, R, b3))
+                      cta=cta.astype(np.int32), smem=smem, sizes=(b1, R, b3))
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +267,6 @@ class ScanOps:
     desc: object                # (R, DESC_FIELDS) int32
     cta: object                 # (C + 1,) int32
     smem: int
-    n_global: int
     sizes: tuple                # (VCI carries, records, link carries)
     alpha_wire: float = 0.0
     alpha_nic: float = 0.0
@@ -340,10 +338,8 @@ def _check_indices(ops: ScanOps) -> None:
     if cta[0] != 0 or cta[-1] != R or np.any(np.diff(cta) < 1) \
             or np.any(np.diff(cta) > THREADS):
         raise ValueError(f"blocks must take 1 to {THREADS} records each")
-    shared = desc[:, SOFF] >= 0
-    if ops.smem > SMEM_DOUBLES or int((~shared).sum()) != ops.n_global or \
-            np.any(desc[shared, SOFF] + desc[shared, NV] + desc[shared, NL]
-                   > ops.smem):
+    if ops.smem > SMEM_DOUBLES or np.any(desc[:, SOFF] < 0) or \
+            np.any(desc[:, SOFF] + desc[:, NV] + desc[:, NL] > ops.smem):
         raise ValueError("record carries outside the block's shared memory")
 
 
@@ -496,8 +492,7 @@ def _library() -> ctypes.CDLL:
         from ..kernels import build
         lib = build.load("fabric_scan")
         lib.fabric_rank_scan.argtypes = [
-            _VP, _I, _I, _I, *[_VP] * 11, _D, _D, _D, _D, *[_VP] * 5, _LL,
-            _VP, _VP]
+            _VP, _I, _I, _I, *[_VP] * 11, _D, _D, _D, _D, *[_VP] * 5, _LL]
         lib.fabric_rank_scan.restype = _I
         lib.fabric_scan_error_string.argtypes = [_I]
         lib.fabric_scan_error_string.restype = ctypes.c_char_p
@@ -572,21 +567,18 @@ def fabric_scan(ops: ScanOps):
             _ptr(i2), _ptr(i3), ops.alpha_nic, ops.rdv_add,
             ops.alpha_wire, ops.alpha_recv))
     args = ops.launch[1]
-    G1, R, G3 = ops.sizes
 
     def empty(size):
         return torch.empty(size, dtype=DTYPE, device=dev)
     if ops.finish:
         arr = o1 = o2 = o3 = None
         rank_out = empty(ops.n_out)
-        w1, w3 = (empty(G1), empty(G3)) if ops.n_global else (None, None)
     else:
-        arr, o1, o2, o3 = empty(ops.n), empty(G1), empty(R), empty(G3)
-        rank_out, w1, w3 = None, o1, o3
+        arr, o1, o2, o3 = empty(ops.n), *(empty(g) for g in ops.sizes)
+        rank_out = None
     rc = lib.fabric_rank_scan(
         torch.cuda.current_stream(dev).cuda_stream, *args, _ptr(arr),
-        _ptr(o1), _ptr(o2), _ptr(o3), _ptr(rank_out), ops.n_out, _ptr(w1),
-        _ptr(w3))
+        _ptr(o1), _ptr(o2), _ptr(o3), _ptr(rank_out), ops.n_out)
     n_cta = args[1]
     if n_cta:
         LAUNCHES["fabric_scan"] += 1
@@ -640,8 +632,8 @@ def _assemble(items: List[GridItem],
     ops = _set_costs(ScanOps(
         t_ready=tr[perm], c1=c1[perm], c3=c3[perm],
         slot=_slot_words(lay.slot, rdv[perm]), out=perm.astype(np.int32),
-        desc=lay.desc, cta=lay.cta, smem=lay.smem, n_global=lay.n_global,
-        sizes=lay.sizes), items[0].cfg)
+        desc=lay.desc, cta=lay.cta, smem=lay.smem, sizes=lay.sizes),
+        items[0].cfg)
     if finishes is None:
         return ops, {"item_lens": item_lens}
     fid = np.concatenate(fid_l)[perm]
@@ -748,7 +740,7 @@ def _arr_structure(lays, n_vcis: int, n_ranks: int, device
     ops = ScanOps(t_ready=zeros, c1=zeros, c3=zeros,
                   slot=lay.slot.view(np.int32), out=lay.perm.astype(np.int32),
                   desc=lay.desc, cta=lay.cta, smem=lay.smem,
-                  n_global=lay.n_global, sizes=lay.sizes)
+                  sizes=lay.sizes)
     return _upload(ops, device), lay.perm, lay.slot
 
 

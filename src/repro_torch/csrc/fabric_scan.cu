@@ -15,8 +15,8 @@
 // NIC src, wire (src, dst)), so each source rank-record -- one grid item's
 // messages from one rank, in merge order -- is independent of every other.
 // Design: one thread per rank-record walks its messages through all three
-// queues; its VCI and link carries sit in shared memory (in device memory
-// for a record too large for its block's share), the NIC carry in a
+// queues; its VCI and link carries sit in shared memory (the host rejects
+// a record whose carries exceed a block's share), the NIC carry in a
 // register.  Nothing crosses between threads, so there is no barrier and
 // no second pass: the finish is a max, taken with an atomic max (a
 // reduction, red.global.max.u64) on the bit patterns of the positive
@@ -56,7 +56,7 @@ struct __align__(16) Record {
   int m0, stride, kw, tail;  // layout: message k at m0 + stride * k while
                              // k < kw, else at tail + (k - kw)
   int depth, rec, cv0, nv;   // messages; NIC carry index; VCI carries
-  int cl0, nl, soff, pad;    // link carries; shared offset (-1: device)
+  int cl0, nl, soff, pad;    // link carries; offset in shared memory
 };
 
 // max of two of these times: a compare and a select.  No NaN occurs and
@@ -101,9 +101,7 @@ __device__ __forceinline__ void red_max(unsigned long long* out, double v) {
                : "memory");
 }
 
-// The kernel's operands, as one struct so that the walk below can be
-// inlined twice: once with the carries in shared memory, once in device
-// memory, each with its own address space known to the compiler.
+// The kernel's operands that the walk below reads and writes.
 struct Args {
   const double* __restrict__ tr;
   const double* __restrict__ c1;
@@ -217,31 +215,23 @@ __global__ void __launch_bounds__(kThreads, 4) fabric_rank_kernel(
     const int* __restrict__ cta, const Record* __restrict__ records,
     const Args A, const double* __restrict__ i1,
     const double* __restrict__ i2, const double* __restrict__ i3,
-    double* o1, double* __restrict__ o2, double* o3, double* w1,
-    double* w3) {  // arrivals mode: w1, w3 are o1, o3
+    double* __restrict__ o1, double* __restrict__ o2,
+    double* __restrict__ o3) {
   extern __shared__ double smem[];
   const int r = cta[blockIdx.x] + static_cast<int>(threadIdx.x);
   if (r >= cta[blockIdx.x + 1]) return;
   const Record R = records[r];
   double nic = i2 != nullptr ? i2[R.rec] : 0.0;
-  if (R.soff >= 0) {
-    double* V = smem + R.soff;
-    double* W = V + R.nv;
-    for (int j = 0; j < R.nv; ++j) V[j] = i1 != nullptr ? i1[R.cv0 + j] : 0.0;
-    for (int j = 0; j < R.nl; ++j) W[j] = i3 != nullptr ? i3[R.cl0 + j] : 0.0;
-    nic = walk<kFinish>(R, A, V, W, nic);
-    if (!kFinish) {
-      for (int j = 0; j < R.nv; ++j) o1[R.cv0 + j] = V[j];
-      for (int j = 0; j < R.nl; ++j) o3[R.cl0 + j] = W[j];
-    }
-  } else {  // carries too many for the block's share: in device memory
-    double* V = w1 + R.cv0;
-    double* W = w3 + R.cl0;
-    for (int j = 0; j < R.nv; ++j) V[j] = i1 != nullptr ? i1[R.cv0 + j] : 0.0;
-    for (int j = 0; j < R.nl; ++j) W[j] = i3 != nullptr ? i3[R.cl0 + j] : 0.0;
-    nic = walk<kFinish>(R, A, V, W, nic);
+  double* V = smem + R.soff;
+  double* W = V + R.nv;
+  for (int j = 0; j < R.nv; ++j) V[j] = i1 != nullptr ? i1[R.cv0 + j] : 0.0;
+  for (int j = 0; j < R.nl; ++j) W[j] = i3 != nullptr ? i3[R.cl0 + j] : 0.0;
+  nic = walk<kFinish>(R, A, V, W, nic);
+  if (!kFinish) {
+    for (int j = 0; j < R.nv; ++j) o1[R.cv0 + j] = V[j];
+    for (int j = 0; j < R.nl; ++j) o3[R.cl0 + j] = W[j];
+    o2[R.rec] = nic;
   }
-  if (!kFinish) o2[R.rec] = nic;
 }
 
 }  // namespace
@@ -258,7 +248,7 @@ int fabric_rank_scan(void* stream, int finish, int n_cta, int smem_doubles,
                      const void* i2, const void* i3, double alpha_nic,
                      double rdv_add, double alpha_wire, double alpha_recv,
                      void* arr, void* o1, void* o2, void* o3, void* rank_out,
-                     long long n_out, void* w1, void* w3) {
+                     long long n_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (finish) {
     const cudaError_t rc = cudaMemsetAsync(
@@ -284,14 +274,12 @@ int fabric_rank_scan(void* stream, int finish, int n_cta, int smem_doubles,
   double* d1 = static_cast<double*>(o1);
   double* d2 = static_cast<double*>(o2);
   double* d3 = static_cast<double*>(o3);
-  double* g1 = static_cast<double*>(w1);
-  double* g3 = static_cast<double*>(w3);
   if (finish)
     fabric_rank_kernel<true><<<n_cta, kThreads, shmem, s>>>(
-        c, rd, A, n1, n2, n3, d1, d2, d3, g1, g3);
+        c, rd, A, n1, n2, n3, d1, d2, d3);
   else
     fabric_rank_kernel<false><<<n_cta, kThreads, shmem, s>>>(
-        c, rd, A, n1, n2, n3, d1, d2, d3, g1, g3);
+        c, rd, A, n1, n2, n3, d1, d2, d3);
   return static_cast<int>(cudaGetLastError());
 }
 

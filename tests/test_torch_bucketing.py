@@ -192,7 +192,8 @@ def test_full_width_one_collective_per_bucket(full_width, monkeypatch, mode,
     jshapes, model = full_width
     want = jb.make_plan(jax.tree.leaves(jshapes), aggr)
     assert want.n_buckets == n_ref
-    earlybird.stack_layer_grads(model)
+    for p, g in earlybird.stacked_grad_slices(model):
+        p.grad = g  # where the backward hooks leave the gradients
     for p in model.parameters():
         if p.grad is None:  # embed, final_norm: one tensor each
             p.grad = torch.empty_like(p)
@@ -220,8 +221,11 @@ def test_scattered_stacked_leaf_is_packed_once(monkeypatch):
 
 
 def test_stacked_grads_accumulate_in_place():
-    """Backward accumulates into the buffer's slices in place (autograd
-    keeps a ``.grad`` it finds), bitwise equal to fresh gradients."""
+    """Backward leaves each stacked leaf's gradients in the slices of
+    one buffer, bitwise equal to fresh gradients; a second backward
+    accumulates into the slices in place (autograd keeps a ``.grad`` it
+    finds), and a parameter that backward never reaches keeps ``.grad``
+    None, so the early-bird guard still sees it."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import earlybird
     from repro_torch.data import pipeline
@@ -233,14 +237,36 @@ def test_stacked_grads_accumulate_in_place():
     fresh = {n: p.grad.clone() for n, p in model.named_parameters()}
     for p in model.parameters():
         p.grad = None
-    earlybird.stack_layer_grads(model)
-    slices = {n: p.grad for n, p in model.named_parameters()
-              if p.grad is not None}
-    assert len(slices) == sum(len(s) for n, s in
-                              plm.param_leaves(model.named_parameters())
-                              if n.startswith("layers."))
+    handles = earlybird.stack_layer_grads(model)
+    stacked = [(n, segs) for n, segs in
+               plm.param_leaves(model.named_parameters())
+               if n.startswith("layers.")]
+    assert len(handles) == sum(len(s) for _, s in stacked)
+    assert all(p.grad is None for p in model.parameters())
+    plm.loss_fn(cfg, model, batch).backward()
+    names = {id(p): n for n, p in model.named_parameters()}
+    slices = {}
+    for _, segs in stacked:
+        view = pb._covering_view([p.grad for p in segs])
+        assert view is not None and view.numel() == sum(p.numel()
+                                                        for p in segs)
+        slices.update((names[id(p)], p.grad) for p in segs)
+    for n, p in model.named_parameters():
+        assert torch.equal(p.grad, fresh[n]), n
     plm.loss_fn(cfg, model, batch).backward()
     for n, p in model.named_parameters():
         if n in slices:
             assert p.grad is slices[n], n
-        assert torch.equal(p.grad, fresh[n]), n
+        assert torch.equal(p.grad, fresh[n] + fresh[n]), n
+    for h in handles:
+        h.remove()
+    for p in model.parameters():
+        p.grad = None
+    handles = earlybird.stack_layer_grads(model)
+    skipped = stacked[0][1][1]  # layer 1 of the first stacked leaf
+    sum(p.sum() for p in model.parameters() if p is not skipped).backward()
+    assert skipped.grad is None
+    assert all(p.grad is not None for p in model.parameters()
+               if p is not skipped)
+    for h in handles:
+        h.remove()

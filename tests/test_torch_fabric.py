@@ -169,15 +169,10 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["finish", "arrivals"])
-@pytest.mark.parametrize("smem", [None, 16])
-def test_cuda_kernel_matches_plain_version(mode, smem, cuda_device,
-                                           monkeypatch):
+def test_cuda_kernel_matches_plain_version(mode, cuda_device):
     """The hand-written kernel on the card, bitwise against its plain
     version, in one launch per super-batch: random traffic (ragged rank
-    depths) and a stencil point; with ``smem`` 16 most records keep
-    their carries in device memory instead of shared memory."""
-    if smem is not None:
-        monkeypatch.setattr(pfc, "SMEM_DOUBLES", smem)
+    depths) and a stencil point."""
     pfc.clear_memos()
     b = random_batch(8, n_ranks=64, n=20000)
     link = b["src"] * 64 + b["dst"]
@@ -194,8 +189,6 @@ def test_cuda_kernel_matches_plain_version(mode, smem, cuda_device,
                         ([stencil], [psim._cuda_finish_spec(prep, order)])):
         ops, _ = pfc.grid_ops(items, fins if mode == "finish" else None,
                               cuda_device)
-        if items[0] is item:
-            assert (ops.n_global > 0) == (smem is not None)
         before = pfc.LAUNCHES["fabric_scan"]
         got = pfc.fabric_scan(ops)
         assert pfc.LAUNCHES["fabric_scan"] == before + 1

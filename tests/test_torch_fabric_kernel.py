@@ -164,7 +164,7 @@ def test_stencil_layout_coalesces():
     warp = blk * pfc.THREADS + (np.arange(len(desc)) - cta[blk]) // pfc.WARP
     ragged = np.unique(warp[desc[:, pfc.KW] < depth])
     assert len(ragged) <= len(np.unique(depth)) - 1
-    assert ops.n_global == 0 and np.all(desc[:, pfc.SOFF] >= 0)
+    assert np.all(desc[:, pfc.SOFF] >= 0)
     _, _, pos = pfc._positions(desc)
     assert np.array_equal(np.sort(pos), np.arange(ops.n))
     assert len(desc) == sum(len(np.unique(it.src)) for it in items)
@@ -241,19 +241,35 @@ def test_finish_equals_flow_max_then_rank_max():
 
 
 def test_records_that_overflow_shared_memory(monkeypatch):
-    """With a small shared-memory share the heavy ranks keep their
-    carries in device memory and the blocks shrink to fit; the layout
-    stays valid and the result is unchanged."""
+    """A rank-record whose VCI and link carries exceed a block's shared
+    memory is rejected before anything is uploaded, as a rank with too
+    many VCIs or links is."""
+    cols, fin, n_ranks = random_traffic(2)
+    _, item = both_items(cols, n_ranks)
+    pfc.clear_memos()
+    monkeypatch.setattr(pfc, "SMEM_DOUBLES", 24)
+    with pytest.raises(ValueError, match="more than 24 VCI and link"):
+        pfc.grid_ops([item], [pfc.FinishSpec(**fin)], "cpu")
+    pfc.clear_memos()
+
+
+def test_blocks_shrink_to_fit_shared_memory(monkeypatch):
+    """With a shared-memory share just large enough for the heaviest
+    record, the blocks take fewer records, each block's carries fit its
+    share, and the result is unchanged."""
     cols, fin, n_ranks = random_traffic(2)
     _, item = both_items(cols, n_ranks)
     want = pfc.transmit_grid_finish([item], [pfc.FinishSpec(**fin)], "cpu")
     pfc.clear_memos()
-    monkeypatch.setattr(pfc, "SMEM_DOUBLES", 24)
+    ops, _ = pfc.grid_ops([item], [pfc.FinishSpec(**fin)], "cpu")
+    need = (ops.desc[:, pfc.NV] + ops.desc[:, pfc.NL]).numpy()
+    pfc.clear_memos()
+    monkeypatch.setattr(pfc, "SMEM_DOUBLES", int(need.max()))
     ops, _ = pfc.grid_ops([item], [pfc.FinishSpec(**fin)], "cpu")
     desc = ops.desc.numpy()
-    assert ops.n_global > 0 and ops.smem <= 24
-    assert np.all((desc[:, pfc.SOFF] < 0)
-                  == (desc[:, pfc.NV] + desc[:, pfc.NL] > 24))
+    assert ops.smem <= need.max()
+    assert np.all(desc[:, pfc.SOFF] + desc[:, pfc.NV] + desc[:, pfc.NL]
+                  <= ops.smem)
     assert len(ops.cta) - 1 > -(-len(desc) // pfc.THREADS)
     got = pfc.transmit_grid_finish([item], [pfc.FinishSpec(**fin)], "cpu")
     pfc.clear_memos()

@@ -330,6 +330,22 @@ def test_layer_hook_reports_a_layer_without_gradients(setup):
         vg(state["params"], psteps.batch_to_device(batches[0], "cpu"))
 
 
+@pytest.mark.parametrize("mode", ["bulk", "per_leaf"])
+def test_stacked_sync_reports_a_parameter_without_gradient(setup, mode):
+    """In bulk and per_leaf mode the stacked leaves' gradients are
+    gathered into one buffer, and a layer parameter that backward never
+    reaches is still reported, not synced as zeros."""
+    _, pc, params, batches = setup
+    state = _port_state(pc, params)
+
+    def loss_fn(m, b, param_hook):  # layer 1 is never used
+        return sum(p.sum() for n, p in m.named_parameters()
+                   if not n.startswith("layers.1."))
+    vg = value_and_synced_grad(loss_fn, SyncConfig(mode=mode))
+    with pytest.raises(RuntimeError, match=r"layers\.1\..* got no"):
+        vg(state["params"], psteps.batch_to_device(batches[0], "cpu"))
+
+
 # ---------------------------------------------------------------------------
 # checkpoints and resume
 # ---------------------------------------------------------------------------
