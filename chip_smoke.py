@@ -92,6 +92,14 @@ checkout; an earlier commit unpacked with ``git archive`` works too), on
 the XXL super-batch and the random grid of phase 2, and prints one JSON
 line: the way to hold two versions of the kernel against each other in
 one session on one card.
+
+    python3 chip_smoke.py --quant8-times [TREE]
+
+does the same for the quantize and dequantize kernels of ``TREE`` at 2^24
+f32 elements (and quantize of bf16): launches a call, the event window,
+host enqueue and profiler device time a call, and the kernels' output on
+a block holding a NaN and one holding ``+inf`` (the scales, and the int8
+and dequantized values at the non-finite elements), as one JSON line.
 """
 
 from __future__ import annotations
@@ -1505,6 +1513,113 @@ def fabric_times(tree: Path) -> dict:
     return out
 
 
+def _nonfinite_probe(dev):
+    """Two seeded blocks, a NaN in the first and ``+inf`` in the second:
+    what JAX gives is scales [nan, inf] and every int8 value 0."""
+    import torch
+    x = _seeded((512,), torch.float32, dev, 0)
+    x[3] = float("nan")
+    x[300] = float("inf")
+    return x
+
+
+def _quant_device(fn, kernel: str):
+    """Device ms per call of ``fn`` over 10 calls (``_device_profile``),
+    checked to trace exactly 10 kernels named ``kernel`` and no other
+    device event, so no host-to-device copy."""
+    ms, events, htod, names = _device_profile(fn)
+    check(events == 10 and htod == 0
+          and all(kernel in k for k, _ in names),
+          f"10 calls traced {events} device events {names}, HtoD {htod};"
+          f" want 10 {kernel} kernels")
+    return ms
+
+
+def _host_steps(x) -> dict:
+    """Median host microseconds (200 calls each) of every step a quant8
+    wrapper takes for the f32 vector ``x`` on the card: the checks, the
+    two output allocations, a device context, the stream lookup through
+    ``torch.cuda`` and raw, three ``data_ptr``, ``float().contiguous()``
+    (no copy for f32), a ctypes call into the library that launches
+    nothing, and the whole ``ops.quantize_blockwise`` (its enqueue)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant8 as q8
+    lib, idx, n = q8._library(), x.get_device(), x.numel()
+
+    def ctx():
+        with torch.cuda.device(x.device):
+            pass
+
+    def us(fn, reps: int = 200) -> float:
+        fn()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return sorted(ts)[reps // 2] * 1e6
+    return {
+        "checks": us(lambda: (x.dim() != 1, x.numel() < 1,
+                              x.dtype.is_floating_point, x.device.type)),
+        "empty_x2": us(lambda: (
+            torch.empty(n, dtype=torch.int8, device=x.device),
+            torch.empty(-(-n // 256), dtype=torch.float32, device=x.device))),
+        "device_context": us(ctx),
+        "current_stream": us(
+            lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        "raw_stream": us(lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        "data_ptr_x3": us(lambda: (x.data_ptr(), x.data_ptr(),
+                                   x.data_ptr())),
+        "float_contiguous": us(lambda: x.float().contiguous()),
+        "ctypes_call": us(lambda: lib.quant8_error_string(0)),
+        "whole_call": us(lambda: ops.quantize_blockwise(x))}
+
+
+def quant8_times(tree: Path) -> dict:
+    """The quant8 kernels of the source tree ``tree`` on the card, at 2^24
+    f32 elements (and bf16 quantize): launches per call, the median
+    event window, host enqueue and profiler device ms a call, and the
+    non-finite probe's scales and int8 values at its NaN and ``inf``
+    (with the dequantized value there).  Uses only what every version
+    of the port offers (``kernels.ops``, ``quant8.LAUNCHES``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant8 as q8
+    dev = torch.device("cuda")
+    n = 1 << 24
+    x = _seeded((n,), torch.float32, dev, 3)
+    xb = x.to(torch.bfloat16)
+    q, s = ops.quantize_blockwise(x)
+    out = {"tree": str(tree), "card": torch.cuda.get_device_name(0), "n": n}
+    for name, what, fn in (
+            ("quantize_blockwise", "quant", lambda: ops.quantize_blockwise(x)),
+            ("quantize_blockwise_bf16", "quant",
+             lambda: ops.quantize_blockwise(xb)),
+            ("dequantize_blockwise", "dequant",
+             lambda: ops.dequantize_blockwise(q, s))):
+        key = name.replace("_bf16", "")
+        before = q8.LAUNCHES[key]
+        fn()
+        rec = {"launches": q8.LAUNCHES[key] - before,
+               "ms": _timed(fn, dev, 20), "enqueue_ms": _host_ms(fn, dev, 20)}
+        ms, events, htod, names = _device_profile(fn)
+        rec.update(device_ms=ms, events=events, htod=htod,
+                   kernels=sorted({k for k, _ in names}))
+        out[name] = rec
+    p = _nonfinite_probe(dev)
+    qp, sp = ops.quantize_blockwise(p)
+    yp = ops.dequantize_blockwise(qp, sp)
+    out["nonfinite"] = {
+        "scales": [repr(float(v)) for v in sp],
+        "q_at_nan": int(qp[3]), "q_at_inf": int(qp[300]),
+        "y_at_nan": repr(float(yp[3])), "y_at_inf": repr(float(yp[300])),
+        "nonzero_q": [int((qp[:256] != 0).sum()), int((qp[256:] != 0).sum())]}
+    out["host_steps_us"] = _host_steps(x)
+    return out
+
+
 def _card_ready() -> bool:
     try:
         import torch
@@ -1524,7 +1639,8 @@ def main(argv=None) -> int:
         return 1
     import torch
     tree = ROOT
-    if argv[:1] == ["--fabric-times"]:
+    times = {"--fabric-times": fabric_times, "--quant8-times": quant8_times}
+    if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1536,7 +1652,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(tree / "src"))
     if argv:
         try:
-            print(json.dumps(fabric_times(tree)))
+            print(json.dumps(times[argv[0]](tree)))
         except Exception:
             traceback.print_exc()
             return 1

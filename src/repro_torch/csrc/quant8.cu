@@ -37,6 +37,22 @@ constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr long long kMaxCtas = 132 * 16;
 
+// max that carries NaN as jnp.max does (fmaxf drops it): a canonical NaN
+// if either operand is one.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// One quotient to int8: rint, then the clamp for numbers; a NaN quotient
+// (NaN / s, inf / inf) is 0, as XLA's float-to-int8 cast gives.
+__device__ __forceinline__ signed char to_int8(float t) {
+  const float r = rintf(t);
+  return r != r ? 0
+                : static_cast<signed char>(fminf(fmaxf(r, -127.0f), 127.0f));
+}
+
 __global__ void quant_kernel(const float* __restrict__ x, long long n,
                              long long n_blocks, signed char* __restrict__ q,
                              float* __restrict__ scale) {
@@ -51,17 +67,17 @@ __global__ void quant_kernel(const float* __restrict__ x, long long n,
   for (int k = 0; k < kPerLane; ++k) {
     const long long i = base + k * 32 + lane;
     v[k] = i < n ? x[i] : 0.0f;
-    m = fmaxf(m, fabsf(v[k]));
+    m = max_nan(m, fabsf(v[k]));
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
-  const float s = __fdiv_rn(fmaxf(m, 1e-30f), 127.0f);
+  for (int o = 16; o > 0; o >>= 1)
+    m = max_nan(m, __shfl_xor_sync(kFull, m, o));
+  const float s = __fdiv_rn(max_nan(m, 1e-30f), 127.0f);
 #pragma unroll
   for (int k = 0; k < kPerLane; ++k) {
     const long long i = base + k * 32 + lane;
     if (i < n) {
-      const float r = fminf(fmaxf(rintf(__fdiv_rn(v[k], s)), -127.0f), 127.0f);
-      q[i] = static_cast<signed char>(r);
+      q[i] = to_int8(__fdiv_rn(v[k], s));
     }
   }
   if (lane == 0) scale[b] = s;

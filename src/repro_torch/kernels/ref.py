@@ -74,11 +74,16 @@ def quantize_blockwise_ref(x: torch.Tensor, block: int = 256
 
     Both divisions are true divisions by a tensor: PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which
-    moves some scales by one ulp."""
+    moves some scales by one ulp.  Non-finite inputs go as in JAX: a NaN
+    in a block makes its scale NaN (``amax`` and ``clamp_min`` carry
+    it), an infinity makes it infinite, and a NaN quotient (NaN / s,
+    inf / inf) quantizes to 0, as XLA's float-to-int8 cast gives; the
+    zero is set before the cast, whose result C++ leaves undefined."""
     xb = x.float().reshape(-1, block)
     d127 = torch.tensor(127.0, dtype=torch.float32, device=x.device)
     scale = xb.abs().amax(dim=1).clamp_min(1e-30) / d127
     q = torch.clamp(torch.round(xb / scale[:, None]), -127, 127)
+    q = torch.nan_to_num(q, nan=0.0)
     return q.to(torch.int8).reshape(-1), scale
 
 
