@@ -61,7 +61,10 @@ failure exits non-zero without a result:
      device-table route), round trips;
  12. quantize and dequantize against their plain versions, bitwise: n =
      1, 255, 256, 257 and 2^24 + 100, a zero block, magnitudes 1e-6 and
-     1e4, exact ties, round trips;
+     1e4, exact ties, round trips, blocks holding NaN, +inf and -inf and
+     a NaN in the ragged tail (JAX's scales NaN and inf, values 0), bf16
+     inputs, views at odd element offsets (the scalar route) and values
+     dequantized from an odd offset, one launch a call on its route;
  13. the training path: llama3.2-1b at full width and depth in f32
      (random weights from seed 0), 4 x 1024 tokens a step, through
      ``make_train_step`` on a one-rank ``nccl`` group: partitioned for 6
@@ -76,9 +79,11 @@ failure exits non-zero without a result:
  14. times: pack/unpack at the 64 MiB and 16 KiB buckets beside
      ``torch.cat`` / ``torch._foreach_copy_``, with their host enqueue
      times, and a profile of ten pack and unpack calls on each that must
-     show no host-to-device copy; quantize/dequantize at 2^24 elements
-     (dequantize beside ``torch.mul`` of the int8 values and their
-     scales), each with its bound; the train step and tokens/s per mode,
+     show no host-to-device copy; quantize (f32 and bf16) and dequantize
+     at 2^24 elements, each with its bound, event window, host enqueue
+     and profiler device time (10 calls must trace 10 kernels and no
+     host-to-device copy), dequantize beside ``torch.mul`` of the int8
+     values and their scales in window and device time; the train step and tokens/s per mode,
      peak memory and the profile of one step; then the kernel table as
      one JSON line.
 
@@ -99,7 +104,10 @@ does the same for the quantize and dequantize kernels of ``TREE`` at 2^24
 f32 elements (and quantize of bf16): launches a call, the event window,
 host enqueue and profiler device time a call, and the kernels' output on
 a block holding a NaN and one holding ``+inf`` (the scales, and the int8
-and dequantized values at the non-finite elements), as one JSON line.
+and dequantized values at the non-finite elements), the host cost of each
+step a wrapper takes, and, for a tree whose wrapper picks the grid, each
+kernel's back-to-back time at grids of 1 to 32 times the SM count, as one
+JSON line.
 """
 
 from __future__ import annotations
@@ -742,37 +750,81 @@ def pack_phase(dev, small: bool = False) -> float:
 
 
 def _quant_check(x, name):
+    """Kernel against plain, bit for bit, on ``x`` (its route from its
+    address) and on the int8 values dequantized from a copy at an odd
+    offset (the scalar route); one launch a call on the card.  The round
+    trip within half a scale in blocks of finite scale; in the others
+    JAX's semantics: scale NaN where the block holds a NaN, infinite
+    where it holds an infinity and no NaN, every value 0.  Returns the
+    values, the scales and the largest |difference| at finite values."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant8 as q8
-    q, s = ops.quantize_blockwise(x)
-    y = ops.dequantize_blockwise(q, s)
+    on_card = x.device.type == "cuda"
+    n = x.numel()
+    qv = torch.empty(n + 1, dtype=torch.int8, device=x.device)[1:]
+    calls = []
+    for fn, args, route in (
+            (ops.quantize_blockwise, (x,), q8.route(x)),
+            (ops.dequantize_blockwise, None, "vec"),
+            (ops.dequantize_blockwise, None, "scalar")):
+        launches, routes = dict(q8.LAUNCHES), dict(q8.ROUTES)
+        if args is None:  # the values, then their copy at an odd offset
+            if route == "scalar":
+                qv.copy_(calls[0][0])
+            args = (calls[0][0] if route == "vec" else qv, calls[0][1])
+        calls.append(fn(*args))
+        grew = sum(q8.LAUNCHES.values()) - sum(launches.values())
+        took = [k for k in routes if q8.ROUTES[k] != routes[k]]
+        check(not on_card or (grew == 1 and took == [route]),
+              f"quant8 {name}: {fn.__name__} made {grew} launches on"
+              f" routes {took}, want one on {route!r}")
+    (q, s), y, yv = calls
     qw, sw = q8.quantize_blockwise_plain(x)
     yw = q8.dequantize_blockwise_plain(qw, sw)
-    if x.device.type == "cuda":
+    if on_card:
         torch.cuda.synchronize()
     check(_same_bits(q, qw), f"quant8 {name}: int8 values differ")
     check(_same_bits(s, sw), f"quant8 {name}: scales differ")
     check(_same_bits(y, yw), f"quant8 {name}: dequantized values differ")
-    bound = s.repeat_interleave(q8.BLOCK)[:x.numel()] * 0.5
-    check(bool(((y - x.float()).abs() <= bound * 1.001 + 1e-30).all()),
+    check(_same_bits(yv, yw),
+          f"quant8 {name}: dequantized values at an odd offset differ")
+    xb = F.pad(x.float(), (0, (-n) % q8.BLOCK)).view(-1, q8.BLOCK)
+    has_nan = xb.isnan().any(1)
+    check(torch.equal(s.isnan(), has_nan) and torch.equal(
+        s.isinf(), xb.isinf().any(1) & ~has_nan),
+        f"quant8 {name}: NaN and inf scales not where the blocks hold them")
+    fin = s.isfinite().repeat_interleave(q8.BLOCK)[:n]
+    check(not q[~fin].any(), f"quant8 {name}: nonzero values in a block"
+          f" of NaN or infinite scale")
+    bound = s.repeat_interleave(q8.BLOCK)[:n] * 0.5
+    check(bool(((y - x.float()).abs() <= bound * 1.001 + 1e-30)[fin].all()),
           f"quant8 {name}: round trip beyond half a scale")
-    return q, s, float((y - yw).abs().max())
+    finite = y.isfinite()
+    return q, s, float((y - yw)[finite].abs().max()) if finite.any() else 0.0
 
 
 def quant_phase(dev, small: bool = False) -> float:
     """Phase 12: quantize/dequantize against their plain versions, bit for
-    bit in the values, the scales and the dequantized values: n = 1, 255,
-    256, 257 and 2^24 + 100 heavy-tailed normals, an all-zero block,
-    magnitudes 1e-6 and 1e4, exact k + 1/2 ties built from the scale, and
-    the round trip within half a scale.  Returns the largest
-    |difference|."""
+    bit in the values, the scales and the dequantized values
+    (``_quant_check``: also dequantized from a copy at an odd offset, one
+    launch a call on the route its address picks): n = 1, 255, 256, 257
+    and 2^24 + 100 heavy-tailed normals, an all-zero block, magnitudes
+    1e-6 and 1e4, exact k + 1/2 ties built from the scale, the round trip
+    within half a scale; blocks with a NaN, +inf, -inf, NaN and inf, and
+    a NaN in the ragged tail; bf16 inputs (2^24 + 100 and ragged); views
+    of x at odd element offsets (f32 and bf16, the scalar route).
+    Returns the largest |difference| at finite values."""
     import torch
     big = (1 << 16) + 100 if small else (1 << 24) + 100
     err = 0.0
+
+    def heavy(n, seed):
+        return _seeded((n,), torch.float32, dev, seed) * \
+            torch.exp(_seeded((n,), torch.float32, dev, seed + 1))
     for n in (1, 255, 256, 257, big):
-        x = _seeded((n,), torch.float32, dev, n) * \
-            torch.exp(_seeded((n,), torch.float32, dev, n + 1))
+        x = heavy(n, n)
         if n == big:
             x[256:512] = 0.0  # an all-zero block
         err = max(err, _quant_check(x, f"n={n}")[2])
@@ -789,10 +841,35 @@ def quant_phase(dev, small: bool = False) -> float:
         q[1:253].long(), torch.round(k + 0.5).long()),
         "quant8 ties: not rounded half to even")
     err = max(err, e)
+    # non-finite blocks, what JAX gives: scales NaN / inf, values 0
+    nonfinite = heavy(big, 7)
+    for i, v in ((300, "nan"), (600, "inf"), (900, "-inf"), (1100, "nan"),
+                 (1101, "inf"), (big - 1, "nan")):
+        nonfinite[i] = float(v)
+    q, s, e = _quant_check(nonfinite, "non-finite")
+    check(bool(s[[1, 4, -1]].isnan().all() and s[2:4].isposinf().all()
+               and not q[256:1280].any()),
+          "quant8 non-finite: not JAX's scales [nan, inf, inf, nan] and"
+          " zeros")
+    err = max(err, e)
+    p = _nonfinite_probe(dev)
+    err = max(err, _quant_check(p, "probe NaN / +inf")[2])
+    for n in (big, 4096 + 3):
+        err = max(err, _quant_check(heavy(n, 11).to(torch.bfloat16),
+                                    f"bf16 n={n}")[2])
+    for dtype in (torch.float32, torch.bfloat16):  # the scalar route
+        for off in (1, 3):
+            x = nonfinite[:4096 + 3 + off].to(dtype)[off:]
+            err = max(err, _quant_check(x, f"{dtype} view at +{off}")[2])
     print(f"quant8 vs plain: n in (1, 255, 256, 257, {big}), zero block,"
-          f" magnitudes 1e-6 and 1e4, 252 exact ties: values, scales and"
-          f" dequantized values bitwise equal, round trips within half a"
-          f" scale, max_abs_err={err!r}")
+          f" magnitudes 1e-6 and 1e4, 252 exact ties, NaN/+inf/-inf"
+          f" blocks and a NaN in the ragged tail (scales nan and inf,"
+          f" values 0, as JAX), bf16 at n={big} and 4099, f32 and bf16"
+          f" views at offsets 1 and 3 (scalar route), each also"
+          f" dequantized from an odd offset: values, scales and"
+          f" dequantized values bitwise equal, one launch a call on its"
+          f" route, round trips within half a scale,"
+          f" max_abs_err={err!r}")
     return err
 
 
@@ -1029,10 +1106,12 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
     device time per call of the kernels and the two library calls from
     ``torch.profiler``, whose trace of 10 pack and 10 unpack calls per
     bucket must hold all 20 kernels and no host-to-device copy; medians of
-    quantize/dequantize at 2^24 elements beside their plain versions
-    (dequantize also beside ``torch.mul`` of the int8 values and their
-    scales, checked bitwise equal), each with its bound in bytes at 3.35
-    TB/s; the train step per mode
+    quantize (f32 and bf16) and dequantize at 2^24 elements beside their
+    plain versions, with host enqueue and profiler device time (10 calls,
+    10 kernels, no host-to-device copy), dequantize also beside
+    ``torch.mul`` of the int8 values and their scales (checked bitwise
+    equal; window and device time), each with its bound in bytes at
+    3.35 TB/s; the train step per mode
     and the profile of one partitioned step.  Returns the four kernels'
     table entries."""
     import torch
@@ -1110,27 +1189,58 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
               f" {rows[name]['host'][1]:.4f} ms")
     n = (1 << 16) if small else (1 << 24)
     x = _seeded((n,), torch.float32, dev, 3)
+    xb = x.to(torch.bfloat16)
     q, s = ops.quantize_blockwise(x)
     nb = s.numel()
-    quant = {
+
+    def lib_mul():
+        return torch.mul(q.view(-1, q8.BLOCK), s[:, None])
+    # name: (call, plain, bound, library call, kernel name in a trace)
+    cases = {
         "quantize_blockwise": (
-            _timed(lambda: ops.quantize_blockwise(x), dev, reps),
-            _timed(lambda: q8.quantize_blockwise_plain(x), dev, reps),
-            _bytes_bound(4 * n + n + 4 * nb), None),
+            lambda: ops.quantize_blockwise(x),
+            lambda: q8.quantize_blockwise_plain(x),
+            _bytes_bound(4 * n + n + 4 * nb), None, "quant_kernel"),
+        "quantize_blockwise_bf16": (
+            lambda: ops.quantize_blockwise(xb),
+            lambda: q8.quantize_blockwise_plain(xb),
+            _bytes_bound(2 * n + n + 4 * nb), None, "quant_kernel"),
         "dequantize_blockwise": (
-            _timed(lambda: ops.dequantize_blockwise(q, s), dev, reps),
-            _timed(lambda: q8.dequantize_blockwise_plain(q, s), dev, reps),
-            _bytes_bound(n + 4 * nb + 4 * n),
-            _timed(lambda: torch.mul(q.view(-1, q8.BLOCK), s[:, None]),
-                   dev, reps))}
+            lambda: ops.dequantize_blockwise(q, s),
+            lambda: q8.dequantize_blockwise_plain(q, s),
+            _bytes_bound(n + 4 * nb + 4 * n), lib_mul, "dequant_kernel")}
     # the library call is the same function: int8 -> f32, one rounding
-    check(_same_bits(torch.mul(q.view(-1, q8.BLOCK), s[:, None]).reshape(-1),
-                     ops.dequantize_blockwise(q, s)),
+    check(_same_bits(lib_mul().reshape(-1), ops.dequantize_blockwise(q, s)),
           "torch.mul(q, scale) differs from the dequantize kernel")
-    for name, (ms, plain, (bound, _), lib) in quant.items():
-        print(f"times {name} n={n}: kernel {ms:.4f} ms, plain {plain:.4f}"
-              f" ms, bound {bound:.5f} ms, library"
-              f" {'none' if lib is None else f'{lib:.4f} ms (torch.mul)'}")
+    quant = {}
+    for name, (fn, plain, (bound, by), lib, kernel) in cases.items():
+        rec = quant[name] = {
+            "ms": _timed(fn, dev, reps), "plain_ms": _timed(plain, dev, reps),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": None if lib is None else _timed(lib, dev, reps),
+            "enqueue_ms": _host_ms(fn, dev, reps),
+            "device_ms": None, "library_device_ms": None}
+        if dev.type == "cuda":  # 10 calls, 10 kernels, no HtoD copy
+            rec["device_ms"] = _quant_device(fn, kernel)
+            if lib is not None:
+                rec["library_device_ms"] = _device_profile(lib)[0]
+        print(f"times {name} n={n}: kernel {rec['ms']:.4f} ms (event"
+              f" window), device {rec['device_ms']!r} ms a call (10 calls,"
+              f" 10 kernels, no HtoD copy), host enqueue"
+              f" {rec['enqueue_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms,"
+              f" bound {bound:.5f} ms, library "
+              + ("none" if lib is None else
+                 f"{rec['library_ms']:.4f} ms, device"
+                 f" {rec['library_device_ms']!r} ms (torch.mul)"))
+    dq = quant["dequantize_blockwise"]
+    if dev.type == "cuda":
+        slower = [w for w, a, b in (
+            ("window", dq["ms"], dq["library_ms"]),
+            ("device", dq["device_ms"], dq["library_device_ms"])) if a > b]
+        print(f"dequantize vs torch.mul: window {dq['ms']:.4f} /"
+              f" {dq['library_ms']:.4f} ms, device {dq['device_ms']:.4f} /"
+              f" {dq['library_device_ms']:.4f} ms: "
+              + (f"slower in {slower}" if slower else "no slower in either"))
     for mode, rec in train["modes"].items():
         print(f"times train {train['cfg'].name} {mode}: step"
               f" {rec['step_ms']:.3f} ms (median after step 0),"
@@ -1161,13 +1271,14 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
             "bound_by": "bytes", "library_ms": lib})
     for name, line in (("quantize_blockwise", 59),
                        ("dequantize_blockwise", 80)):
-        ms, plain, (bound, by), lib = quant[name]
+        rec = quant[name]
         entries.append({
             "name": name, "route": "cuda", "source": src + "quant8.cu",
             "replaces": f"src/repro/kernels/quant8.py:{line}",
             "launches": train["launches"][name], "max_abs_err": errs["quant"],
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib})
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "device_ms",
+                                   "enqueue_ms")}})
     return entries
 
 
@@ -1577,6 +1688,61 @@ def _host_steps(x) -> dict:
         "whole_call": us(lambda: ops.quantize_blockwise(x))}
 
 
+def _back_to_back(fn, reps: int = 20) -> float:
+    """Median over 5 rounds of ms a call of ``reps`` back-to-back calls
+    between two CUDA events: device time when a call's enqueue is shorter
+    than its kernel."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return sorted(times)[2]
+
+
+def _quant8_grids(x, xb) -> dict:
+    """The quant8 kernels' vec route at ``len(x)`` elements, launched
+    straight through the library with grids of 1 to 32 times the SM count
+    and the wrapper's own (``quant8.grid``): back-to-back ms a call of
+    each (``_back_to_back``), beside PyTorch's f32 copy of as many
+    elements, the rate the card reaches in practice."""
+    import torch
+    from repro_torch.kernels import quant8 as q8
+    lib, n, dev = q8._library(), x.numel(), x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    q = torch.empty(n, dtype=torch.int8, device=dev)
+    s = torch.empty(q8.n_blocks(n), dtype=torch.float32, device=dev)
+    y = torch.empty(n, dtype=torch.float32, device=dev)
+    calls = {
+        "quantize_blockwise": lambda g: lib.quantize_blockwise(
+            stream, x.data_ptr(), 1, 0, n, q.data_ptr(), s.data_ptr(), g),
+        "quantize_blockwise_bf16": lambda g: lib.quantize_blockwise(
+            stream, xb.data_ptr(), 1, 1, n, q.data_ptr(), s.data_ptr(), g),
+        "dequantize_blockwise": lambda g: lib.dequantize_blockwise(
+            stream, q.data_ptr(), 1, s.data_ptr(), n, y.data_ptr(), g)}
+    # the card's practical rate: PyTorch's own f32 copy of len(x)
+    out = {"sms": sms, "copy_ms": _back_to_back(lambda: y.copy_(x)),
+           "copy_bytes": 8 * n}
+    for name, call in calls.items():
+        own = q8.grid(n, name.replace("_bf16", ""), "vec")
+        row = {}
+        for g in sorted({sms * k for k in (1, 2, 4, 5, 6, 8, 16, 32)}
+                        | {own}):
+            check(call(g) == 0, f"{name}: launch of {g} CTAs failed")
+            row[g] = _back_to_back(lambda: call(g))
+        out[name] = {"own": own, "ms": row}
+    return out
+
+
 def quant8_times(tree: Path) -> dict:
     """The quant8 kernels of the source tree ``tree`` on the card, at 2^24
     f32 elements (and bf16 quantize): launches per call, the median
@@ -1617,6 +1783,8 @@ def quant8_times(tree: Path) -> dict:
         "y_at_nan": repr(float(yp[3])), "y_at_inf": repr(float(yp[300])),
         "nonzero_q": [int((qp[:256] != 0).sum()), int((qp[256:] != 0).sum())]}
     out["host_steps_us"] = _host_steps(x)
+    if hasattr(q8, "grid"):  # a tree whose wrapper picks the grid
+        out["grids"] = _quant8_grids(x, xb)
     return out
 
 

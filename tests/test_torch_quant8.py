@@ -122,3 +122,195 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
         ops.dequantize_blockwise(q, s[:1])
     assert pq8.LAUNCHES == {"quantize_blockwise": 0,
                             "dequantize_blockwise": 0}
+
+
+# ---------------------------------------------------------------------------
+# Non-finite inputs: a NaN makes its block's scale NaN, an infinity makes
+# it infinite, and a NaN quotient (NaN / s, inf / inf) quantizes to 0, in
+# JAX's eager reference, its Pallas kernel and the port alike.
+
+def _nonfinite(n, seed):
+    """Heavy-tailed normals with a NaN in block 0, +inf in block 1, -inf in
+    block 2, NaN and +inf in block 3, and a NaN as the last element (in a
+    ragged tail when n % 256)."""
+    x = _heavy(n, seed)
+    x[3] = np.nan
+    x[BLOCK + 7] = np.inf
+    x[2 * BLOCK + 200] = -np.inf
+    x[3 * BLOCK + 5], x[3 * BLOCK + 9] = np.nan, np.inf
+    x[-1] = np.nan
+    return x
+
+
+def _bits32(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("n", [5 * BLOCK, 4 * BLOCK + 1, 8 * BLOCK + 100])
+def test_nonfinite_plain_equals_eager_reference_bitwise(n):
+    x = _nonfinite(n, n)
+    q, s = pq8.quantize_blockwise_plain(torch.from_numpy(x))
+    qr, sr = jref.quantize_blockwise_ref(jnp.asarray(_pad(x)))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr)[:n])
+    np.testing.assert_array_equal(_bits32(s), _bits32(sr))
+    y = pq8.dequantize_blockwise_plain(q, s)
+    yr = jref.dequantize_blockwise_ref(qr, sr)
+    np.testing.assert_array_equal(_bits32(y), _bits32(yr)[:n])
+    # what JAX gives, spelled out
+    sn = s.numpy()
+    assert np.isnan(sn[[0, 3, -1]]).all()
+    assert np.isposinf(sn[[1, 2]]).all()
+    assert not q.numpy()[:4 * BLOCK].any()
+    assert np.isnan(y.numpy()[:4 * BLOCK]).all()  # NaN * q, 0 * inf
+    assert not q.numpy()[(n - 1) // BLOCK * BLOCK:].any()
+
+
+@pytest.mark.parametrize("n", [8 * BLOCK, 4 * BLOCK + 1, 64 * BLOCK + 100])
+def test_nonfinite_plain_against_pallas_interpret(n):
+    """Values exact; the scales NaN and infinite at the same blocks, the
+    finite ones within rtol=1e-6 (the kernel's ``* (1/127)``)."""
+    x = _nonfinite(n, n + 1)
+    q, s = pq8.quantize_blockwise_plain(torch.from_numpy(x))
+    qp, sp = jquant(jnp.asarray(x), interpret=True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qp))
+    sn, spn = s.numpy(), np.asarray(sp)
+    np.testing.assert_array_equal(np.isnan(sn), np.isnan(spn))
+    np.testing.assert_array_equal(np.isposinf(sn), np.isposinf(spn))
+    np.testing.assert_allclose(sn, spn, rtol=1e-6)  # NaNs compare equal
+    y = pq8.dequantize_blockwise_plain(q, s)
+    yp = jdequant(qp, sp, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yp), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# bf16 inputs, widened to f32 before the block max as the Pallas kernel's
+# astype does.
+
+def _bf16(x):
+    """The same bf16 values for JAX and the port (both round to nearest
+    even from f32)."""
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    np.testing.assert_array_equal(np.asarray(xj).view(np.uint16),
+                                  xt.view(torch.int16).numpy()
+                                  .view(np.uint16))
+    return xj, xt
+
+
+@pytest.mark.parametrize("n", [BLOCK, 64 * BLOCK + 100, 200 * BLOCK])
+def test_bf16_plain_equals_eager_reference_bitwise(n):
+    xj, xt = _bf16(_heavy(n, 0))
+    q, s = ops.quantize_blockwise(xt)
+    qr, sr = jref.quantize_blockwise_ref(jnp.pad(xj, (0, (-n) % BLOCK)))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr)[:n])
+    np.testing.assert_array_equal(_bits32(s), _bits32(sr))
+
+
+@pytest.mark.parametrize("n", [BLOCK, 64 * BLOCK + 100, 200 * BLOCK])
+def test_bf16_plain_against_pallas_interpret(n):
+    """Scales within rtol=1e-6; int8 values equal but where the Pallas
+    kernel's ``* (1/127)`` scale, one ulp off the true quotient's, moves a
+    tie by one -- and there the port equals the eager reference.  At n =
+    64 * 256 + 100 that is one value of 16 484 (-64 against -63)."""
+    xj, xt = _bf16(_heavy(n, 0))
+    q, s = pq8.quantize_blockwise_plain(xt)
+    qp, sp = jquant(xj, interpret=True)
+    qr, sr = jref.quantize_blockwise_ref(jnp.pad(xj, (0, (-n) % BLOCK)))
+    np.testing.assert_allclose(s.numpy(), np.asarray(sp), rtol=1e-6)
+    qn, qpn = q.numpy(), np.asarray(qp)
+    moved = np.nonzero(qn != qpn)[0]
+    assert len(moved) <= max(1, n // 10000)
+    np.testing.assert_array_equal(np.abs(qn[moved].astype(int)
+                                         - qpn[moved].astype(int)), 1)
+    blocks = moved // BLOCK
+    assert (_bits32(sp)[blocks] != _bits32(sr)[blocks]).all()
+    np.testing.assert_array_equal(qn[moved], np.asarray(qr)[moved])
+
+
+# ---------------------------------------------------------------------------
+# The host's route: 16-byte accesses for an aligned input, scalar for a
+# view at an odd element offset.  CPU allocations are 64-byte aligned.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 64 * BLOCK + 100])
+def test_route_vec_for_aligned_scalar_for_odd_offsets(dtype, n):
+    buf = torch.zeros(n + 64, dtype=dtype)
+    per16 = 16 // buf.element_size()
+    assert buf.data_ptr() % 64 == 0
+    assert pq8.route(buf[:n]) == "vec"
+    assert pq8.route(buf[per16:per16 + n]) == "vec"
+    for off in (1, 3, per16 - 1, per16 + 1):
+        if off % per16:
+            assert pq8.route(buf[off:off + n]) == "scalar"
+    assert pq8.LAUNCHES == {"quantize_blockwise": 0,
+                            "dequantize_blockwise": 0}
+    assert pq8.ROUTES == {"vec": 0, "scalar": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [1, 3])
+def test_odd_offset_views_equal_eager_reference(dtype, off):
+    n = 4 * BLOCK + 17
+    x = _nonfinite(n + off, 5)
+    if dtype == torch.bfloat16:  # JAX's rounding, and its NaN (0x7fc0)
+        x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16)).view(np.int16)
+    x = torch.from_numpy(x.copy()).view(dtype)[off:]
+    q, s = ops.quantize_blockwise(x)
+    qr, sr = jref.quantize_blockwise_ref(
+        jnp.asarray(_pad(x.float().numpy())))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr)[:n])
+    np.testing.assert_array_equal(_bits32(s), _bits32(sr))
+    qbuf = torch.zeros(n + off, dtype=torch.int8)
+    qv = qbuf[off:]
+    qv.copy_(q)
+    np.testing.assert_array_equal(
+        _bits32(ops.dequantize_blockwise(qv, s)),
+        _bits32(jref.dequantize_blockwise_ref(qr, sr))[:n])
+
+
+def test_entry_points_match_the_cuda_source():
+    """The ctypes signatures and dtype codes the wrapper binds are the
+    ones ``csrc/quant8.cu`` exports (no compiler here to catch a
+    mismatch)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "quant8.cu").read_text()
+    c_type = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p,
+              "signed char*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+              "const signed char*": ctypes.c_void_p,
+              "const float*": ctypes.c_void_p, "int": ctypes.c_int,
+              "long long": ctypes.c_longlong}
+    for name, argtypes in pq8.SIGNATURES.items():
+        m = re.search(rf"\nint {name}\(([^)]*)\)", src)
+        params = [re.sub(r"\s*\w+$", "", p.strip())
+                  for p in m.group(1).split(",")]
+        assert [c_type[p] for p in params] == argtypes, name
+    assert "enum Dtype { kF32 = 0, kBF16 = 1 };" in src
+    assert f"constexpr int kThreads = {pq8.CTA_THREADS};" in src
+    assert f"constexpr int kTile = {pq8.TILE};" in src
+    assert f"constexpr int kBlock = {BLOCK};" in src
+    assert pq8._DTYPE_CODE == {torch.float32: 0, torch.bfloat16: 1}
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 4096 + 3, 1 << 24,
+                               (1 << 24) + 100])
+def test_grid_gives_each_warp_two_blocks_and_covers_every_element(n):
+    """The host's grid: two quantization blocks (either route) or two
+    512-element dequantize tiles (vec route) a warp, four elements a
+    thread on dequantize's scalar route -- as few CTAs as cover all n,
+    and at least one (a dequantize grid below one tile still runs the
+    tail one element a thread)."""
+    warps = pq8.CTA_THREADS // 32
+    nb = -(-n // BLOCK)
+    for what, r, units, per_cta in (
+            ("quantize_blockwise", "vec", nb, 2 * warps),
+            ("quantize_blockwise", "scalar", nb, 2 * warps),
+            ("dequantize_blockwise", "vec", n // pq8.TILE, 2 * warps),
+            ("dequantize_blockwise", "scalar", n, 4 * pq8.CTA_THREADS)):
+        g = pq8.grid(n, what, r)
+        assert g >= 1 and g * per_cta >= units
+        assert g == 1 or (g - 1) * per_cta < units
+    assert pq8.grid(1 << 24, "quantize_blockwise", "vec") == 4096
+    assert pq8.grid(1 << 24, "dequantize_blockwise", "vec") == 2048

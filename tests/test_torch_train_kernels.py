@@ -131,26 +131,61 @@ def test_pack_unpack_bitwise_above_capacity(cuda_device, seg_dt, bucket_dt):
         assert torch.equal(_bits(o), _bits(w))
 
 
+def _bits(t):
+    return t.view({F32: torch.int32, BF16: torch.int16}[t.dtype])
+
+
+def _counted(fn, *args):
+    """``fn(*args)``, with the launch and the route it took."""
+    launches, routes = dict(pq8.LAUNCHES), dict(pq8.ROUTES)
+    out = fn(*args)
+    grew = {k: pq8.LAUNCHES[k] - launches[k] for k in launches}
+    took = [k for k in routes if pq8.ROUTES[k] != routes[k]]
+    return out, grew, took
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 20, (1 << 22) + 100])
 @pytest.mark.parametrize("scale", [1e-6, 1.0, 1e4])
-def test_quant8_bitwise(cuda_device, n, scale):
-    x = _rand((n,), F32, cuda_device, n) * scale
-    if n > 512:
+@pytest.mark.parametrize("dtype,offset", [(F32, 0), (F32, 1), (BF16, 0),
+                                          (BF16, 3)])
+def test_quant8_bitwise(cuda_device, n, scale, dtype, offset):
+    """Kernel against plain, bit for bit (scales as int32 patterns), on
+    f32 and bf16 x, aligned and as a view at an odd element offset, with
+    a zero block, a NaN block, +inf and -inf blocks and a NaN in the
+    ragged tail; the int8 values dequantized aligned and from a view at
+    an odd offset.  One launch a call, on the route the address picks."""
+    x = (_rand((n + offset,), F32, cuda_device, n) * scale)
+    if n > 1024:
         x[:256] = 0.0  # an all-zero block
-    before = dict(pq8.LAUNCHES)
-    q, s = ops.quantize_blockwise(x)
-    y = ops.dequantize_blockwise(q, s)
-    assert pq8.LAUNCHES["quantize_blockwise"] == \
-        before["quantize_blockwise"] + 1
-    assert pq8.LAUNCHES["dequantize_blockwise"] == \
-        before["dequantize_blockwise"] + 1
+        x[300] = float("nan")
+        x[600] = float("inf")
+        x[900] = float("-inf")
+    if n % 256 and n > 256:
+        x[-1] = float("nan")  # in the ragged tail
+    x = x.to(dtype)[offset:]
+    route = "scalar" if offset else "vec"
+    (q, s), grew, took = _counted(ops.quantize_blockwise, x)
+    assert grew == {"quantize_blockwise": 1, "dequantize_blockwise": 0}
+    assert took == [route] and pq8.route(x) == route
+    y, grew, took = _counted(ops.dequantize_blockwise, q, s)
+    assert grew == {"quantize_blockwise": 0, "dequantize_blockwise": 1}
+    assert took == ["vec"]
+    qbuf = torch.empty(n + 1, dtype=torch.int8, device=cuda_device)
+    qv = qbuf[1:]
+    qv.copy_(q)
+    yv, grew, took = _counted(ops.dequantize_blockwise, qv, s)
+    assert grew["dequantize_blockwise"] == 1 and took == ["scalar"]
     qw, sw = pq8.quantize_blockwise_plain(x)
     torch.cuda.synchronize()
     assert torch.equal(q, qw)
-    assert torch.equal(s.view(torch.int32), sw.view(torch.int32))
+    assert torch.equal(_bits(s), _bits(sw))
     yw = pq8.dequantize_blockwise_plain(qw, sw)
-    assert torch.equal(y.view(torch.int32), yw.view(torch.int32))
+    assert torch.equal(_bits(y), _bits(yw))
+    assert torch.equal(_bits(yv), _bits(yw))
+    if n > 1024:  # what JAX gives
+        assert torch.isnan(s[1]) and torch.isposinf(s[2:4]).all()
+        assert not q[256:1024].any()
 
 
 @pytest.fixture
