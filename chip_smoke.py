@@ -1740,6 +1740,22 @@ def _quant8_grids(x, xb) -> dict:
             check(call(g) == 0, f"{name}: launch of {g} CTAs failed")
             row[g] = _back_to_back(lambda: call(g))
         out[name] = {"own": own, "ms": row}
+    # the quantize kernel's two bodies on the same aligned input, at the
+    # parent's grid (a block a warp) and the wrapper's (two), in turns
+    nb = q8.n_blocks(n)
+    bodies = {}
+    for _ in range(2):
+        for label, t, code in (("f32", x, 0), ("bf16", xb, 1)):
+            for vec in (0, 1):
+                for g in (-(-nb // 8), -(-nb // 16)):
+                    def call(t=t, code=code, vec=vec, g=g):
+                        return lib.quantize_blockwise(
+                            stream, t.data_ptr(), vec, code, n, q.data_ptr(),
+                            s.data_ptr(), g)
+                    check(call() == 0, f"quantize {label} vec={vec} g={g}")
+                    key = f"{label} {'vec' if vec else 'scalar'} {g}"
+                    bodies.setdefault(key, []).append(_back_to_back(call))
+    out["quantize_bodies"] = bodies
     return out
 
 
