@@ -63,8 +63,9 @@ failure exits non-zero without a result:
      1, 255, 256, 257 and 2^24 + 100, a zero block, magnitudes 1e-6 and
      1e4, exact ties, round trips, blocks holding NaN, +inf and -inf and
      a NaN in the ragged tail (JAX's scales NaN and inf, values 0), bf16
-     inputs, views at odd element offsets (the scalar route) and values
-     dequantized from an odd offset, one launch a call on its route;
+     inputs, views at odd element offsets and values dequantized from an
+     odd offset (dequantize's scalar route), one launch a call (on its
+     route for dequantize);
  13. the training path: llama3.2-1b at full width and depth in f32
      (random weights from seed 0), 4 x 1024 tokens a step, through
      ``make_train_step`` on a one-rank ``nccl`` group: partitioned for 6
@@ -104,10 +105,7 @@ does the same for the quantize and dequantize kernels of ``TREE`` at 2^24
 f32 elements (and quantize of bf16): launches a call, the event window,
 host enqueue and profiler device time a call, and the kernels' output on
 a block holding a NaN and one holding ``+inf`` (the scales, and the int8
-and dequantized values at the non-finite elements), the host cost of each
-step a wrapper takes, and, for a tree whose wrapper picks the grid, each
-kernel's back-to-back time at grids of 1 to 32 times the SM count, as one
-JSON line.
+and dequantized values at the non-finite elements), as one JSON line.
 """
 
 from __future__ import annotations
@@ -750,8 +748,8 @@ def pack_phase(dev, small: bool = False) -> float:
 
 
 def _quant_check(x, name):
-    """Kernel against plain, bit for bit, on ``x`` (its route from its
-    address) and on the int8 values dequantized from a copy at an odd
+    """Kernel against plain, bit for bit, on ``x`` and on the int8 values
+    dequantized as they are (the vec route) and from a copy at an odd
     offset (the scalar route); one launch a call on the card.  The round
     trip within half a scale in blocks of finite scale; in the others
     JAX's semantics: scale NaN where the block holds a NaN, infinite
@@ -766,7 +764,7 @@ def _quant_check(x, name):
     qv = torch.empty(n + 1, dtype=torch.int8, device=x.device)[1:]
     calls = []
     for fn, args, route in (
-            (ops.quantize_blockwise, (x,), q8.route(x)),
+            (ops.quantize_blockwise, (x,), None),
             (ops.dequantize_blockwise, None, "vec"),
             (ops.dequantize_blockwise, None, "scalar")):
         launches, routes = dict(q8.LAUNCHES), dict(q8.ROUTES)
@@ -777,7 +775,8 @@ def _quant_check(x, name):
         calls.append(fn(*args))
         grew = sum(q8.LAUNCHES.values()) - sum(launches.values())
         took = [k for k in routes if q8.ROUTES[k] != routes[k]]
-        check(not on_card or (grew == 1 and took == [route]),
+        check(not on_card or (grew == 1 and took == ([route] if route
+                                                      else [])),
               f"quant8 {name}: {fn.__name__} made {grew} launches on"
               f" routes {took}, want one on {route!r}")
     (q, s), y, yv = calls
@@ -809,12 +808,12 @@ def quant_phase(dev, small: bool = False) -> float:
     """Phase 12: quantize/dequantize against their plain versions, bit for
     bit in the values, the scales and the dequantized values
     (``_quant_check``: also dequantized from a copy at an odd offset, one
-    launch a call on the route its address picks): n = 1, 255, 256, 257
+    launch a call, on the route its address picks for dequantize): n = 1, 255, 256, 257
     and 2^24 + 100 heavy-tailed normals, an all-zero block, magnitudes
     1e-6 and 1e4, exact k + 1/2 ties built from the scale, the round trip
     within half a scale; blocks with a NaN, +inf, -inf, NaN and inf, and
     a NaN in the ragged tail; bf16 inputs (2^24 + 100 and ragged); views
-    of x at odd element offsets (f32 and bf16, the scalar route).
+    of x at odd element offsets (f32 and bf16).
     Returns the largest |difference| at finite values."""
     import torch
     big = (1 << 16) + 100 if small else (1 << 24) + 100
@@ -857,7 +856,7 @@ def quant_phase(dev, small: bool = False) -> float:
     for n in (big, 4096 + 3):
         err = max(err, _quant_check(heavy(n, 11).to(torch.bfloat16),
                                     f"bf16 n={n}")[2])
-    for dtype in (torch.float32, torch.bfloat16):  # the scalar route
+    for dtype in (torch.float32, torch.bfloat16):  # unaligned x
         for off in (1, 3):
             x = nonfinite[:4096 + 3 + off].to(dtype)[off:]
             err = max(err, _quant_check(x, f"{dtype} view at +{off}")[2])
@@ -865,10 +864,10 @@ def quant_phase(dev, small: bool = False) -> float:
           f" magnitudes 1e-6 and 1e4, 252 exact ties, NaN/+inf/-inf"
           f" blocks and a NaN in the ragged tail (scales nan and inf,"
           f" values 0, as JAX), bf16 at n={big} and 4099, f32 and bf16"
-          f" views at offsets 1 and 3 (scalar route), each also"
-          f" dequantized from an odd offset: values, scales and"
-          f" dequantized values bitwise equal, one launch a call on its"
-          f" route, round trips within half a scale,"
+          f" views at offsets 1 and 3, each also dequantized from an odd"
+          f" offset (scalar route): values, scales and dequantized values"
+          f" bitwise equal, one launch a call, round trips within half a"
+          f" scale,"
           f" max_abs_err={err!r}")
     return err
 
@@ -1636,127 +1635,15 @@ def _nonfinite_probe(dev):
 
 def _quant_device(fn, kernel: str):
     """Device ms per call of ``fn`` over 10 calls (``_device_profile``),
-    checked to trace exactly 10 kernels named ``kernel`` and no other
-    device event, so no host-to-device copy."""
+    checked to trace exactly 10 kernels named ``kernel`` (the whole name
+    after its namespace: ``quant_kernel`` is no ``dequant_kernel``) and no
+    other device event, so no host-to-device copy."""
     ms, events, htod, names = _device_profile(fn)
     check(events == 10 and htod == 0
-          and all(kernel in k for k, _ in names),
+          and all(re.search(rf"::{kernel}[<(]", k) for k, _ in names),
           f"10 calls traced {events} device events {names}, HtoD {htod};"
           f" want 10 {kernel} kernels")
     return ms
-
-
-def _host_steps(x) -> dict:
-    """Median host microseconds (200 calls each) of every step a quant8
-    wrapper takes for the f32 vector ``x`` on the card: the checks, the
-    two output allocations, a device context, the stream lookup through
-    ``torch.cuda`` and raw, three ``data_ptr``, ``float().contiguous()``
-    (no copy for f32), a ctypes call into the library that launches
-    nothing, and the whole ``ops.quantize_blockwise`` (its enqueue)."""
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import quant8 as q8
-    lib, idx, n = q8._library(), x.get_device(), x.numel()
-
-    def ctx():
-        with torch.cuda.device(x.device):
-            pass
-
-    def us(fn, reps: int = 200) -> float:
-        fn()
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            ts.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        return sorted(ts)[reps // 2] * 1e6
-    return {
-        "checks": us(lambda: (x.dim() != 1, x.numel() < 1,
-                              x.dtype.is_floating_point, x.device.type)),
-        "empty_x2": us(lambda: (
-            torch.empty(n, dtype=torch.int8, device=x.device),
-            torch.empty(-(-n // 256), dtype=torch.float32, device=x.device))),
-        "device_context": us(ctx),
-        "current_stream": us(
-            lambda: torch.cuda.current_stream(x.device).cuda_stream),
-        "raw_stream": us(lambda: torch._C._cuda_getCurrentRawStream(idx)),
-        "data_ptr_x3": us(lambda: (x.data_ptr(), x.data_ptr(),
-                                   x.data_ptr())),
-        "float_contiguous": us(lambda: x.float().contiguous()),
-        "ctypes_call": us(lambda: lib.quant8_error_string(0)),
-        "whole_call": us(lambda: ops.quantize_blockwise(x))}
-
-
-def _back_to_back(fn, reps: int = 20) -> float:
-    """Median over 5 rounds of ms a call of ``reps`` back-to-back calls
-    between two CUDA events: device time when a call's enqueue is shorter
-    than its kernel."""
-    import torch
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return sorted(times)[2]
-
-
-def _quant8_grids(x, xb) -> dict:
-    """The quant8 kernels' vec route at ``len(x)`` elements, launched
-    straight through the library with grids of 1 to 32 times the SM count
-    and the wrapper's own (``quant8.grid``): back-to-back ms a call of
-    each (``_back_to_back``), beside PyTorch's f32 copy of as many
-    elements, the rate the card reaches in practice."""
-    import torch
-    from repro_torch.kernels import quant8 as q8
-    lib, n, dev = q8._library(), x.numel(), x.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q = torch.empty(n, dtype=torch.int8, device=dev)
-    s = torch.empty(q8.n_blocks(n), dtype=torch.float32, device=dev)
-    y = torch.empty(n, dtype=torch.float32, device=dev)
-    calls = {
-        "quantize_blockwise": lambda g: lib.quantize_blockwise(
-            stream, x.data_ptr(), 1, 0, n, q.data_ptr(), s.data_ptr(), g),
-        "quantize_blockwise_bf16": lambda g: lib.quantize_blockwise(
-            stream, xb.data_ptr(), 1, 1, n, q.data_ptr(), s.data_ptr(), g),
-        "dequantize_blockwise": lambda g: lib.dequantize_blockwise(
-            stream, q.data_ptr(), 1, s.data_ptr(), n, y.data_ptr(), g)}
-    # the card's practical rate: PyTorch's own f32 copy of len(x)
-    out = {"sms": sms, "copy_ms": _back_to_back(lambda: y.copy_(x)),
-           "copy_bytes": 8 * n}
-    for name, call in calls.items():
-        own = q8.grid(n, name.replace("_bf16", ""), "vec")
-        row = {}
-        for g in sorted({sms * k for k in (1, 2, 4, 5, 6, 8, 16, 32)}
-                        | {own}):
-            check(call(g) == 0, f"{name}: launch of {g} CTAs failed")
-            row[g] = _back_to_back(lambda: call(g))
-        out[name] = {"own": own, "ms": row}
-    # the quantize kernel's two bodies on the same aligned input, at the
-    # parent's grid (a block a warp) and the wrapper's (two), in turns
-    nb = q8.n_blocks(n)
-    bodies = {}
-    for _ in range(2):
-        for label, t, code in (("f32", x, 0), ("bf16", xb, 1)):
-            for vec in (0, 1):
-                for g in (-(-nb // 8), -(-nb // 16)):
-                    def call(t=t, code=code, vec=vec, g=g):
-                        return lib.quantize_blockwise(
-                            stream, t.data_ptr(), vec, code, n, q.data_ptr(),
-                            s.data_ptr(), g)
-                    check(call() == 0, f"quantize {label} vec={vec} g={g}")
-                    key = f"{label} {'vec' if vec else 'scalar'} {g}"
-                    bodies.setdefault(key, []).append(_back_to_back(call))
-    out["quantize_bodies"] = bodies
-    return out
 
 
 def quant8_times(tree: Path) -> dict:
@@ -1798,9 +1685,6 @@ def quant8_times(tree: Path) -> dict:
         "q_at_nan": int(qp[3]), "q_at_inf": int(qp[300]),
         "y_at_nan": repr(float(yp[3])), "y_at_inf": repr(float(yp[300])),
         "nonzero_q": [int((qp[:256] != 0).sum()), int((qp[256:] != 0).sum())]}
-    out["host_steps_us"] = _host_steps(x)
-    if hasattr(q8, "grid"):  # a tree whose wrapper picks the grid
-        out["grids"] = _quant8_grids(x, xb)
     return out
 
 

@@ -30,32 +30,25 @@
 // of issue at 2^24 elements against the 0.025 ms the bytes take.
 //
 // Design.  Every warp instruction moves whole 32-byte sectors, and the
-// host picks the grid (quant8.grid in the wrapper): a warp takes two
-// quantization blocks (or two dequantize tiles), the second's loads issued
-// before the first's divides, and the hardware hands out the CTAs.  A
-// persistent grid of the SM count times the CTAs an SM holds, each warp
-// striding over ~12 blocks, measured slower on the H100 (chip_smoke.py
-// --quant8-times, its grid sweep).
-//  * quantize, the vec route (x 16-byte aligned): a warp per 256-element
-//    block, striding over blocks and loading the next block before it
-//    divides the current one.  f32: lane l loads elements 4l..4l+3 and
-//    128+4l..131+4l as two float4 (512 contiguous bytes a warp
-//    instruction) and stores their int8 values as two 4-byte words (128
-//    contiguous bytes each); bf16: lane l loads elements 8l..8l+7 as one
-//    16-byte word and stores one 8-byte word.  The block's max is a
-//    warp-shuffle reduction.  A partial last block takes the scalar body,
-//    which loads with zero fill.
-//  * quantize, the scalar route (x at an odd element offset): the same
-//    warp per block, lane l taking elements l, l+32, ..., l+224.
-//  * dequantize, the vec route (q 16-byte aligned): a warp per 512-element
-//    tile, two tiles in flight a lane; lane l loads 4 int8 values at
+// library picks the grid from n and the route; the hardware hands out the
+// CTAs.  A persistent grid of the SM count times the CTAs an SM holds,
+// each warp striding over ~12 blocks, measured slower on the H100.
+//  * quantize: a warp per 256-element block, lane l taking elements l,
+//    l+32, ..., l+224 (128 contiguous bytes a warp load for f32, 64 for
+//    bf16), with zero fill past n; the block's max is a warp-shuffle
+//    reduction.  Any element alignment goes, so it has one route.  A
+//    layout of 16-byte loads (two float4 a lane for f32, one 16-byte word
+//    for bf16) and packed int8 stores measured no faster on the H100:
+//    bf16 within 1 %, f32 2 % slower.
+//  * dequantize, the vec route (q 16-byte aligned): a warp per two
+//    512-element tiles, both in flight; lane l loads 4 int8 values at
 //    128j+4l (j = 0..3; 128 contiguous bytes a warp instruction) and the
 //    tile's two scales, does 16 __fmul_rn and stores four float4 (512
 //    contiguous bytes a warp instruction).  A thread's 16 values stored
 //    as 64 contiguous bytes instead would leave every store instruction
 //    half-filling the sectors of a 2 KiB span.  The last n % 512 elements
 //    go one a thread.
-//  * dequantize, the scalar route (q at an odd offset): one element a
+//  * dequantize, the scalar route (q at an odd offset): four elements a
 //    thread, grid-stride.
 // y, q and scale are the wrapper's own allocations, so always aligned.
 // Every entry point returns cudaGetLastError().
@@ -68,6 +61,7 @@ constexpr int kBlock = 256;    // elements per quantization block
 constexpr int kTile = 512;     // elements per dequantize warp tile
 constexpr int kThreads = 256;  // threads per CTA: 8 warps
 constexpr int kWarps = kThreads / 32;
+constexpr long long kMaxCtas = 0x7fffffffLL;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Dtype { kF32 = 0, kBF16 = 1 };
@@ -88,17 +82,10 @@ __device__ __forceinline__ signed char to_int8(float t) {
                 : static_cast<signed char>(fminf(fmaxf(r, -127.0f), 127.0f));
 }
 
-// bf16 bits widened to f32: exact, NaN payloads kept (torch's .float()).
-__device__ __forceinline__ float bf16_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
 __device__ __forceinline__ float load1(const float* x, long long i) {
   return x[i];
 }
+// bf16 bits widened to f32: exact, NaN payloads kept (torch's .float()).
 __device__ __forceinline__ float load1(const unsigned short* x, long long i) {
   return __uint_as_float(static_cast<unsigned>(x[i]) << 16);
 }
@@ -114,55 +101,16 @@ __device__ __forceinline__ float block_scale(const float (&v)[8]) {
   return __fdiv_rn(max_nan(m, 1e-30f), 127.0f);
 }
 
-__device__ __forceinline__ unsigned pack4(const float (&v)[8], int k0,
-                                          float s) {
-  return (static_cast<unsigned>(static_cast<unsigned char>(
-              to_int8(__fdiv_rn(v[k0], s))))) |
-         (static_cast<unsigned>(static_cast<unsigned char>(
-              to_int8(__fdiv_rn(v[k0 + 1], s)))) << 8) |
-         (static_cast<unsigned>(static_cast<unsigned char>(
-              to_int8(__fdiv_rn(v[k0 + 2], s)))) << 16) |
-         (static_cast<unsigned>(static_cast<unsigned char>(
-              to_int8(__fdiv_rn(v[k0 + 3], s)))) << 24);
-}
-
-// The vec route's loads and stores of one full block at `blk`.
-__device__ __forceinline__ void load_vec(const float* blk, int lane,
-                                         float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(blk)[lane];
-  const float4 b = reinterpret_cast<const float4*>(blk + 128)[lane];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load_vec(const unsigned short* blk, int lane,
-                                         float (&v)[8]) {
-  const uint4 a = reinterpret_cast<const uint4*>(blk)[lane];
-  v[0] = bf16_lo(a.x); v[1] = bf16_hi(a.x);
-  v[2] = bf16_lo(a.y); v[3] = bf16_hi(a.y);
-  v[4] = bf16_lo(a.z); v[5] = bf16_hi(a.z);
-  v[6] = bf16_lo(a.w); v[7] = bf16_hi(a.w);
-}
-__device__ __forceinline__ void store_vec(const float*, signed char* qb,
-                                          int lane, const float (&v)[8],
-                                          float s) {
-  reinterpret_cast<unsigned*>(qb)[lane] = pack4(v, 0, s);
-  reinterpret_cast<unsigned*>(qb + 128)[lane] = pack4(v, 4, s);
-}
-__device__ __forceinline__ void store_vec(const unsigned short*,
-                                          signed char* qb, int lane,
-                                          const float (&v)[8], float s) {
-  reinterpret_cast<uint2*>(qb)[lane] = make_uint2(pack4(v, 0, s),
-                                                  pack4(v, 4, s));
-}
-
-// One block b by scalar loads (lane l: elements l + 32 k), zero fill past n.
+// A warp per block b (lane l: elements l + 32 k), zero fill past n.
 template <typename T>
-__device__ __forceinline__ void quant_block_scalar(const T* __restrict__ x,
-                                                   long long n, long long b,
-                                                   int lane,
-                                                   signed char* __restrict__ q,
-                                                   float* __restrict__ scale) {
+__global__ void __launch_bounds__(kThreads)
+quant_kernel(const T* __restrict__ x, long long n,
+             signed char* __restrict__ q, float* __restrict__ scale) {
+  const long long b =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
   const long long base = b * kBlock;
+  if (base >= n) return;  // uniform across the warp
   float v[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -176,38 +124,6 @@ __device__ __forceinline__ void quant_block_scalar(const T* __restrict__ x,
     if (i < n) q[i] = to_int8(__fdiv_rn(v[k], s));
   }
   if (lane == 0) scale[b] = s;
-}
-
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-quant_kernel(const T* __restrict__ x, long long n,
-             signed char* __restrict__ q, float* __restrict__ scale) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  long long b = static_cast<long long>(blockIdx.x) * kWarps +
-                (threadIdx.x >> 5);
-  const long long n_blocks = (n + kBlock - 1) / kBlock;
-  if (kVec) {
-    const long long n_full = n / kBlock;
-    if (b < n_full) {
-      float v[8];
-      load_vec(x + b * kBlock, lane, v);
-      for (; b < n_full; b += stride) {
-        float next[8];
-        const bool more = b + stride < n_full;
-        if (more) load_vec(x + (b + stride) * kBlock, lane, next);
-        const float s = block_scale(v);
-        store_vec(x, q + b * kBlock, lane, v, s);
-        if (lane == 0) scale[b] = s;
-        if (more) {
-#pragma unroll
-          for (int k = 0; k < 8; ++k) v[k] = next[k];
-        }
-      }
-    }
-  }
-  // the scalar route's blocks, or the vec route's partial last block
-  for (; b < n_blocks; b += stride) quant_block_scalar(x, n, b, lane, q, scale);
 }
 
 __device__ __forceinline__ float4 dq4(unsigned w, float s) {
@@ -266,19 +182,10 @@ dequant_kernel(const signed char* __restrict__ q,
     y[i] = __fmul_rn(static_cast<float>(q[i]), scale[i / kBlock]);
 }
 
-template <typename T, bool kVec>
-int launch_quant(cudaStream_t stream, const void* x, long long n,
-                 signed char* q, float* scale, unsigned ctas) {
-  quant_kernel<T, kVec><<<ctas, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), n, q, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kVec>
-int launch_dequant(cudaStream_t stream, const signed char* q,
-                   const float* scale, long long n, float* y, unsigned ctas) {
-  dequant_kernel<kVec><<<ctas, kThreads, 0, stream>>>(q, scale, n, y);
-  return static_cast<int>(cudaGetLastError());
+// CTAs to cover `units` at `per_cta` a CTA, or 0 past the grid's limit.
+unsigned ctas_for(long long units, long long per_cta) {
+  const long long c = units < 1 ? 1 : (units + per_cta - 1) / per_cta;
+  return c > kMaxCtas ? 0u : static_cast<unsigned>(c);
 }
 
 }  // namespace
@@ -286,34 +193,40 @@ int launch_dequant(cudaStream_t stream, const signed char* q,
 extern "C" {
 
 // x: n f32 (dtype 0) or bf16 (dtype 1) -> q: n int8, scale: ceil(n / 256)
-// f32.  vec: 1 for the 16-byte route (x 16-byte aligned), 0 for scalar;
-// ctas: the grid (any size covers all n; the host's choice is the fast one).
-int quantize_blockwise(void* stream, const void* x, int vec, int dtype,
-                       long long n, signed char* q, float* scale, int ctas) {
-  if (n < 1 || ctas < 1 || (dtype != kF32 && dtype != kBF16))
+// f32.  A block a warp.
+int quantize_blockwise(void* stream, const void* x, int dtype, long long n,
+                       signed char* q, float* scale) {
+  if (n < 1 || (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (vec && (reinterpret_cast<unsigned long long>(x) & 15))
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  const unsigned g = ctas_for((n + kBlock - 1) / kBlock, kWarps);
+  if (g == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(ctas);
   if (dtype == kF32)
-    return vec ? launch_quant<float, true>(s, x, n, q, scale, g)
-               : launch_quant<float, false>(s, x, n, q, scale, g);
-  return vec ? launch_quant<unsigned short, true>(s, x, n, q, scale, g)
-             : launch_quant<unsigned short, false>(s, x, n, q, scale, g);
+    quant_kernel<float><<<g, kThreads, 0, s>>>(static_cast<const float*>(x),
+                                               n, q, scale);
+  else
+    quant_kernel<unsigned short><<<g, kThreads, 0, s>>>(
+        static_cast<const unsigned short*>(x), n, q, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// q: n int8, scale: ceil(n / 256) f32 -> y: n f32.  vec and ctas as above.
+// q: n int8, scale: ceil(n / 256) f32 -> y: n f32.  vec: 1 for the 16-byte
+// route (q 16-byte aligned; two tiles a warp), 0 for scalar (four elements
+// a thread).
 int dequantize_blockwise(void* stream, const signed char* q, int vec,
-                         const float* scale, long long n, float* y,
-                         int ctas) {
-  if (n < 1 || ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+                         const float* scale, long long n, float* y) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (vec && (reinterpret_cast<unsigned long long>(q) & 15))
     return static_cast<int>(cudaErrorMisalignedAddress);
+  const unsigned g = vec ? ctas_for(n / kTile, 2 * kWarps)
+                         : ctas_for(n, 4 * kThreads);
+  if (g == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(ctas);
-  return vec ? launch_dequant<true>(s, q, scale, n, y, g)
-             : launch_dequant<false>(s, q, scale, n, y, g);
+  if (vec)
+    dequant_kernel<true><<<g, kThreads, 0, s>>>(q, scale, n, y);
+  else
+    dequant_kernel<false><<<g, kThreads, 0, s>>>(q, scale, n, y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* quant8_error_string(int code) {

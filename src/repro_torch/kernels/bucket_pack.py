@@ -41,7 +41,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from . import ref
+from . import launch, ref
 
 # Launch counts: one per launch the wrappers make, and nowhere else.
 LAUNCHES = {"bucket_pack": 0, "bucket_unpack": 0}
@@ -53,9 +53,6 @@ ROUTES = {"by_value": 0, "table": 0}
 TILE_BYTES = 16384
 
 _LIB = {}
-# The current device, and the raw current stream of a device (set at
-# binding: a CPU build of PyTorch has neither).
-_QUERIES = None
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
@@ -95,9 +92,6 @@ def _library() -> ctypes.CDLL:
             if theirs != ours:
                 raise RuntimeError(f"bucket_pack: the library's {what} is"
                                    f" {theirs} bytes, the wrapper's {ours}")
-        global _QUERIES
-        _QUERIES = (torch._C._cuda_getDevice,
-                    torch._C._cuda_getCurrentRawStream)
         _LIB["bucket_pack"] = lib
     return lib
 
@@ -322,23 +316,22 @@ def _keep(plans: Dict[tuple, _Ready], key: tuple, ready: _Ready) -> None:
     plans[key] = ready
 
 
+def _go(stream: int, ready: _Ready, bucket: int) -> int:
+    """:func:`_run`'s launch on ``stream``, its route counted."""
+    if ready.table is None:
+        ROUTES["by_value"] += 1
+        return ready.launch(ready.params, None, stream, bucket)
+    table = ready.table.pin_memory().to(ready.device, non_blocking=True)
+    ROUTES["table"] += 1
+    return ready.launch(ready.params, table.data_ptr(), stream, bucket)
+
+
 def _run(ready: _Ready, bucket: int, what: str) -> None:
     """One launch of a ready plan on the current stream of its device.
     Above the by-value capacity the descriptors are staged in pinned
     memory and copied to the card without a host wait (PyTorch's
     pinned-memory cache keeps the staging buffer until the copy ran)."""
-    get_device, get_stream = _QUERIES
-    if get_device() != ready.index:
-        with torch.cuda.device(ready.index):
-            return _run(ready, bucket, what)
-    if ready.table is None:
-        rc = ready.launch(ready.params, None, get_stream(ready.index), bucket)
-        ROUTES["by_value"] += 1
-    else:
-        table = ready.table.pin_memory().to(ready.device, non_blocking=True)
-        rc = ready.launch(ready.params, table.data_ptr(),
-                          get_stream(ready.index), bucket)
-        ROUTES["table"] += 1
+    rc = launch.on_stream(ready.index, _go, ready, bucket)
     LAUNCHES[what] += 1
     if rc != 0:
         msg = _library().bucket_pack_error_string(rc).decode()

@@ -30,34 +30,23 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import ref
+from . import launch, ref
 
 BLOCK = 256  # elements per quantization block
 
 # Launch counts: one per launch the wrappers make, and nowhere else.
 LAUNCHES = {"quantize_blockwise": 0, "dequantize_blockwise": 0}
-# The route each launch took (both kernels).
+# The route each dequantize launch took.
 ROUTES = {"vec": 0, "scalar": 0}
 
 _LIB = {}
-# The current device, and the raw current stream of a device (set at
-# binding: a CPU build of PyTorch has neither).
-_QUERIES = None
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The dtypes the quantize kernel reads as they are, by their code there.
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The library's entry points, each (stream, input, vec, ...) -> a CUDA
-# error code: quantize (..., dtype, n, q, scales, ctas), dequantize (...,
-# scales, n, y, ctas).
-SIGNATURES = {"quantize_blockwise": [_VP, _VP, _I, _I, _LL, _VP, _VP, _I],
-              "dequantize_blockwise": [_VP, _VP, _I, _VP, _LL, _VP, _I]}
-# Threads a CTA (the kernels' kThreads), quantization blocks or dequantize
-# tiles (TILE elements) a warp, elements a thread on dequantize's scalar
-# route.
-CTA_THREADS = 256
-WARP_BLOCKS = 2
-TILE = 512
-THREAD_ELEMS = 4
+# The library's entry points, each (stream, ...) -> a CUDA error code:
+# quantize (x, dtype, n, q, scales), dequantize (q, vec, scales, n, y).
+SIGNATURES = {"quantize_blockwise": [_VP, _VP, _I, _LL, _VP, _VP],
+              "dequantize_blockwise": [_VP, _VP, _I, _VP, _LL, _VP]}
 
 
 def _library() -> ctypes.CDLL:
@@ -71,18 +60,16 @@ def _library() -> ctypes.CDLL:
             getattr(lib, name).restype = _I
         lib.quant8_error_string.argtypes = [_I]
         lib.quant8_error_string.restype = ctypes.c_char_p
-        global _QUERIES
-        _QUERIES = (torch._C._cuda_getDevice,
-                    torch._C._cuda_getCurrentRawStream)
         _LIB["quant8"] = lib
     return lib
 
 
 def route(t: torch.Tensor) -> str:
-    """The route of a launch whose input is ``t``: ``vec`` when its data
-    is 16-byte aligned (whole blocks then start 16-byte aligned too: a
-    block is 1024, 512 or 256 bytes), else ``scalar``.  The outputs are
-    the wrapper's own allocations and always aligned."""
+    """The route of a dequantize launch whose int8 values are ``t``:
+    ``vec`` when its data is 16-byte aligned (every 512-element tile then
+    is too), else ``scalar``.  The output and the scales need no check:
+    the output is the wrapper's own allocation, and the scales are read
+    one at a time."""
     return "vec" if t.data_ptr() % 16 == 0 else "scalar"
 
 
@@ -138,42 +125,10 @@ def _on_cuda(t: torch.Tensor, what: str) -> None:
                          f" CUDA device")
 
 
-def grid(n: int, what: str, r: str) -> int:
-    """CTAs of a launch of ``what`` over ``n`` elements on route ``r``:
-    ``WARP_BLOCKS`` quantization blocks a warp (either route), as many
-    dequantize tiles a warp on the vec route, ``THREAD_ELEMS`` elements a
-    thread on its scalar route."""
-    warps = CTA_THREADS // 32
-    if what == "quantize_blockwise":
-        units, per_cta = n_blocks(n), WARP_BLOCKS * warps
-    elif r == "vec":  # whole tiles; the rest goes one element a thread
-        units, per_cta = n // TILE, WARP_BLOCKS * warps
-    else:
-        units, per_cta = n, THREAD_ELEMS * CTA_THREADS
-    return max(1, min(-(-units // per_cta), 2**31 - 1))
-
-
 def _raise_if(rc: int, lib, what: str) -> None:
     if rc != 0:
         msg = lib.quant8_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
-
-
-def _launch(fn, t: torch.Tensor, what: str, *args) -> None:
-    """One launch of ``fn`` over the elements of ``t`` on the current
-    stream of its device, the route and grid chosen from ``t``; a device
-    context only when that device is not the current one."""
-    get_device, get_stream = _QUERIES
-    index = t.get_device()
-    if get_device() != index:
-        with torch.cuda.device(index):
-            return _launch(fn, t, what, *args)
-    r = route(t)
-    rc = fn(get_stream(index), t.data_ptr(), r == "vec", *args,
-            grid(t.numel(), what, r))
-    LAUNCHES[what] += 1
-    ROUTES[r] += 1
-    _raise_if(rc, _LIB["quant8"], what)
 
 
 def quantize_blockwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -191,8 +146,10 @@ def quantize_blockwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     q = torch.empty(n, dtype=torch.int8, device=x.device)
     s = torch.empty(n_blocks(n), dtype=torch.float32, device=x.device)
     lib = _library()
-    _launch(lib.quantize_blockwise, x, "quantize_blockwise", code, n,
-            q.data_ptr(), s.data_ptr())
+    rc = launch.on_stream(x.get_device(), lib.quantize_blockwise,
+                          x.data_ptr(), code, n, q.data_ptr(), s.data_ptr())
+    LAUNCHES["quantize_blockwise"] += 1
+    _raise_if(rc, lib, "quantize_blockwise")
     return q, s
 
 
@@ -207,6 +164,11 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor
     n = q.numel()
     y = torch.empty(n, dtype=torch.float32, device=q.device)
     lib = _library()
-    _launch(lib.dequantize_blockwise, q, "dequantize_blockwise",
-            scales.data_ptr(), n, y.data_ptr())
+    r = route(q)
+    rc = launch.on_stream(q.get_device(), lib.dequantize_blockwise,
+                          q.data_ptr(), r == "vec", scales.data_ptr(), n,
+                          y.data_ptr())
+    LAUNCHES["dequantize_blockwise"] += 1
+    ROUTES[r] += 1
+    _raise_if(rc, lib, "dequantize_blockwise")
     return y
