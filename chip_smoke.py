@@ -63,9 +63,8 @@ failure exits non-zero without a result:
      1, 255, 256, 257 and 2^24 + 100, a zero block, magnitudes 1e-6 and
      1e4, exact ties, round trips, blocks holding NaN, +inf and -inf and
      a NaN in the ragged tail (JAX's scales NaN and inf, values 0), bf16
-     inputs, views at odd element offsets and values dequantized from an
-     odd offset (dequantize's scalar route), one launch a call (on its
-     route for dequantize);
+     inputs, views at odd element offsets (the scalar route) and values
+     dequantized from an odd offset, one launch a call on its route;
  13. the training path: llama3.2-1b at full width and depth in f32
      (random weights from seed 0), 4 x 1024 tokens a step, through
      ``make_train_step`` on a one-rank ``nccl`` group: partitioned for 6
@@ -748,9 +747,10 @@ def pack_phase(dev, small: bool = False) -> float:
 
 
 def _quant_check(x, name):
-    """Kernel against plain, bit for bit, on ``x`` and on the int8 values
-    dequantized as they are (the vec route) and from a copy at an odd
-    offset (the scalar route); one launch a call on the card.  The round
+    """Kernel against plain, bit for bit, on ``x`` (its route from
+    ``quant8.route``) and on the int8 values dequantized as they are (the
+    vec route) and from a copy at an odd offset (the scalar route); one
+    launch a call on the card.  The round
     trip within half a scale in blocks of finite scale; in the others
     JAX's semantics: scale NaN where the block holds a NaN, infinite
     where it holds an infinity and no NaN, every value 0.  Returns the
@@ -764,7 +764,7 @@ def _quant_check(x, name):
     qv = torch.empty(n + 1, dtype=torch.int8, device=x.device)[1:]
     calls = []
     for fn, args, route in (
-            (ops.quantize_blockwise, (x,), None),
+            (ops.quantize_blockwise, (x,), q8.route(x)),
             (ops.dequantize_blockwise, None, "vec"),
             (ops.dequantize_blockwise, None, "scalar")):
         launches, routes = dict(q8.LAUNCHES), dict(q8.ROUTES)
@@ -775,8 +775,7 @@ def _quant_check(x, name):
         calls.append(fn(*args))
         grew = sum(q8.LAUNCHES.values()) - sum(launches.values())
         took = [k for k in routes if q8.ROUTES[k] != routes[k]]
-        check(not on_card or (grew == 1 and took == ([route] if route
-                                                      else [])),
+        check(not on_card or (grew == 1 and took == [route]),
               f"quant8 {name}: {fn.__name__} made {grew} launches on"
               f" routes {took}, want one on {route!r}")
     (q, s), y, yv = calls
@@ -808,12 +807,12 @@ def quant_phase(dev, small: bool = False) -> float:
     """Phase 12: quantize/dequantize against their plain versions, bit for
     bit in the values, the scales and the dequantized values
     (``_quant_check``: also dequantized from a copy at an odd offset, one
-    launch a call, on the route its address picks for dequantize): n = 1, 255, 256, 257
+    launch a call on the route its input picks): n = 1, 255, 256, 257
     and 2^24 + 100 heavy-tailed normals, an all-zero block, magnitudes
     1e-6 and 1e4, exact k + 1/2 ties built from the scale, the round trip
     within half a scale; blocks with a NaN, +inf, -inf, NaN and inf, and
     a NaN in the ragged tail; bf16 inputs (2^24 + 100 and ragged); views
-    of x at odd element offsets (f32 and bf16).
+    of x at odd element offsets (f32 and bf16, the scalar route).
     Returns the largest |difference| at finite values."""
     import torch
     big = (1 << 16) + 100 if small else (1 << 24) + 100
@@ -866,8 +865,8 @@ def quant_phase(dev, small: bool = False) -> float:
           f" values 0, as JAX), bf16 at n={big} and 4099, f32 and bf16"
           f" views at offsets 1 and 3, each also dequantized from an odd"
           f" offset (scalar route): values, scales and dequantized values"
-          f" bitwise equal, one launch a call, round trips within half a"
-          f" scale,"
+          f" bitwise equal, one launch a call on its route, round trips"
+          f" within half a scale,"
           f" max_abs_err={err!r}")
     return err
 
@@ -1203,7 +1202,7 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
         "quantize_blockwise_bf16": (
             lambda: ops.quantize_blockwise(xb),
             lambda: q8.quantize_blockwise_plain(xb),
-            _bytes_bound(2 * n + n + 4 * nb), None, "quant_kernel"),
+            _bytes_bound(2 * n + n + 4 * nb), None, "quant_bf16_vec_kernel"),
         "dequantize_blockwise": (
             lambda: ops.dequantize_blockwise(q, s),
             lambda: q8.dequantize_blockwise_plain(q, s),

@@ -15,11 +15,13 @@ to 0.
 
 :func:`quantize_blockwise` and :func:`dequantize_blockwise` launch the
 kernels for CUDA tensors only; the public entry points that take the
-plain versions for CPU tensors are in ``kernels.ops``.  Each launch takes
-one of two routes, picked on the host by :func:`route` from the input's
-address: ``vec`` (16-byte accesses) for an operand 16-byte aligned,
-``scalar`` for a view at an odd element offset.  f32 and bf16 go to the
-quantize kernel as they are; other float dtypes are cast to f32 first.
+plain versions for CPU tensors are in ``kernels.ops``.  f32 and bf16 go
+to the quantize kernel as they are; other float dtypes are cast to f32
+first.  Each launch takes one of two routes, picked on the host by
+:func:`route` from its input: ``vec`` (16-byte accesses) for bf16 or
+int8 data 16-byte aligned, ``scalar`` for f32 (whose 4-byte loads
+already fill whole sectors) and for a view at an odd element offset.
+The library picks each launch's grid.
 """
 
 from __future__ import annotations
@@ -36,16 +38,17 @@ BLOCK = 256  # elements per quantization block
 
 # Launch counts: one per launch the wrappers make, and nowhere else.
 LAUNCHES = {"quantize_blockwise": 0, "dequantize_blockwise": 0}
-# The route each dequantize launch took.
+# The route each launch took (both kernels).
 ROUTES = {"vec": 0, "scalar": 0}
 
 _LIB = {}
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The dtypes the quantize kernel reads as they are, by their code there.
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The library's entry points, each (stream, ...) -> a CUDA error code:
-# quantize (x, dtype, n, q, scales), dequantize (q, vec, scales, n, y).
-SIGNATURES = {"quantize_blockwise": [_VP, _VP, _I, _LL, _VP, _VP],
+# The library's entry points, each (stream, input, vec, ...) -> a CUDA
+# error code: quantize (..., dtype, n, q, scales), dequantize (...,
+# scales, n, y).
+SIGNATURES = {"quantize_blockwise": [_VP, _VP, _I, _I, _LL, _VP, _VP],
               "dequantize_blockwise": [_VP, _VP, _I, _VP, _LL, _VP]}
 
 
@@ -65,11 +68,14 @@ def _library() -> ctypes.CDLL:
 
 
 def route(t: torch.Tensor) -> str:
-    """The route of a dequantize launch whose int8 values are ``t``:
-    ``vec`` when its data is 16-byte aligned (every 512-element tile then
-    is too), else ``scalar``.  The output and the scales need no check:
-    the output is the wrapper's own allocation, and the scales are read
-    one at a time."""
+    """The route of a launch whose input is ``t``: ``vec`` when it is not
+    f32 and its data is 16-byte aligned (every block or tile then is
+    too), else ``scalar``.  f32 quantize always takes ``scalar``: its
+    4-byte loads fill whole sectors, and 16-byte ones measured slower.
+    The outputs are the wrapper's own allocations and always aligned;
+    the scales are read one at a time."""
+    if t.dtype == torch.float32:
+        return "scalar"
     return "vec" if t.data_ptr() % 16 == 0 else "scalar"
 
 
@@ -131,6 +137,17 @@ def _raise_if(rc: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+def _launch(fn, t: torch.Tensor, what: str, *args) -> None:
+    """One launch of ``fn`` over the elements of ``t`` on the current
+    stream of its device, on the route :func:`route` picks for ``t``."""
+    r = route(t)
+    rc = launch.on_stream(t.get_device(), fn, t.data_ptr(), r == "vec",
+                          *args)
+    LAUNCHES[what] += 1
+    ROUTES[r] += 1
+    _raise_if(rc, _LIB["quant8"], what)
+
+
 def quantize_blockwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the quantize kernel on a flat CUDA vector (f32 and bf16 read
     as they are, other floats cast to f32 as the reference does): (int8
@@ -146,10 +163,8 @@ def quantize_blockwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     q = torch.empty(n, dtype=torch.int8, device=x.device)
     s = torch.empty(n_blocks(n), dtype=torch.float32, device=x.device)
     lib = _library()
-    rc = launch.on_stream(x.get_device(), lib.quantize_blockwise,
-                          x.data_ptr(), code, n, q.data_ptr(), s.data_ptr())
-    LAUNCHES["quantize_blockwise"] += 1
-    _raise_if(rc, lib, "quantize_blockwise")
+    _launch(lib.quantize_blockwise, x, "quantize_blockwise", code, n,
+            q.data_ptr(), s.data_ptr())
     return q, s
 
 
@@ -164,11 +179,6 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor
     n = q.numel()
     y = torch.empty(n, dtype=torch.float32, device=q.device)
     lib = _library()
-    r = route(q)
-    rc = launch.on_stream(q.get_device(), lib.dequantize_blockwise,
-                          q.data_ptr(), r == "vec", scales.data_ptr(), n,
-                          y.data_ptr())
-    LAUNCHES["dequantize_blockwise"] += 1
-    ROUTES[r] += 1
-    _raise_if(rc, lib, "dequantize_blockwise")
+    _launch(lib.dequantize_blockwise, q, "dequantize_blockwise",
+            scales.data_ptr(), n, y.data_ptr())
     return y

@@ -154,8 +154,8 @@ def test_quant8_bitwise(cuda_device, n, scale, dtype, offset):
     f32 and bf16 x, aligned and as a view at an odd element offset, with
     a zero block, a NaN block, +inf and -inf blocks and a NaN in the
     ragged tail; the int8 values dequantized aligned and from a view at
-    an odd offset.  One launch a call; a dequantize launch on the route
-    the address of its values picks, a quantize launch on none."""
+    an odd offset.  One launch a call, on the route its input picks
+    (``vec`` only for aligned bf16 x and aligned int8 values)."""
     x = (_rand((n + offset,), F32, cuda_device, n) * scale)
     if n > 1024:
         x[:256] = 0.0  # an all-zero block
@@ -165,9 +165,10 @@ def test_quant8_bitwise(cuda_device, n, scale, dtype, offset):
     if n % 256 and n > 256:
         x[-1] = float("nan")  # in the ragged tail
     x = x.to(dtype)[offset:]
+    route = "vec" if dtype == BF16 and not offset else "scalar"
     (q, s), grew, took = _counted(ops.quantize_blockwise, x)
     assert grew == {"quantize_blockwise": 1, "dequantize_blockwise": 0}
-    assert took == []
+    assert took == [route] and pq8.route(x) == route
     y, grew, took = _counted(ops.dequantize_blockwise, q, s)
     assert grew == {"quantize_blockwise": 0, "dequantize_blockwise": 1}
     assert took == ["vec"]
