@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
-drives the port's three paths on the card -- the stencil simulator,
-model serving and training -- phase by phase; every phase prints one line and any
-failure exits non-zero without a result:
+drives the port's paths on the card -- the stencil simulator, model
+serving, training and the paper's scenarios -- phase by phase; every
+phase prints one line and any failure exits non-zero without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
      every kernel source, one ``nvcc`` each, started together, with
@@ -84,8 +84,20 @@ failure exits non-zero without a result:
      and profiler device time (10 calls must trace 10 kernels and no
      host-to-device copy), dequantize beside ``torch.mul`` of the int8
      values and their scales in window and device time; the train step and tokens/s per mode,
-     peak memory and the profile of one step; then the kernel table as
-     one JSON line.
+     peak memory and the profile of one step;
+ 15. the paper's scenarios: the full grids of Figs 4-8, ``halo1d``,
+     ``steady_state``, ``imbalance``, ``serving``, ``faults``,
+     ``membership``, ``serving_faults`` and ``recovery`` (155 records)
+     on engine ``cuda`` against the baseline, each with its wall time
+     and the fabric kernel's launches, which must be the reference's
+     routing (halo1d 3, faults 3, every other spec 0); the smoke records
+     of halo1d, imbalance, serving, membership and the fault-free ones
+     of faults with the adaptive cutoffs at 0, bitwise against engine
+     ``reference`` with at least one launch a record (warm VCI, NIC and
+     wire state carried from launch to launch across serving's waves
+     and membership's epochs); the Fig-5/Fig-6 crossover; 32 chaos
+     campaigns of ``cuda`` against ``reference`` with no violation; then
+     the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -1153,10 +1165,11 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
                                                         out=outs),
                               dev, reps))}
         if dev.type == "cuda":  # device time per call, and no HtoD copy
-            prof = [_device_profile(fn) for fn in (
-                lambda: ops.bucket_pack(segs),
-                lambda: ops.bucket_unpack(flat, segs, out=outs),
-                lambda: torch.cat(flats), lambda: foreach(outs, views))]
+            prof = [_device_profile(fn, expect=want) for fn, want in (
+                (lambda: ops.bucket_pack(segs), 10),
+                (lambda: ops.bucket_unpack(flat, segs, out=outs), 10),
+                (lambda: torch.cat(flats), None),
+                (lambda: foreach(outs, views), None))]
             print(f"profile pack/unpack {name} bucket, 10 calls each after"
                   f" a dropped warm-up step: device ms per call pack kernel"
                   f" {prof[0][0]!r}, unpack kernel {prof[1][0]!r},"
@@ -1280,27 +1293,34 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
     return entries
 
 
-def _device_profile(fn, n: int = 10):
+def _device_profile(fn, n: int = 10, expect=None):
     """Device ms per call, device events and host-to-device copies of
     ``n`` calls of ``fn`` under ``torch.profiler``, after a warm-up step
     that the profiler traces and drops (a trace may lose the first events
-    after it starts).  Also the device events' names and counts."""
+    after it starts).  Also the device events' names and counts.  A trace
+    can still lose events: where the caller knows how many device events
+    the ``n`` calls make (``expect``), a trace holding another count is
+    taken again, up to three traces, and the last one is returned (the
+    caller checks its count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    torch.cuda.synchronize()
-    traced = []
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: traced.append(
-                     p.key_averages())) as prof:
-        for _ in range(2):
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    evs = [(e.key, e.count, e.self_device_time_total / 1e3)
-           for e in traced[-1]
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        traced = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in traced[-1]
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if expect is None or sum(c for _, c, _ in evs) == expect:
+            break
     return (sum(t for _, _, t in evs) / n, sum(c for _, c, _ in evs),
             sum(c for k, c, _ in evs if "htod" in k.lower()),
             [(k[:60], c) for k, c, _ in evs])
@@ -1333,6 +1353,180 @@ def _flash_build_report(build, lib_path) -> None:
           f" each {counts}")
     check(len(wg) == 4 and all(h > 0 and t > 0 for h, t in counts),
           "the wgmma flash kernel's SASS lacks HGMMA or UTMALDG")
+
+
+# Phase 15: the paper's scenarios.  The thirteen specs whose full grids
+# run on engine cuda, and the fabric kernel's launches each must make
+# under the default adaptive cutoffs: 0 is the reference's routing (one
+# flow runs the scalar path; drops take the NumPy faulty fabric; the
+# other batches are too narrow), halo1d launches at 16 ranks and faults
+# on its fault-free 4x4 torus.
+SCENARIO_LAUNCHES = {
+    "fig4_latency": 0, "fig5_contention": 0, "fig6_vci": 0,
+    "fig7_aggregation": 0, "fig8_earlybird": 0, "halo1d": 3,
+    "steady_state": 0, "imbalance": 0, "serving": 0, "faults": 3,
+    "membership": 0, "serving_faults": 0, "recovery": 0}
+# The batched drivers run again with the cutoffs at 0, each smoke record
+# against engine reference on the fields every engine must reproduce
+# exactly (the JAX package's differential table, plus membership's).
+FORCED_FIELDS = {
+    "simulate_halo": ("rank_tts_s", "n_messages", "time_s", "tts_s"),
+    "simulate_imbalance": ("rank_tts_s", "mean_delay_s", "n_messages",
+                           "time_s", "tts_s"),
+    "simulate_serving": ("latency_s", "tts_s", "n_messages", "n_waves"),
+    "simulate_faulty": ("rank_tts_s", "tts_s", "n_retransmits",
+                        "retrans_bytes", "rounds", "n_messages"),
+    "simulate_membership": ("iter_times_s", "epoch_starts", "quiesce_s",
+                            "replan_s", "warmup_s", "tts_s", "n_messages",
+                            "plan_data", "plan_model", "plan_dropped",
+                            "grad_accum_factor"),
+}
+FORCED_SPECS = {"halo1d": "simulate_halo", "imbalance": "simulate_imbalance",
+                "serving": "simulate_serving", "membership":
+                "simulate_membership", "faults": "simulate_faulty"}
+CHAOS_CAMPAIGNS = 32
+
+
+def _fields_equal(a, b, fields) -> bool:
+    import numpy as np
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               if isinstance(getattr(a, f), np.ndarray)
+               else getattr(a, f) == getattr(b, f) for f in fields)
+
+
+def scenarios_phase(dev, baseline: dict) -> dict:
+    """Phase 15: the paper's evaluation on the card.  (a) the full grids
+    of the thirteen scenario specs on engine cuda against the baseline,
+    with the fabric kernel's launches over each; (b) the batched
+    drivers' smoke records with the adaptive cutoffs at 0, bitwise
+    against engine reference, at least one launch a record; (c) the
+    Fig-5/Fig-6 crossover; (d) the chaos campaigns.  Returns the wall
+    seconds and launches per spec."""
+    import numpy as np
+    from repro_torch.core import fabric as fb
+    from repro_torch.core import fabric_cuda as fc
+    from repro_torch.core import simulator as sim
+    from repro_torch.experiments import (SPECS, compare_to_baseline,
+                                         contention_crossover, run_spec)
+    from repro_torch.experiments import chaos
+    from repro_torch.experiments import engine as exp_engine
+
+    on_card = dev.type == "cuda"
+    calls = []
+    real_scan = fc.fabric_scan
+
+    def counted(ops):
+        calls.append(ops.n)
+        return real_scan(ops)
+
+    def launched() -> int:  # the kernel's count on the card, calls here
+        return fc.LAUNCHES["fabric_scan"] if on_card else len(calls)
+
+    out, results = {}, {}
+    fc.fabric_scan = counted
+    try:
+        # (a) full grids, cold, under the default cutoffs
+        for name, want in SCENARIO_LAUNCHES.items():
+            exp_engine._CACHE.clear()
+            sim.clear_merge_memo()
+            calls.clear()
+            fc.LAUNCHES["fabric_scan"] = 0
+            t0 = time.perf_counter()
+            res = run_spec(SPECS[name], "full", engine="cuda", device=dev)
+            wall = time.perf_counter() - t0
+            n = launched()
+            check(n == len(calls), f"{name}: {n} launches for"
+                  f" {len(calls)} kernel calls")
+            check(n == want, f"{name}: {n} fabric_scan launches, the"
+                  f" reference's routing gives {want}")
+            v = compare_to_baseline(baseline, {name: res})
+            check(not v, f"{name} baseline drift: " + "; ".join(v))
+            recs = baseline["specs"][name]["records"]
+            for key, m in res.items():
+                check(m["n_messages"] == recs[key]["n_messages"],
+                      f"{name}/{key}: n_messages {m['n_messages']}")
+                check(all(np.isfinite(x) for x in m.values()),
+                      f"{name}/{key}: not finite")
+            results[name] = res
+            out[name] = {"records": len(res), "wall_s": wall, "launches": n}
+            print(f"scenarios {name} full (cuda): {len(res)} records,"
+                  f" 0 baseline violations, n_messages exact, wall"
+                  f" {wall:.3f} s, fabric_scan launches {n}")
+        total = sum(o["records"] for o in out.values())
+        check(total == 155, f"scenario grids hold {total} records, not 155")
+
+        # (b) the batched drivers with the cutoffs at 0
+        cutoffs = fb.SCALAR_BATCH_CUTOFF, fb.MIN_GROUP_PARALLELISM
+        fb.SCALAR_BATCH_CUTOFF = fb.MIN_GROUP_PARALLELISM = 0
+        try:
+            for name, driver in FORCED_SPECS.items():
+                spec = SPECS[name]
+                points = [p for p in spec.points("smoke")
+                          if p.get("fault_rate", 0.0) == 0.0]
+                got = []
+                real_driver = getattr(sim, driver)
+
+                def capture(*a, **k):
+                    r = real_driver(*a, **k)
+                    got.append(r)
+                    return r
+                setattr(sim, driver, capture)
+                per_record = []
+                t0 = time.perf_counter()
+                try:
+                    for p in points:
+                        calls.clear()
+                        fc.LAUNCHES["fabric_scan"] = 0
+                        exp_engine.RUNNERS[spec.runner](p, engine="cuda",
+                                                        device=dev)
+                        per_record.append(launched())
+                        exp_engine.RUNNERS[spec.runner](
+                            p, engine="reference", device=dev)
+                finally:
+                    setattr(sim, driver, real_driver)
+                wall = time.perf_counter() - t0
+                for p, (a, b) in zip(points, zip(got[::2], got[1::2])):
+                    check(_fields_equal(a, b, FORCED_FIELDS[driver]),
+                          f"forced {name}/{exp_engine.record_key(p)}: cuda"
+                          f" differs from reference")
+                check(len(got) == 2 * len(points) and min(per_record) >= 1,
+                      f"forced {name}: launches a record {per_record}")
+                out[name]["forced_launches"] = per_record
+                print(f"scenarios {name} smoke, cutoffs 0 (cuda vs"
+                      f" reference): {len(points)} records bitwise on"
+                      f" {len(FORCED_FIELDS[driver])} fields,"
+                      f" fabric_scan launches a record {per_record},"
+                      f" wall {wall:.3f} s")
+        finally:
+            fb.SCALAR_BATCH_CUTOFF, fb.MIN_GROUP_PARALLELISM = cutoffs
+    finally:
+        fc.fabric_scan = real_scan
+
+    # (c) the Fig-5/Fig-6 crossover
+    cross = contention_crossover({"fig6_vci": results["fig6_vci"]})
+    for ap in ("part", "pt2pt_many"):
+        lo, hi = (cross[ap]["slowdown_at_1_vcis"],
+                  cross[ap]["slowdown_at_32_vcis"])
+        check(lo > 10.0 and lo / hi > 10.0,
+              f"crossover {ap}: {lo:.2f}x at 1 VCI, {hi:.2f}x at 32")
+    check(cross["pt2pt_many"]["slowdown_at_32_vcis"] < 1.5
+          and cross["part"]["slowdown_at_32_vcis"] < 6.0,
+          f"crossover at 32 VCIs: {cross}")
+    print("crossover vs pt2pt_single: " + "; ".join(
+        f"{ap} " + ", ".join(f"{k}={v:.2f}x" for k, v in r.items())
+        for ap, r in cross.items()))
+
+    # (d) chaos campaigns, cuda against reference
+    t0 = time.perf_counter()
+    report = chaos.run_campaigns(CHAOS_CAMPAIGNS, engine="cuda", device=dev)
+    wall = time.perf_counter() - t0
+    check(report["n_violations"] == 0,
+          "chaos: " + "; ".join(report["violations"][:5]))
+    print(f"chaos: {CHAOS_CAMPAIGNS} campaigns (cuda vs reference,"
+          f" {report['n_serving']} serving, policies"
+          f" {report['by_policy']}), 0 violations, wall {wall:.3f} s")
+    out["chaos_wall_s"] = wall
+    return out
 
 
 def run(device_name: str = "cuda", small: bool = False) -> dict:
@@ -1576,6 +1770,11 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
             train_kernels = train_times(dev, train, errs, small)
         finally:
             dist.destroy_process_group()
+
+    # 15. the paper's scenarios -------------------------------------------
+    t0 = time.perf_counter()
+    scenarios_phase(dev, baseline)
+    print(f"phase 15 wall {time.perf_counter() - t0:.3f} s")
     return {"kernels": [fabric, *flash, *train_kernels]}
 
 
@@ -1637,7 +1836,7 @@ def _quant_device(fn, kernel: str):
     checked to trace exactly 10 kernels named ``kernel`` (the whole name
     after its namespace: ``quant_kernel`` is no ``dequant_kernel``) and no
     other device event, so no host-to-device copy."""
-    ms, events, htod, names = _device_profile(fn)
+    ms, events, htod, names = _device_profile(fn, expect=10)
     check(events == 10 and htod == 0
           and all(re.search(rf"::{kernel}[<(]", k) for k, _ in names),
           f"10 calls traced {events} device events {names}, HtoD {htod};"

@@ -1,1 +1,2 @@
-"""Fault tolerance of the training loop (``fault_tolerance``)."""
+"""Fault tolerance of the training loop (``fault_tolerance``) and the
+elastic mesh plan the membership driver prices (``elastic``)."""

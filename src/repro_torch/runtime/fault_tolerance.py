@@ -2,8 +2,8 @@
 heartbeats.
 
 The port's copy of the JAX package's ``runtime/fault_tolerance.py``
-(it holds no JAX code), with its own copy of the retry constants of
-``core/recovery.py``.
+(it holds no JAX code); its retry constants come from the port's
+``core/recovery.py``, as the reference's come from its own.
 
 Designed for 1000+ node operation:
   * checkpoint/restart — periodic async saves + signal-triggered final
@@ -29,17 +29,14 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Deque, Dict, List, Optional
 
-# The JAX package's RecoveryPolicy defaults (core/recovery.py), which
-# its runtime and simulator share: a retransmission timeout of 50 us,
-# backoff factor 2, 8 retries (tests/test_torch_train.py holds these
-# copies equal to them).
-DEFAULT_TIMEOUT_US = 50.0
-DEFAULT_BACKOFF = 2.0
-DEFAULT_MAX_RETRIES = 8
+from ..core.recovery import (DEFAULT_BACKOFF, DEFAULT_MAX_RETRIES,
+                             DEFAULT_TIMEOUT_US)
 
-# The runtime's timescale is milliseconds where the fabric's is
-# microseconds, hence the 1e-3 on the base delay; retries and backoff
-# carry over directly.
+# Retry knobs, sourced from the shared RecoveryPolicy defaults
+# (core/recovery.py) so the runtime and the simulator cannot drift
+# apart on two copies of the same numbers.  The runtime's timescale is
+# milliseconds where the fabric's is microseconds, hence the 1e-3 on
+# the base delay; retries and backoff carry over directly.
 RETRY_MAX_ATTEMPTS = DEFAULT_MAX_RETRIES
 RETRY_BACKOFF = DEFAULT_BACKOFF
 RETRY_BASE_DELAY_S = DEFAULT_TIMEOUT_US * 1e-3

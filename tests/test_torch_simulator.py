@@ -17,7 +17,10 @@ from _engines import DRIVERS, assert_results_equal, ready
 from repro.core import simulator as rsim
 from repro_torch.core import fabric as pfb
 from repro_torch.core import fabric_cuda as pfc
+from repro_torch.core import faults as pflt
+from repro_torch.core import perfmodel as ppm
 from repro_torch.core import simulator as psim
+from repro_torch.experiments import chaos as pchaos
 
 PORT_ENGINES = ("torch", "cuda")
 
@@ -140,3 +143,27 @@ def test_entry_points_default_to_the_card():
         psim.simulate_stencil_grid([dict(approach="part", **kw)])
     with pytest.raises(RuntimeError, match="cuda"):
         psim.simulate("part", n_threads=1, theta=1, part_bytes=64.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        psim.simulate_steady_state("part", n_iters=2, n_threads=1, theta=1,
+                                   part_bytes=64.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        psim.simulate_imbalance("part", n_ranks=2, workload=ppm.FFT,
+                                theta=2, part_bytes=64.0)
+    serve = dict(rate_rps=1000.0, n_requests=4, theta=2, part_bytes=64.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        psim.simulate_serving("part", **serve)
+    with pytest.raises(RuntimeError, match="cuda"):
+        psim.simulate_serving("part", faults=pflt.FaultSpec(drop_prob=0.1),
+                              **serve)
+    face = dict(dims=(2, 2), theta=2, face_bytes=[256.0, 256.0])
+    for spec in (None, pflt.FaultSpec(drop_prob=0.1)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            psim.simulate_faulty("part", faults=spec, **face)
+    with pytest.raises(RuntimeError, match="cuda"):
+        psim.simulate_membership("part", n_ranks=4, theta=2,
+                                 part_bytes=64.0, faults=None, n_iters=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pflt.make_faulty_fabric("cuda", psim.DEFAULT_NET, 1, 2,
+                                pflt.FaultSpec(drop_prob=0.1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        pchaos.run_campaigns(1)

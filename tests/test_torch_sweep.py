@@ -72,3 +72,55 @@ def test_cli_checks_baseline(capsys):
     assert rc == 0
     assert "baseline check passed: 2 records" in capsys.readouterr().out
     assert sweep.main(["--spec", "no_such_spec", "--device", "cpu"]) == 2
+
+
+def test_specs_cover_197_golden_records():
+    """17 specs whose full grids come to 197 records, every key in the
+    golden baseline — from expansion alone, no stencil tier is run."""
+    assert len(SPECS) == 17
+    assert set(SPECS) == set(REF_SPECS) - {"autotune", "ir_passes"}
+    keys = {(name, pengine.record_key(p))
+            for name, spec in SPECS.items() for p in spec.points("full")}
+    assert len(keys) == 197
+    for name, key in keys:
+        assert key in BASELINE["specs"][name]["records"], (name, key)
+    for name, spec in SPECS.items():
+        assert spec.runner in pengine.RUNNERS
+        assert spec.runner in pengine.PRIMARY_METRIC
+        assert spec.tolerances == REF_SPECS[name].tolerances
+        assert spec.tol_rel == REF_SPECS[name].tol_rel
+
+
+def test_parse_key_inverts_record_key():
+    for spec in SPECS.values():
+        for p in spec.points("smoke"):
+            key = pengine.record_key(p)
+            assert pengine.parse_key(key) == rengine.parse_key(key)
+            assert pengine.record_key(pengine.parse_key(key)) == key
+
+
+def test_cli_lists_specs(capsys):
+    assert sweep.main(["--list"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 17
+    assert out[0].split()[:3] == ["fig4_latency", "oneshot", "20"]
+    assert any(line.split()[:3] == ["serving_faults", "servingfaults", "4"]
+               for line in out)
+
+
+def test_cli_writes_results_and_prints_crossover(capsys, tmp_path):
+    out = tmp_path / "results.json"
+    rc = sweep.main(["--spec", "fig6_vci,halo1d", "--smoke", "--engine",
+                     "cuda", "--device", "cpu", "--out", str(out),
+                     "--check", str(BASELINE_PATH)])
+    assert rc == 0
+    printed = capsys.readouterr().out
+    assert "# crossover part vs pt2pt_single: slowdown_at_1_vcis=" \
+        in printed
+    assert "# crossover pt2pt_many vs pt2pt_single:" in printed
+    assert "baseline check passed: 8 records" in printed
+    doc = json.loads(out.read_text())
+    assert (doc["mode"], doc["engine"], doc["device"]) == \
+        ("smoke", "cuda", "cpu")
+    assert sorted(doc["results"]) == ["fig6_vci", "halo1d"]
+    assert len(doc["results"]["fig6_vci"]) == 6
