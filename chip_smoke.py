@@ -5,8 +5,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
 drives the port's paths on the card -- the stencil simulator, model
-serving, training and the paper's scenarios -- phase by phase; every
-phase prints one line and any failure exits non-zero without a result:
+serving, training, the paper's scenarios and the planner -- phase by
+phase; every phase prints one line and any failure exits non-zero
+without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
      every kernel source, one ``nvcc`` each, started together, with
@@ -96,8 +97,18 @@ phase prints one line and any failure exits non-zero without a result:
      ``reference`` with at least one launch a record (warm VCI, NIC and
      wire state carried from launch to launch across serving's waves
      and membership's epochs); the Fig-5/Fig-6 crossover; 32 chaos
-     campaigns of ``cuda`` against ``reference`` with no violation; then
-     the kernel table as one JSON line.
+     campaigns of ``cuda`` against ``reference`` with no violation;
+ 16. the planner and the CommPlan IR: the full grids of ``autotune`` and
+     ``ir_passes`` (24 records) on engine ``cuda`` against the baseline,
+     each with its wall time and the fabric kernel's launches, which
+     must be 0 (the reference's routing: one flow is scalar on every
+     engine, the IR's batches are narrow); the fault-free
+     ``ir_passes`` records (the others run on the NumPy faulty fabric)
+     with the adaptive cutoffs at 0, ``run_ir`` bitwise against engine
+     ``reference`` with the launches a record printed; and one
+     ``earlybird.auto_sync_config`` on llama3.2-1b at full width (its
+     leaves sized on the ``meta`` device) against the planner's choice
+     on the same payload; then the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -1170,11 +1181,12 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
                 (lambda: ops.bucket_unpack(flat, segs, out=outs), 10),
                 (lambda: torch.cat(flats), None),
                 (lambda: foreach(outs, views), None))]
-            print(f"profile pack/unpack {name} bucket, 10 calls each after"
-                  f" a dropped warm-up step: device ms per call pack kernel"
-                  f" {prof[0][0]!r}, unpack kernel {prof[1][0]!r},"
-                  f" torch.cat {prof[2][0]!r}, torch._foreach_copy_"
-                  f" {prof[3][0]!r}; the kernels' device events"
+            print(f"profile pack/unpack {name} bucket, 10 calls each"
+                  f" between 10 warm-up and 10 tail calls: device ms per"
+                  f" call pack kernel {prof[0][0]!r}, unpack kernel"
+                  f" {prof[1][0]!r}, torch.cat {prof[2][0]!r},"
+                  f" torch._foreach_copy_ {prof[3][0]!r}; the kernels'"
+                  f" device events"
                   f" {prof[0][3]} and {prof[1][3]}; HtoD memcpy events"
                   f" {prof[0][2]} and {prof[1][2]}")
             for (_, events, htod, names), what in zip(prof, ("pack",
@@ -1295,35 +1307,51 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
 
 def _device_profile(fn, n: int = 10, expect=None):
     """Device ms per call, device events and host-to-device copies of
-    ``n`` calls of ``fn`` under ``torch.profiler``, after a warm-up step
-    that the profiler traces and drops (a trace may lose the first events
-    after it starts).  Also the device events' names and counts.  A trace
-    can still lose events: where the caller knows how many device events
-    the ``n`` calls make (``expect``), a trace holding another count is
-    taken again, up to three traces, and the last one is returned (the
-    caller checks its count)."""
+    ``n`` calls of ``fn`` under ``torch.profiler``.  Also the device
+    events' names and counts.
+
+    One plain trace holds three groups of ``n`` calls -- a warm-up, the
+    measured calls in a ``record_function`` range, a tail -- each group
+    drained by a synchronise and 2 ms apart, and only the device events
+    that start inside the measured range count.  A trace may lose device
+    events near its start or its end: on the H100 a scheduled profile (a
+    traced warm-up step dropped, the active step read in
+    ``on_trace_ready``) lost some or all kernel events in 17 of 60
+    traces (chip run 3, PR 19) and a trace of the ``n`` calls alone lost
+    half of them in every try of one run (run 4); the groups around the
+    measured range absorb such losses.  Where the caller knows how many
+    device events the ``n`` calls make (``expect``), a trace holding
+    another count is taken again, up to three traces, and the last one is
+    returned (the caller checks its count)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = torch.autograd.DeviceType.CUDA
+    groups = ("warm-up", "measured", "tail")
     for _ in range(3):
         torch.cuda.synchronize()
-        traced = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: traced.append(
-                         p.key_averages())) as prof:
-            for _ in range(2):
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        evs = [(e.key, e.count, e.self_device_time_total / 1e3)
-               for e in traced[-1]
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if expect is None or sum(c for _, c, _ in evs) == expect:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for group in groups:
+                time.sleep(0.002)
+                with record_function(group):
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        span = next(e.time_range for e in events
+                    if e.name == "measured" and e.device_type != cuda)
+        evs = {}
+        for e in events:
+            if (e.device_type == cuda and e.name not in groups
+                    and span.start <= e.time_range.start <= span.end):
+                c, t = evs.get(e.name, (0, 0.0))
+                evs[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
+        if expect is None or sum(c for c, _ in evs.values()) == expect:
             break
-    return (sum(t for _, _, t in evs) / n, sum(c for _, c, _ in evs),
-            sum(c for k, c, _ in evs if "htod" in k.lower()),
-            [(k[:60], c) for k, c, _ in evs])
+    return (sum(t for _, t in evs.values()) / n,
+            sum(c for c, _ in evs.values()),
+            sum(c for k, (c, _) in evs.items() if "htod" in k.lower()),
+            [(k[:60], c) for k, (c, _) in evs.items()])
 
 
 def _flash_build_report(build, lib_path) -> None:
@@ -1394,6 +1422,37 @@ def _fields_equal(a, b, fields) -> bool:
                else getattr(a, f) == getattr(b, f) for f in fields)
 
 
+class _ScanCounter:
+    """While installed (a ``with`` block), counts the calls of the cuda
+    engine's fabric kernel wrapper; ``launched`` is the kernel's own
+    launch count on the card and the wrapper's calls on the CPU (where
+    the wrapper runs the plain version), and ``reset`` zeroes both."""
+
+    def __init__(self, on_card: bool):
+        from repro_torch.core import fabric_cuda
+        self.fc, self.on_card, self.calls = fabric_cuda, on_card, []
+
+    def __enter__(self):
+        real = self.real = self.fc.fabric_scan
+
+        def counted(ops):
+            self.calls.append(ops.n)
+            return real(ops)
+        self.fc.fabric_scan = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.fc.fabric_scan = self.real
+
+    def reset(self) -> None:
+        self.calls.clear()
+        self.fc.LAUNCHES["fabric_scan"] = 0
+
+    def launched(self) -> int:
+        return self.fc.LAUNCHES["fabric_scan"] if self.on_card \
+            else len(self.calls)
+
+
 def scenarios_phase(dev, baseline: dict) -> dict:
     """Phase 15: the paper's evaluation on the card.  (a) the full grids
     of the thirteen scenario specs on engine cuda against the baseline,
@@ -1404,39 +1463,25 @@ def scenarios_phase(dev, baseline: dict) -> dict:
     seconds and launches per spec."""
     import numpy as np
     from repro_torch.core import fabric as fb
-    from repro_torch.core import fabric_cuda as fc
     from repro_torch.core import simulator as sim
     from repro_torch.experiments import (SPECS, compare_to_baseline,
                                          contention_crossover, run_spec)
     from repro_torch.experiments import chaos
     from repro_torch.experiments import engine as exp_engine
 
-    on_card = dev.type == "cuda"
-    calls = []
-    real_scan = fc.fabric_scan
-
-    def counted(ops):
-        calls.append(ops.n)
-        return real_scan(ops)
-
-    def launched() -> int:  # the kernel's count on the card, calls here
-        return fc.LAUNCHES["fabric_scan"] if on_card else len(calls)
-
     out, results = {}, {}
-    fc.fabric_scan = counted
-    try:
+    with _ScanCounter(dev.type == "cuda") as scans:
         # (a) full grids, cold, under the default cutoffs
         for name, want in SCENARIO_LAUNCHES.items():
             exp_engine._CACHE.clear()
             sim.clear_merge_memo()
-            calls.clear()
-            fc.LAUNCHES["fabric_scan"] = 0
+            scans.reset()
             t0 = time.perf_counter()
             res = run_spec(SPECS[name], "full", engine="cuda", device=dev)
             wall = time.perf_counter() - t0
-            n = launched()
-            check(n == len(calls), f"{name}: {n} launches for"
-                  f" {len(calls)} kernel calls")
+            n = scans.launched()
+            check(n == len(scans.calls), f"{name}: {n} launches for"
+                  f" {len(scans.calls)} kernel calls")
             check(n == want, f"{name}: {n} fabric_scan launches, the"
                   f" reference's routing gives {want}")
             v = compare_to_baseline(baseline, {name: res})
@@ -1475,11 +1520,10 @@ def scenarios_phase(dev, baseline: dict) -> dict:
                 t0 = time.perf_counter()
                 try:
                     for p in points:
-                        calls.clear()
-                        fc.LAUNCHES["fabric_scan"] = 0
+                        scans.reset()
                         exp_engine.RUNNERS[spec.runner](p, engine="cuda",
                                                         device=dev)
-                        per_record.append(launched())
+                        per_record.append(scans.launched())
                         exp_engine.RUNNERS[spec.runner](
                             p, engine="reference", device=dev)
                 finally:
@@ -1499,8 +1543,6 @@ def scenarios_phase(dev, baseline: dict) -> dict:
                       f" wall {wall:.3f} s")
         finally:
             fb.SCALAR_BATCH_CUTOFF, fb.MIN_GROUP_PARALLELISM = cutoffs
-    finally:
-        fc.fabric_scan = real_scan
 
     # (c) the Fig-5/Fig-6 crossover
     cross = contention_crossover({"fig6_vci": results["fig6_vci"]})
@@ -1526,6 +1568,112 @@ def scenarios_phase(dev, baseline: dict) -> dict:
           f" {report['n_serving']} serving, policies"
           f" {report['by_policy']}), 0 violations, wall {wall:.3f} s")
     out["chaos_wall_s"] = wall
+    return out
+
+
+# Phase 16: the planner's specs.  Under the default cutoffs neither
+# reaches the fabric kernel (as the reference's routing reaches no
+# Pallas kernel there); the forced pass runs ir_passes' fault-free
+# records with the cutoffs at 0.
+PLANNER_SPECS = {"autotune": 18, "ir_passes": 6}
+
+
+def planner_phase(dev, baseline: dict) -> dict:
+    """Phase 16: the planner and the CommPlan IR on the card.  (a) the
+    full grids of ``autotune`` and ``ir_passes`` on engine cuda against
+    the baseline, 0 fabric kernel launches over each; (b) the fault-free
+    ``ir_passes`` records with the cutoffs at 0, ``run_ir`` on cuda
+    bitwise against engine reference, at least one launch a record; (c)
+    ``auto_sync_config`` on llama3.2-1b.  Returns walls and launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import earlybird, planner
+    from repro_torch.core import fabric as fb
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.bucketing import leaf_nbytes
+    from repro_torch.experiments import SPECS, compare_to_baseline, run_spec
+    from repro_torch.experiments import engine as exp_engine
+    from repro_torch.models import lm
+
+    out = {}
+    with _ScanCounter(dev.type == "cuda") as scans:
+        # (a) full grids, cold, under the default cutoffs
+        for name, n_records in PLANNER_SPECS.items():
+            exp_engine._CACHE.clear()
+            sim.clear_merge_memo()
+            scans.reset()
+            t0 = time.perf_counter()
+            res = run_spec(SPECS[name], "full", engine="cuda", device=dev)
+            wall = time.perf_counter() - t0
+            n = scans.launched()
+            check(len(res) == n_records, f"{name}: {len(res)} records")
+            check(n == len(scans.calls) == 0, f"{name}: {n} fabric_scan"
+                  f" launches ({len(scans.calls)} calls), the reference's"
+                  f" routing gives 0")
+            v = compare_to_baseline(baseline, {name: res})
+            check(not v, f"{name} baseline drift: " + "; ".join(v))
+            recs = baseline["specs"][name]["records"]
+            for key, m in res.items():
+                check(m["n_messages"] == recs[key]["n_messages"],
+                      f"{name}/{key}: n_messages {m['n_messages']}")
+                check(all(np.isfinite(x) for x in m.values()),
+                      f"{name}/{key}: not finite")
+                if name == "ir_passes":
+                    check(m["ir_us"] <= m["pointwise_us"],
+                          f"{name}/{key}: the guard let ir_us regress")
+            out[name] = {"records": len(res), "wall_s": wall, "launches": n}
+            print(f"planner {name} full (cuda): {len(res)} records, 0"
+                  f" baseline violations, n_messages exact, wall"
+                  f" {wall:.3f} s, fabric_scan launches {n}")
+
+        # (b) the fault-free IR records with the cutoffs at 0
+        spec = SPECS["ir_passes"]
+        points = [p for p in spec.points("full") if p["scenario"] != "faults"]
+        cutoffs = fb.SCALAR_BATCH_CUTOFF, fb.MIN_GROUP_PARALLELISM
+        fb.SCALAR_BATCH_CUTOFF = fb.MIN_GROUP_PARALLELISM = 0
+        per_record = []
+        t0 = time.perf_counter()
+        try:
+            for p in points:
+                scans.reset()
+                got = exp_engine.run_ir(p, engine="cuda", device=dev)
+                per_record.append(scans.launched())
+                check(per_record[-1] == len(scans.calls), f"forced"
+                      f" ir_passes: {per_record[-1]} launches for"
+                      f" {len(scans.calls)} calls")
+                want = exp_engine.run_ir(p, engine="reference", device=dev)
+                check(got == want, f"forced ir_passes/"
+                      f"{exp_engine.record_key(p)}: cuda {got} differs from"
+                      f" reference {want}")
+        finally:
+            fb.SCALAR_BATCH_CUTOFF, fb.MIN_GROUP_PARALLELISM = cutoffs
+        wall = time.perf_counter() - t0
+        check(min(per_record) >= 1, f"forced ir_passes: launches a record"
+              f" {per_record}")
+        out["ir_passes"]["forced_launches"] = per_record
+        print(f"planner ir_passes fault-free, cutoffs 0 (cuda vs"
+              f" reference): {len(points)} records bitwise on every metric,"
+              f" fabric_scan launches a record {per_record}, wall"
+              f" {wall:.3f} s")
+
+    # (c) the model-chosen sync config of llama3.2-1b
+    t0 = time.perf_counter()
+    model = lm.LM(get_config("llama3.2-1b"), device="meta")
+    sync = earlybird.auto_sync_config(model)
+    wall = time.perf_counter() - t0
+    total = float(sum(leaf_nbytes(p) for p in model.parameters()))
+    choice = planner.choose_plan(planner.gradient_desc(total))
+    mode = {"pt2pt_single": "bulk", "pt2pt_many": "per_leaf",
+            "part": "partitioned"}[choice.approach]
+    check((sync.mode, sync.n_channels) == (mode, choice.n_vcis),
+          f"auto_sync_config {sync} against the planner's {choice}")
+    out["auto_sync"] = {"mode": sync.mode, "aggr_bytes": sync.aggr_bytes,
+                        "n_channels": sync.n_channels, "wall_s": wall}
+    print(f"auto_sync_config llama3.2-1b ({total:.0f} gradient bytes):"
+          f" mode {sync.mode}, aggr_bytes {sync.aggr_bytes}, n_channels"
+          f" {sync.n_channels} (planner: {choice.approach} theta"
+          f" {choice.theta}, predicted {choice.predicted_us:.2f} us),"
+          f" wall {wall:.3f} s")
     return out
 
 
@@ -1775,6 +1923,11 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     t0 = time.perf_counter()
     scenarios_phase(dev, baseline)
     print(f"phase 15 wall {time.perf_counter() - t0:.3f} s")
+
+    # 16. the planner and the CommPlan IR -----------------------------------
+    t0 = time.perf_counter()
+    planner_phase(dev, baseline)
+    print(f"phase 16 wall {time.perf_counter() - t0:.3f} s")
     return {"kernels": [fabric, *flash, *train_kernels]}
 
 

@@ -77,14 +77,26 @@ def leaf_nbytes(leaf: Any) -> int:
 def make_plan(leaves: Sequence[Any], aggr_bytes,
               n_channels: int = 1) -> BucketPlan:
     """Aggregate leaves (or shape/dtype carriers) into buckets via
-    CommPlan.  ``aggr_bytes="auto"`` needs the model-driven planner,
-    which is not ported yet."""
-    if aggr_bytes == "auto" or n_channels == "auto":
-        raise NotImplementedError(
-            "aggr_bytes/n_channels='auto' needs the planner (ROADMAP queue"
-            " 1, item 5)")
+    CommPlan.
+
+    ``aggr_bytes="auto"`` asks the :mod:`repro_torch.core.planner`
+    autotuner to pick the aggregation bound (and, with
+    ``n_channels="auto"``, the channel count) from the closed-form model
+    on the reference's TPU-targeted :class:`~repro_torch.core.fabric
+    .NetConfig` (``planner.TPU_NET``), so the plan equals the JAX
+    package's — the self-configuring analogue of tuning
+    ``MPIR_CVAR_PART_AGGR_SIZE`` per workload.
+    """
     counts = [leaf_count(leaf) for leaf in leaves]
     nbytes = [leaf_nbytes(leaf) for leaf in leaves]
+    if aggr_bytes == "auto" or n_channels == "auto":
+        from . import planner
+        desc = planner.gradient_desc(float(sum(nbytes)))
+        choice = planner.choose_plan(desc, approaches=("part",))
+        if aggr_bytes == "auto":
+            aggr_bytes = int(choice.aggr_bytes)
+        if n_channels == "auto":
+            n_channels = choice.n_vcis
     plan = commplan.plan_sized(nbytes, aggr_bytes=aggr_bytes,
                                n_channels=n_channels)
     buckets = tuple(

@@ -9,16 +9,16 @@ This module owns that mechanism once; everything else consumes it:
 
   * ``partition.PartitionedRequest``  -> :func:`plan_uniform`
     (gcd sender/receiver agreement, grouped aggregation);
-  * heterogeneous item sizes          -> :func:`plan_sized`
-    (greedy aggregation);
+  * ``bucketing.make_plan``           -> :func:`plan_sized`
+    (heterogeneous leaves, greedy aggregation);
   * channel streams                   -> :func:`channel_slices`
-    (round-robin row -> channel interleaving).
+    (round-robin row -> channel interleaving);
+  * the planner's choice              -> :func:`plan_auto`.
 
 Plans are immutable and carry a precomputed item -> message index, so
 ``message_of_item`` is O(1) however many partitions the request has.
 
-The PyTorch port's own copy of the JAX package's plan layer, without
-the model-driven ``plan_auto`` (it needs the planner, not yet ported).
+The PyTorch port's own copy of the JAX package's plan layer.
 """
 
 from __future__ import annotations
@@ -206,3 +206,74 @@ def plan_sized(sizes: Sequence[float], *, aggr_bytes: float = 0.0,
     return CommPlan(tuple(messages), len(sizes))
 
 
+def plan_auto(total_bytes: float = None, *, sizes: Sequence[float] = None,
+              n_threads: int = 1, workload=None, cfg=None,
+              max_parts: int = 512, max_vcis: int = 32, faults=None,
+              policy=None, pipeline=None):
+    """Model-chosen plan: the :mod:`repro_torch.core.planner` autotuner picks
+    the partition count, aggregation bound and channel count from the
+    closed-form performance model, then the matching planner builds the
+    plan.
+
+    Two forms, mirroring the two planners above:
+
+    * ``plan_auto(total_bytes, n_threads=...)`` — uniform partitions:
+      the chosen ``theta`` fixes ``n_threads * theta`` partitions,
+      planned by :func:`plan_uniform`;
+    * ``plan_auto(sizes=[...])`` — heterogeneous items (gradient
+      leaves): item sizes are given, only the aggregation bound and
+      channel count are chosen, planned by :func:`plan_sized`.
+
+    ``workload`` (a :class:`~repro_torch.core.perfmodel.Workload`) describes
+    the compute profile whose ramp the plan should overlap; ``cfg`` a
+    :class:`~repro_torch.core.fabric.NetConfig` (defaults to the MeluXina-like
+    calibration).  ``faults`` (a :class:`~repro_torch.core.faults.FaultSpec`)
+    makes the model charge each candidate its expected retransmission
+    cost, shifting the pick away from heavily aggregated plans when the
+    fabric drops partitions; ``policy`` (a :class:`~repro_torch.core.recovery
+    .RecoveryPolicy`) prices that term under the matching recovery
+    clock instead of the fixed timeout.  Returns ``(plan, choice)`` — the immutable
+    :class:`CommPlan` plus the :class:`~repro_torch.core.planner.PlanChoice`
+    with the model's predicted time and term breakdown.
+
+    ``pipeline`` (a :class:`~repro_torch.core.plan_ir.PassPipeline`) runs the
+    model's pointwise pick through the IR optimization passes and
+    returns the rewritten plan — the pipeline's measured guard keeps a
+    rewrite only when the simulated flow time does not increase, so the
+    returned plan is never worse than the pointwise one.  Uniform form
+    only: the heterogeneous ``sizes`` form has no single partition size
+    for the IR's flow op to carry.
+    """
+    from . import planner  # deferred: planner imports this module
+    if (total_bytes is None) == (sizes is None):
+        raise ValueError("pass exactly one of total_bytes or sizes")
+    if pipeline is not None and sizes is not None:
+        raise ValueError("pipeline= applies to the uniform form only;"
+                         " heterogeneous sizes have no single part_bytes"
+                         " for the IR flow op")
+    if sizes is not None:
+        total_bytes = float(sum(sizes))
+    if policy is not None:
+        from .recovery import make_policy
+        policy = make_policy(policy)  # accept names as well as instances
+    kw = {} if cfg is None else {"cfg": cfg}
+    desc = planner.ScenarioDesc(total_bytes=float(total_bytes),
+                                n_threads=n_threads, workload=workload,
+                                max_parts=max_parts, max_vcis=max_vcis,
+                                faults=faults, policy=policy, **kw)
+    choice = planner.choose_plan(desc, approaches=("part",))
+    if sizes is not None:
+        plan = plan_sized(sizes, aggr_bytes=choice.aggr_bytes,
+                          n_channels=choice.n_vcis)
+    else:
+        n_part = n_threads * choice.theta
+        plan = plan_uniform(n_part, n_part, total_bytes / n_part,
+                            aggr_bytes=choice.aggr_bytes,
+                            n_channels=choice.n_vcis)
+        if pipeline is not None:
+            from . import plan_ir  # deferred: plan_ir imports this module
+            plan = plan_ir.optimize_plan(
+                plan, pipeline, n_threads=n_threads,
+                part_bytes=total_bytes / n_part, n_vcis=choice.n_vcis,
+                aggr_bytes=choice.aggr_bytes, cfg=cfg, faults=faults)
+    return plan, choice

@@ -25,9 +25,8 @@ Three modes mirror the paper's §2.3 taxonomy:
 The data-parallel axes of the JAX package become a ``torch.distributed``
 process group; its ``pmean`` becomes ``all_reduce(SUM)`` followed by a
 division by the group's size.  Leaves follow the JAX package's order
-(``models.lm.param_leaves``), so the bucket plans are the same.
-The planner-chosen ``auto_sync_config`` waits for the planner (ROADMAP
-queue 1, item 5).
+(``models.lm.param_leaves``), so the bucket plans are the same, and
+:func:`auto_sync_config` lets the planner choose the mode.
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.lm import param_leaves
-from .bucketing import bucketed_apply
+from .bucketing import bucketed_apply, leaf_nbytes
 
 
 @dataclass(frozen=True)
@@ -88,6 +87,47 @@ def _bucketed_pmean(leaves, sync: SyncConfig, log: SyncLog, tag: str,
     return bucketed_apply(
         leaves, lambda flat, bucket: _pmean_(flat, sync, log, tag),
         aggr_bytes=aggr, n_channels=sync.n_channels)
+
+
+def auto_sync_config(params, *, group: Optional[object] = None,
+                     comm_dtype: Optional[str] = None,
+                     tokens_per_step: float = 4096.0,
+                     max_channels: int = 8,
+                     workload=None, cfg=None) -> SyncConfig:
+    """Model-chosen gradient-sync configuration (the autotuned analogue
+    of hand-picking ``SyncConfig`` constants).
+
+    Sizes the gradient payload from ``params`` (an ``nn.Module``, whose
+    leaves are taken in the order of ``models.lm.param_leaves``, or a
+    list of leaves: tensors, segment lists or shape/dtype carriers),
+    describes the backward pass as a
+    :func:`repro_torch.core.planner.training_workload` ramp
+    (``tokens_per_step`` sets how much compute hides each gradient
+    byte), and lets the planner search the (approach, aggregation,
+    channels) space on the reference's TPU-targeted NetConfig
+    (``planner.TPU_NET``, so the choice equals the JAX package's).  The
+    chosen approach maps onto the paper's §2.3 taxonomy exactly as the
+    modes do: ``pt2pt_single -> bulk``, ``pt2pt_many -> per_leaf``,
+    ``part -> partitioned`` with the chosen bucket bound and channel
+    count.
+    """
+    from . import planner
+
+    if hasattr(params, "named_parameters"):
+        params = [segs for _, segs in param_leaves(params.named_parameters())]
+    total = float(sum(leaf_nbytes(x) for x in params))
+    if workload is None:
+        workload = planner.training_workload(2.0 * tokens_per_step)
+    kw = {} if cfg is None else {"cfg": cfg}
+    desc = planner.gradient_desc(total, workload=workload,
+                                 max_channels=max_channels, **kw)
+    choice = planner.choose_plan(desc)
+    mode = {"pt2pt_single": "bulk", "pt2pt_many": "per_leaf",
+            "part": "partitioned"}[choice.approach]
+    aggr = int(choice.aggr_bytes) if mode == "partitioned" else \
+        SyncConfig.aggr_bytes
+    return SyncConfig(mode=mode, group=group, aggr_bytes=aggr,
+                      comm_dtype=comm_dtype, n_channels=choice.n_vcis)
 
 
 class LayerHook:

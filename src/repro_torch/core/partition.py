@@ -6,8 +6,8 @@ counts, sizes, aggregation and channel mapping once; the request then
 holds the agreed wire plan for reuse across iterations.  All planning
 logic (gcd sender/receiver agreement, aggregation upper bound, round-robin
 channel assignment) lives in :mod:`repro_torch.core.commplan`; this is a
-thin consumer kept for the simulator and for MPI-flavoured naming.  The
-self-configuring ``auto`` constructor waits for the planner's port.
+thin consumer kept for the simulator and for MPI-flavoured naming;
+:meth:`PartitionedRequest.auto` lets the planner pick the plan.
 """
 
 from __future__ import annotations
@@ -43,6 +43,31 @@ class PartitionedRequest:
             self.n_send_parts, self.n_recv_parts, self.part_bytes,
             aggr_bytes=self.aggr_bytes, n_channels=self.n_channels)
         self.messages = list(self.plan.messages)
+        self.choice = None  # set by :meth:`auto`
+
+    @classmethod
+    def auto(cls, total_bytes: float, n_threads: int = 1, *,
+             workload=None, cfg=None, max_parts: int = 512,
+             max_vcis: int = 32) -> "PartitionedRequest":
+        """Self-configuring ``MPI_Psend_init``: the
+        :mod:`repro_torch.core.planner` autotuner picks the partition count,
+        aggregation bound and channel count from the closed-form model
+        (restricted to the partitioned approach), given the payload and
+        the compute profile (``workload``).  The model's
+        :class:`~repro_torch.core.planner.PlanChoice` is kept on ``.choice``.
+        """
+        from . import planner  # deferred: planner imports commplan
+        kw = {} if cfg is None else {"cfg": cfg}
+        desc = planner.ScenarioDesc(total_bytes=float(total_bytes),
+                                    n_threads=n_threads, workload=workload,
+                                    max_parts=max_parts, max_vcis=max_vcis,
+                                    **kw)
+        choice = planner.choose_plan(desc, approaches=("part",))
+        n_part = n_threads * choice.theta
+        req = cls(n_part, n_part, total_bytes / n_part,
+                  aggr_bytes=choice.aggr_bytes, n_channels=choice.n_vcis)
+        req.choice = choice
+        return req
 
     @property
     def n_messages(self) -> int:

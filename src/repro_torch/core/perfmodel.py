@@ -11,9 +11,9 @@ Implements the closed-form model of Gillis et al., ICPP'23, §2.2 + Appendix A:
   eq (8)  D = gamma_theta * S_part
   eq (9)  gamma_theta = mu * (theta + (eps + delta)/2 * (sqrt(theta) + 1) - 1)
 
-The port's copy of the JAX package's ``core/perfmodel.py``, without
-the reference's TPU hardware constants (planner inputs, not this
-package's numbers).
+The port's copy of the JAX package's ``core/perfmodel.py``, with the
+reference's TPU hardware constants kept as the planner's model inputs
+(they describe a TPU slice, not the card this package runs on).
 
 Unit conventions (chosen so the paper's own numeric examples reproduce
 exactly):
@@ -164,6 +164,15 @@ WORKLOADS = {"fft": FFT, "stencil": STENCIL}
 MELUXINA_BETA = 25e9          # 200 Gb/s HDR IB, as used in the paper's figures
 MELUXINA_LATENCY = 1.22e-6    # paper footnote 1
 STENCIL_EXAMPLE_BETA = 50e9   # the beta implied by the paper's stencil etas
+
+# The reference's model inputs for a TPU v5e slice, unchanged: the
+# planner's TPU_NET and training_workload are built from them, so the
+# port's plans equal the reference's.  They describe no property of the
+# GPU this package runs on.
+TPU_ICI_BETA = 50e9           # ~50 GB/s per ICI link
+TPU_HBM_BETA = 819e9
+TPU_PEAK_FLOPS = 197e12       # bf16
+TPU_DCN_BETA = 25e9           # cross-pod (pod axis) — conservative
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ chaos campaigns.
             metrics, baseline comparison
   specs   — the registry: Figs 4-8, ``halo1d``, ``steady_state``, the
             stencil and weak-scaling tiers, ``imbalance``, ``serving``,
-            ``faults``, ``membership``, ``serving_faults`` and
-            ``recovery``; and the Fig-5/Fig-6 ``contention_crossover``
+            ``autotune``, ``faults``, ``membership``, ``serving_faults``,
+            ``ir_passes`` and ``recovery``; and the Fig-5/Fig-6
+            ``contention_crossover``
   chaos   — seeded fault campaigns checked against hard invariants
 
 ``python -m repro_torch.sweep`` is the command line.

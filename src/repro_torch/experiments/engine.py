@@ -4,8 +4,9 @@
 The port's counterpart of the JAX package's ``experiments/engine.py``.
 A :class:`SweepSpec` names a runner (one of the simulator's scenario
 drivers: ``oneshot`` for Figs 4-8, ``steady``, ``halo``, ``stencil``,
-``imbalance``, ``serving``, ``faulty``, ``membership``,
-``servingfaults`` and ``recovery``), a parameter grid (cartesian
+``imbalance``, ``serving``, ``autotune`` (the planner's closed loop),
+``faulty``, ``membership``, ``servingfaults``, ``ir`` (the CommPlan IR's
+pass pipeline) and ``recovery``), a parameter grid (cartesian
 product over approach x dims x ...), and an optional reduced ``smoke``
 grid.  The engine expands grids deterministically, deduplicates points
 by a canonical record key, runs stencil grids through the whole-grid
@@ -25,9 +26,13 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+from ..core import commplan as cp
 from ..core import faults as flt
 from ..core import perfmodel as pm
+from ..core import plan_ir as pir
+from ..core import planner as pl
 from ..core import simulator as sim
+from ..core import topology as tp
 
 BASELINE_VERSION = 1
 
@@ -301,6 +306,136 @@ def run_servingfaults(params: Mapping[str, Any],
             "n_messages": float(fr.n_messages)}
 
 
+def autotune_desc(params: Mapping[str, Any]) -> pl.ScenarioDesc:
+    """A sweep point's scenario description for the planner.
+
+    ``workload`` is a :data:`repro_torch.core.perfmodel.WORKLOADS` name or
+    ``"none"`` (no compute ramp, nothing to overlap).
+    """
+    name = params.get("workload", "none")
+    workload = None if name == "none" else pm.WORKLOADS[name]
+    return pl.ScenarioDesc(total_bytes=float(params["total_bytes"]),
+                           n_threads=params.get("n_threads", 1),
+                           workload=workload,
+                           max_parts=params.get("max_parts", 512),
+                           max_vcis=params.get("max_vcis", 32))
+
+
+def run_autotune(params: Mapping[str, Any],
+                 engine: str = DEFAULT_ENGINE, device="cuda"
+                 ) -> Dict[str, float]:
+    """The closed loop: the model picks a plan, the simulator grades it.
+
+    Simulates the model's pick *and* every candidate of the search grid
+    and records the regret (auto / grid-best simulated time) plus the
+    chosen parameters — so the committed baseline pins both the model's
+    decisions and how good they are.  Everything is deterministic and
+    engine-independent (the fabrics are bit-for-bit identical).
+    """
+    ev = pl.evaluate_grid(autotune_desc(params), engine=engine,
+                          device=device)
+    ch = ev.choice
+    return {"auto_time_us": ev.auto_time_s / sim.US,
+            "best_time_us": ev.best_time_s / sim.US,
+            "regret": ev.regret,
+            "predicted_us": ch.predicted_us,
+            "chosen_approach_idx": float(
+                pl.PLANNER_APPROACHES.index(ch.approach)),
+            "chosen_theta": float(ch.theta),
+            "chosen_aggr_bytes": float(ch.aggr_bytes),
+            "chosen_n_vcis": float(ch.n_vcis),
+            "n_candidates": float(ev.n_candidates),
+            "n_messages": float(ev.auto_messages)}
+
+
+def _ir_module(params: Mapping[str, Any], faults):
+    """Raise one ``ir_passes`` scenario with its *pointwise* plans: every
+    flow class planned by ``plan_auto`` in isolation — the exact baseline
+    the pass pipeline must beat (or match)."""
+    scenario = params["scenario"]
+    n_vcis = int(params.get("n_vcis", 2))
+    if scenario == "stencil3d":
+        dims = tuple(params.get("dims", (2, 2, 2)))
+        local_shape = tuple(params.get("local_shape", (16, 16, 16)))
+        topo = tp.CartTopology.create(dims, True)
+        halo = tp.HaloSpec.create(topo, local_shape,
+                                  params.get("bytes_per_cell", 8.0), 1)
+        dim_plans = {}
+        for d, b in enumerate(halo.all_face_bytes()):
+            _, ch = cp.plan_auto(float(b), n_threads=1, max_vcis=n_vcis,
+                                 faults=faults)
+            dim_plans[d] = (ch.theta, ch.aggr_bytes, ch.n_vcis)
+        return pir.raise_stencil(
+            "part", dims=dims, local_shape=local_shape,
+            bytes_per_cell=params.get("bytes_per_cell", 8.0),
+            theta=1, n_vcis=n_vcis, dim_plans=dim_plans)
+    if scenario == "faults":
+        dims = tuple(params.get("dims", (4, 4)))
+        fb = float(params.get("face_bytes", 131072.0))
+        dim_plans = {}
+        for d in range(len(dims)):
+            _, ch = cp.plan_auto(fb, n_threads=1, max_vcis=n_vcis,
+                                 faults=faults)
+            dim_plans[d] = (ch.theta, ch.aggr_bytes, ch.n_vcis)
+        return pir.raise_stencil(
+            "part", dims=dims, face_bytes=[fb] * len(dims), theta=1,
+            n_vcis=n_vcis, dim_plans=dim_plans)
+    if scenario == "serving":
+        theta = int(params.get("theta", 8))
+        part_bytes = float(params.get("part_bytes", 131072.0))
+        _, ch = cp.plan_auto(theta * part_bytes, n_threads=1,
+                             max_vcis=n_vcis, faults=faults)
+        return pir.raise_serving_wave(
+            "part", arrival=params.get("arrival", "bursty"),
+            rate_rps=params.get("rate_rps", 14000.0),
+            n_requests=params.get("n_requests", 96),
+            n_tenants=params.get("n_tenants", 4),
+            skew=params.get("skew", 1.0),
+            n_stages=params.get("n_stages", 4), theta=theta,
+            part_bytes=part_bytes, n_vcis=n_vcis,
+            compute_us=params.get("compute_us", 40.0),
+            seed=params.get("seed", 3),
+            plan_spec=(ch.theta, ch.aggr_bytes, ch.n_vcis))
+    raise ValueError(f"unknown ir scenario {scenario!r}")
+
+
+def run_ir(params: Mapping[str, Any],
+           engine: str = DEFAULT_ENGINE, device="cuda"
+           ) -> Dict[str, float]:
+    """IR pass pipeline vs pointwise ``plan_auto`` on a multi-flow
+    scenario — the closed loop for the cross-flow optimizer.
+
+    The scenario is raised into :mod:`repro_torch.core.plan_ir` with every
+    flow class planned by ``plan_auto`` in isolation (the pointwise
+    baseline), then the default guarded pass pipeline rewrites it and
+    both modules run on the same fabric engine.  The pipeline's
+    measured guard makes ``ir_us <= pointwise_us`` hold by
+    construction — a record where it doesn't is a pipeline bug, which
+    is exactly why the ratio is pinned in the golden baseline.
+    ``fault_rate > 0`` prices and runs both modules on the lossy fabric
+    (retransmission traffic included).
+    """
+    dev = sim.resolve_device(device)
+    faults = None
+    if params["scenario"] == "faults" \
+            and params.get("fault_rate", 0.0) > 0.0:
+        faults = _fault_spec(params)
+    mod = _ir_module(params, faults)
+    base = pir.execute(mod, engine=engine, device=dev, faults=faults)
+    pipe = pir.default_pipeline(engine=engine, device=dev)
+    opt = pipe.run(mod, faults=faults)
+    res = pir.execute(opt, engine=engine, device=dev, faults=faults)
+    return {"pointwise_us": base.tts_s / sim.US,
+            "ir_us": res.tts_s / sim.US,
+            "ir_gain": base.tts_s / res.tts_s,
+            "n_flows": float(base.n_flows),
+            "n_wire_pointwise": float(base.n_wire),
+            "n_wire_ir": float(res.n_wire),
+            "n_passes_applied": float(len(pipe.applied)),
+            "n_retransmits": float(res.n_retransmits),
+            "n_messages": float(res.n_messages)}
+
+
 # The recovery spec's scenario table: per (scenario, level) the
 # parameters that differ, over shared bases below.  Levels are fault /
 # load intensities; the *timeouts are deliberately mistuned* (above the
@@ -445,9 +580,11 @@ RUNNERS = {
     "stencil": run_stencil,
     "imbalance": run_imbalance,
     "serving": run_serving,
+    "autotune": run_autotune,
     "faulty": run_faulty,
     "membership": run_membership,
     "servingfaults": run_servingfaults,
+    "ir": run_ir,
     "recovery": run_recovery,
 }
 
@@ -459,9 +596,11 @@ PRIMARY_METRIC = {
     "stencil": "time_us",
     "imbalance": "time_us",
     "serving": "p99_us",
+    "autotune": "auto_time_us",
     "faulty": "tts_us",
     "membership": "tts_us",
     "servingfaults": "p99_us",
+    "ir": "ir_us",
     "recovery": "adaptive_tts_us",
 }
 

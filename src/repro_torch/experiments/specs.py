@@ -1,11 +1,11 @@
 """The sweep-spec registry: Figs 4-8, the 1-D halo, steady state, the
-stencil and weak-scaling tiers, load imbalance, serving, faults,
-membership and recovery, each a declarative grid.
+stencil and weak-scaling tiers, load imbalance, serving, the planner's
+closed loop (``autotune``), faults, membership, serving under faults,
+the CommPlan IR's passes (``ir_passes``) and recovery, each a
+declarative grid.
 
-Copies of the JAX package's specs of the same names, so their records
-carry the same keys as the committed golden baseline
-(``BENCH_scenarios.json``); the planner's ``autotune`` and
-``ir_passes`` wait for the port's planner (ROADMAP queue 1, item 5).
+Copies of the JAX package's nineteen specs, so their records carry the
+same keys as the committed golden baseline (``BENCH_scenarios.json``).
 Every spec's ``smoke`` grid is a subset of its full grid.
 ``gain_vs_pt2pt_single < 1`` means slower than the bulk baseline,
 ``> 1`` means the scenario's pipelining wins.
@@ -188,6 +188,23 @@ SERVING = SweepSpec(
 )
 
 
+AUTOTUNE = SweepSpec(
+    name="autotune",
+    runner="autotune",
+    grid={"total_bytes": (1 << 20, 16 << 20),
+          "n_threads": (1, 4, 16),
+          "workload": ("none", "fft", "stencil")},
+    fixed={"max_vcis": 32},
+    smoke={"total_bytes": (1 << 20,),
+           "n_threads": (1, 4, 16),
+           "workload": ("none", "fft", "stencil")},
+    tolerances={"chosen_approach_idx": 0.0, "chosen_theta": 0.0,
+                "chosen_aggr_bytes": 0.0, "chosen_n_vcis": 0.0,
+                "n_candidates": 0.0},
+    note="closed-loop autotuner: model-chosen plan vs simulated"
+         " grid-best, regret per scenario",
+)
+
 FAULTS = SweepSpec(
     name="faults",
     runner="faulty",
@@ -240,6 +257,27 @@ SERVING_FAULTS = SweepSpec(
 )
 
 
+IR_PASSES = SweepSpec(
+    name="ir_passes",
+    runner="ir",
+    grid={"scenario": ("stencil3d", "serving", "faults"),
+          "n_vcis": (2, 4)},
+    fixed={"theta": 8, "part_bytes": 131072, "arrival": "bursty",
+           "rate_rps": 14000, "n_requests": 96, "n_tenants": 4,
+           "n_stages": 4, "compute_us": 40.0, "seed": 3,
+           "fault_rate": 0.02, "timeout_us": 50.0, "fault_seed": 3},
+    smoke={"scenario": ("stencil3d", "serving", "faults"),
+           "n_vcis": (2,)},
+    tolerances={"n_flows": 0.0, "n_wire_pointwise": 0.0,
+                "n_wire_ir": 0.0, "n_passes_applied": 0.0,
+                "n_retransmits": 0.0},
+    note="IR pass pipeline vs pointwise plan_auto on multi-flow"
+         " scenarios: fuse-faces + global-channels win on the"
+         " strong-scaling stencil, merge-small-flows collapses the"
+         " lossy fabric's timeout exposure; the measured guard pins"
+         " ir_us <= pointwise_us on every record",
+)
+
 RECOVERY = SweepSpec(
     name="recovery",
     runner="recovery",
@@ -263,8 +301,9 @@ RECOVERY = SweepSpec(
 SPECS: Dict[str, SweepSpec] = {
     s.name: s for s in (FIG4, FIG5, FIG6, FIG7, FIG8, STEADY, HALO1D,
                         STENCIL3D, WEAK_SCALING, WEAK_SCALING_XL,
-                        WEAK_SCALING_XXL, IMBALANCE, SERVING, FAULTS,
-                        MEMBERSHIP, SERVING_FAULTS, RECOVERY)
+                        WEAK_SCALING_XXL, IMBALANCE, SERVING, AUTOTUNE,
+                        FAULTS, MEMBERSHIP, SERVING_FAULTS, IR_PASSES,
+                        RECOVERY)
 }
 
 

@@ -98,8 +98,19 @@ def test_full_width_multi_leaf_buckets(full_width):
 
 
 def test_auto_needs_the_planner():
-    with pytest.raises(NotImplementedError, match="planner"):
-        pb.make_plan([torch.ones(3)], "auto")
+    """``"auto"`` is the planner's choice on the gradient scenario, and
+    the same plan as the JAX package's."""
+    from repro_torch.core import planner
+    leaves = [torch.ones(3), torch.ones(1000, 7), torch.ones(5)]
+    choice = planner.choose_plan(planner.gradient_desc(
+        float(sum(pb.leaf_nbytes(x) for x in leaves))), approaches=("part",))
+    got = pb.make_plan(leaves, "auto", "auto")
+    assert _fields(got) == _fields(pb.make_plan(
+        leaves, int(choice.aggr_bytes), choice.n_vcis))
+    want = jb.make_plan([np.ones(3, np.float32), np.ones((1000, 7),
+                                                         np.float32),
+                         np.ones(5, np.float32)], "auto", "auto")
+    assert _fields(got) == _fields(want)
 
 
 def _mixed(seed=0):

@@ -44,6 +44,18 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(MODULES) >= 12
 
 
+def test_planner_and_ir_sources_are_covered():
+    """The planner slice's sources are among the modules imported above
+    and the files scanned below."""
+    for name in ("repro_torch.core.planner", "repro_torch.core.plan_ir",
+                 "repro_torch.autotune"):
+        assert name in MODULES, name
+        path = REPO / "src" / (name.replace(".", "/") + ".py")
+        assert path.is_file() and not [
+            m for m in _imported_names(path)
+            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
 def _imported_names(path):
     """Every module an ``import`` statement anywhere in ``path`` names,
     function-local imports included."""

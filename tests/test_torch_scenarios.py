@@ -360,7 +360,10 @@ def test_perfmodel_constants_and_paper_examples():
             ppm.STENCIL_EXAMPLE_BETA) == (rpm.MELUXINA_BETA,
                                           rpm.MELUXINA_LATENCY,
                                           rpm.STENCIL_EXAMPLE_BETA)
-    assert not hasattr(ppm, "TPU_ICI_BETA")
+    # the reference's TPU model inputs, which the port's planner needs
+    for name in ("TPU_ICI_BETA", "TPU_HBM_BETA", "TPU_PEAK_FLOPS",
+                 "TPU_DCN_BETA"):
+        assert getattr(ppm, name) == getattr(rpm, name), name
     assert ppm.FFT.gamma(8) == pytest.approx(1263.67, abs=0.5)
     assert ppm.STENCIL.eta(8, 1, ppm.STENCIL_EXAMPLE_BETA) == \
         pytest.approx(1.1060, abs=2e-4)

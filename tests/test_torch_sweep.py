@@ -75,13 +75,16 @@ def test_cli_checks_baseline(capsys):
 
 
 def test_specs_cover_197_golden_records():
-    """17 specs whose full grids come to 197 records, every key in the
-    golden baseline — from expansion alone, no stencil tier is run."""
-    assert len(SPECS) == 17
-    assert set(SPECS) == set(REF_SPECS) - {"autotune", "ir_passes"}
+    """All 19 of the reference's specs, in its order, whose full grids
+    come to all 221 records of the golden baseline (the 197 of the
+    scenario and stencil specs, and the planner's autotune and
+    ir_passes) — from expansion alone, no stencil tier is run."""
+    assert len(SPECS) == 19
+    assert list(SPECS) == list(REF_SPECS)
     keys = {(name, pengine.record_key(p))
             for name, spec in SPECS.items() for p in spec.points("full")}
-    assert len(keys) == 197
+    assert len(keys) == 221
+    assert sum(len(s["records"]) for s in BASELINE["specs"].values()) == 221
     for name, key in keys:
         assert key in BASELINE["specs"][name]["records"], (name, key)
     for name, spec in SPECS.items():
@@ -102,10 +105,13 @@ def test_parse_key_inverts_record_key():
 def test_cli_lists_specs(capsys):
     assert sweep.main(["--list"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert len(out) == 17
+    assert len(out) == 19
     assert out[0].split()[:3] == ["fig4_latency", "oneshot", "20"]
     assert any(line.split()[:3] == ["serving_faults", "servingfaults", "4"]
                for line in out)
+    assert any(line.split()[:3] == ["autotune", "autotune", "18"]
+               for line in out)
+    assert any(line.split()[:3] == ["ir_passes", "ir", "6"] for line in out)
 
 
 def test_cli_writes_results_and_prints_crossover(capsys, tmp_path):
