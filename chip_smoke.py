@@ -5,9 +5,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
 drives the port's paths on the card -- the stencil simulator, model
-serving, training, the paper's scenarios and the planner -- phase by
-phase; every phase prints one line and any failure exits non-zero
-without a result:
+serving, training, the paper's scenarios, the planner and the serving
+of the MLA, Mamba-2, MoE and hybrid families -- phase by phase; every
+phase prints one line and any failure exits non-zero without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
      every kernel source, one ``nvcc`` each, started together, with
@@ -108,7 +108,20 @@ without a result:
      ``reference`` with the launches a record printed; and one
      ``earlybird.auto_sync_config`` on llama3.2-1b at full width (its
      leaves sized on the ``meta`` device) against the planner's choice
-     on the same payload; then the kernel table as one JSON line.
+     on the same payload;
+ 17. the MLA, Mamba-2, MoE and hybrid families on the serving path:
+     for minicpm3-4b, mamba2-780m, granite-moe-3b-a800m, hymba-1.5b and
+     moonshot-v1-16b-a3b (its depth cut to ``MOONSHOT_LAYERS``), the
+     smoke config on the card against the CPU (f32 logits of a prefill
+     and 3 decode steps within 2e-5), then at full width the f32
+     prefill/decode check (MoE without capacity drops) and, in bf16, 4
+     prompts of 1024 tokens and 32 greedy decode steps with the flash
+     launches of that run (one per layer for the GQA prefills of
+     granite-moe, hymba and moonshot; none for MLA and Mamba), prefill
+     and decode times, peak memory and the top device ops of one
+     prefill and of 4 decode steps; then the flash kernel against its
+     plain version and timed at those three prefill shapes; then the
+     kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -128,6 +141,12 @@ f32 elements (and quantize of bf16): launches a call, the event window,
 host enqueue and profiler device time a call, and the kernels' output on
 a block holding a NaN and one holding ``+inf`` (the scales, and the int8
 and dequantized values at the non-finite elements), as one JSON line.
+
+    python3 chip_smoke.py --families [TREE]
+
+runs phase 17 alone on the model code of ``TREE`` and prints, as one
+JSON line, each family's prefill and decode ms and peak memory: the way
+to hold two versions of the model code against each other in one call.
 """
 
 from __future__ import annotations
@@ -1677,6 +1696,214 @@ def planner_phase(dev, baseline: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the MLA, Mamba-2, MoE and hybrid families on the serving path
+# ---------------------------------------------------------------------------
+
+# In the order they run; the flash kernel launches once per layer in a
+# GQA prefill (granite-moe, hymba, moonshot), never for MLA and Mamba.
+FAMILY_ARCHS = ("minicpm3-4b", "mamba2-780m", "granite-moe-3b-a800m",
+                "hymba-1.5b", "moonshot-v1-16b-a3b")
+# moonshot-v1-16b-a3b's 48 layers are 56 GB in bf16 and 112 GB in f32:
+# it runs at full width with its depth cut to this.
+MOONSHOT_LAYERS = 8
+# The port on the card against the port on the CPU, smoke configs, f32
+# logits of a prefill and 3 decode steps, as rtol = atol.
+FAMILY_CARD_TOL = 2e-5
+# The prefill shapes this phase gives the flash kernel, bf16 (name, B,
+# H, Hkv, Sq, Sk, D, causal, window, softcap): granite-moe, moonshot,
+# hymba (25 heads, window 1024 on all layers but 0, 16 and 31).
+FAMILY_FLASH_CASES = (
+    ("granite-moe-prefill", 4, 24, 8, 1024, 1024, 64, True, 0, None),
+    ("moonshot-prefill", 4, 16, 16, 1024, 1024, 128, True, 0, None),
+    ("hymba-prefill-window", 4, 25, 5, 1024, 1024, 64, True, 1024, None),
+)
+FAMILY_FLASH_CASES_SMALL = (
+    ("granite-moe-prefill", 1, 6, 2, 96, 96, 64, True, 0, None),
+    ("moonshot-prefill", 1, 4, 4, 96, 96, 128, True, 0, None),
+    ("hymba-prefill-window", 1, 5, 1, 96, 96, 64, True, 32, None),
+)
+
+
+def _family_config(arch: str, small: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+    if small:
+        return get_smoke_config(arch)
+    cfg = get_config(arch)
+    if arch == "moonshot-v1-16b-a3b":
+        cfg = cfg.replace(n_layers=MOONSHOT_LAYERS)
+    return cfg
+
+
+def _family_card_vs_cpu(arch: str, dev) -> float:
+    """The smoke config on ``dev`` against the same weights and prompts
+    on the CPU: f32 logits of a prefill and 3 decode steps fed the CPU
+    run's greedy tokens.  Returns the largest |difference|."""
+    import copy
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = get_smoke_config(arch)
+    cpu = serve.build_model(cfg, 0, "cpu")
+
+    def run_on(d, model, fed):
+        cache = lm.init_cache(cfg, 2, 28, device=d)
+        logits, cache = lm.prefill(
+            cfg, model, {"tokens": serve.make_prompts(cfg, 2, 24, 1, d)},
+            cache=cache)
+        out = [logits.cpu()[:, :cfg.vocab]]
+        for i, t in enumerate(range(24, 27)):
+            if len(fed) == i:
+                fed.append(out[-1].argmax(-1))
+            logits, cache = lm.decode_step(cfg, model, cache,
+                                           fed[i].to(d), t)
+            out.append(logits.cpu()[:, :cfg.vocab])
+        return out
+    fed = []
+    want = run_on(torch.device("cpu"), cpu, fed)
+    got = run_on(dev, copy.deepcopy(cpu).to(dev), fed)
+    err = 0.0
+    for a, b in zip(got, want):
+        check(bool(((a - b).abs() <= FAMILY_CARD_TOL
+                    + FAMILY_CARD_TOL * b.abs()).all()),
+              f"{arch} smoke: logits on {dev} and on the CPU differ by"
+              f" {float((a - b).abs().max())!r}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def family_phase(dev, small: bool = False) -> dict:
+    """Phase 17: each family card against CPU (smoke config), the f32
+    prefill/decode check and the bf16 serving run at full width (the
+    smoke config when ``small``), with the flash launches of that run,
+    its times, peak memory and the profiles of one prefill and of 4
+    decode steps; then the flash kernel against its plain version at the phase's prefill
+    shapes.  Returns the flash cases' times."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (StepConfig, make_cache,
+                                          make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import lm
+    on_card = dev.type == "cuda"
+    batch, prompt_len, gen = (4, 64, 8) if small else (4, 1024, 32)
+    scfg = StepConfig()
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        card_err = _family_card_vs_cpu(arch, dev)
+        cfg = _family_config(arch, small)
+        model = serve.build_model(cfg, 0, dev)  # f32
+        taps = ("conv_x", "conv_B", "conv_C")
+        n_matrix = sum(p.numel() for n, p in model.named_parameters()
+                       if p.dim() >= 2 and n.rsplit(".", 1)[-1] not in taps)
+        check(n_matrix == cfg.param_count(),
+              f"{arch}: parameters {n_matrix} != param_count"
+              f" {cfg.param_count()}")
+        err_cd = serve.check_consistency(
+            cfg, model, serve.make_prompts(cfg, 2, 64, 1, dev))
+        check(err_cd < serve.CONSISTENCY_TOL,
+              f"{arch}: prefill/decode mismatch {err_cd!r} (f32)")
+        model = lm.cast(model, getattr(torch, scfg.param_dtype))
+        if on_card:
+            torch.cuda.empty_cache()
+        prompts = serve.make_prompts(cfg, batch, prompt_len, 2, dev)
+        serve.generate(cfg, scfg, model, prompts, 1)  # warm-up
+        t_setup = time.perf_counter() - t0
+
+        # the main path: counts at 0 just before, read just after
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        runs = [serve.generate(cfg, scfg, model, prompts, gen)]
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        gqa = cfg.mixer in ("attn", "hybrid") and cfg.mla is None
+        want = cfg.n_layers if gqa and on_card else 0
+        check(launches["flash_attention"] == want
+              and launches["flash_attention_wgmma"] == want,
+              f"{arch}: flash launches {launches} over one batch, want"
+              f" {want} (wgmma)")
+        logits, toks = runs[0]["prefill_logits"], runs[0]["tokens"]
+        check(tuple(logits.shape) == (batch, cfg.vocab_padded)
+              and bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+              f"{arch}: prefill logits")
+        check(tuple(toks.shape) == (batch, gen) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab, f"{arch}: generated tokens")
+        runs += [serve.generate(cfg, scfg, model, prompts, gen)
+                 for _ in range(2)]
+        prefill_ms = sorted(r["prefill_ms"] for r in runs)[1]
+        decode_ms = sorted(r["decode_ms_per_token"] for r in runs)[1]
+        print(f"family {arch}{' smoke' if small else ''}"
+              f" ({cfg.n_layers} layers, d {cfg.d_model},"
+              f" {cfg.param_count()} parameters): card vs CPU smoke logits"
+              f" max|d| {card_err!r} (tol {FAMILY_CARD_TOL}); f32"
+              f" prefill/decode max|d| {err_cd!r}"
+              f" (< {serve.CONSISTENCY_TOL}"
+              f"{', MoE without capacity drops' if cfg.moe else ''}); bf16"
+              f" {batch}x{prompt_len} + {gen} decode steps: flash launches"
+              f" {launches['flash_attention']} (wgmma"
+              f" {launches['flash_attention_wgmma']}, want {want}); prefill"
+              f" {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms per token"
+              f" (median of 3, host clock; runs"
+              f" {[round(r['prefill_ms'], 3) for r in runs]},"
+              f" {[round(r['decode_ms_per_token'], 3) for r in runs]}),"
+              f" peak memory {peak / 2**30:.3f} GiB; setup {t_setup:.3f} s")
+        if on_card:  # one prefill, then 4 decode steps on its cache
+            max_len = prompt_len + 4
+            prefill = make_prefill_step(cfg, scfg, seq_len=prompt_len,
+                                        batch=batch, device=dev)
+            decode = make_decode_step(cfg, scfg, seq_len=max_len,
+                                      batch=batch, device=dev)
+            cache = make_cache(cfg, scfg, batch=batch, max_len=max_len,
+                               device=dev)
+
+            def steps4():
+                for t in range(prompt_len, max_len):
+                    decode(model, cache, prompts[:, -1], t)
+            for name, fn, n in (
+                    ("prefill", lambda: prefill(model, prompts, cache), 1),
+                    ("decode", steps4, 4)):
+                wall, busy, events, top = _device_split(fn, dev)
+                tops = "; ".join(f"{k[:48]} {t / n:.3f} ms x{c / n:g}"
+                                 for t, k, c in top[:5])
+                print(f"profile {arch} {name} (per call): wall"
+                      f" {wall / n:.3f} ms, device busy {busy / n:.3f} ms,"
+                      f" idle share {1 - busy / wall:.3f}, {events / n:g}"
+                      f" device events; top: {tops}")
+        out[arch] = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                     "peak_bytes": peak, "launches": launches}
+        del model, prompts, runs, logits
+        if on_card:
+            torch.cuda.empty_cache()
+
+    cases = FAMILY_FLASH_CASES_SMALL if small else FAMILY_FLASH_CASES
+    reps = 10 if on_card else 3
+    for case in cases:
+        q, k, v = _flash_inputs(case, torch.bfloat16, dev)
+        kw = _flash_kw(case)
+        before = fa.LAUNCHES["flash_attention_wgmma"]
+        got = ops.flash_attention(q, k, v, **kw)
+        check(fa.LAUNCHES["flash_attention_wgmma"] == before + 1
+              or not on_card, f"flash {case[0]}: wgmma did not launch")
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        tol = FLASH_TOL["bfloat16"]
+        g32, w32 = got.float(), want.float()
+        err = float((g32 - w32).abs().max())
+        check(bool(((g32 - w32).abs() <= tol + tol * w32.abs()).all()),
+              f"flash {case[0]}: max|diff| {err!r} beyond {tol}")
+        print(f"flash {case[0]} {tuple(case[1:7])} bf16 vs plain:"
+              f" max_abs_err {err!r} (within {tol})")
+        out[case[0]] = _flash_times(case, torch.bfloat16, dev, reps)
+        del q, k, v, got, want, g32, w32
+    return out
+
+
 def run(device_name: str = "cuda", small: bool = False) -> dict:
     """All phases on ``device_name``; returns the kernel table.
     ``small`` cuts the serving and training phases to the llama smoke
@@ -1928,6 +2155,11 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     t0 = time.perf_counter()
     planner_phase(dev, baseline)
     print(f"phase 16 wall {time.perf_counter() - t0:.3f} s")
+
+    # 17. the MLA, Mamba-2, MoE and hybrid families -------------------------
+    t0 = time.perf_counter()
+    family_phase(dev, small)
+    print(f"phase 17 wall {time.perf_counter() - t0:.3f} s")
     return {"kernels": [fabric, *flash, *train_kernels]}
 
 
@@ -2039,6 +2271,25 @@ def quant8_times(tree: Path) -> dict:
     return out
 
 
+def families_times(tree: Path) -> dict:
+    """Phase 17 on the port of the source tree ``tree``: each family's
+    median prefill ms, decode ms a token and peak memory, with the
+    card's name and power limit."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = family_phase(torch.device("cuda"))
+    return {"tree": str(tree), "card": smi,
+            "families": {arch: {k: v for k, v in rec.items()
+                                if k != "launches"}
+                         for arch, rec in out.items()
+                         if arch in FAMILY_ARCHS}}
+
+
 def _card_ready() -> bool:
     try:
         import torch
@@ -2058,7 +2309,8 @@ def main(argv=None) -> int:
         return 1
     import torch
     tree = ROOT
-    times = {"--fabric-times": fabric_times, "--quant8-times": quant8_times}
+    times = {"--fabric-times": fabric_times, "--quant8-times": quant8_times,
+             "--families": families_times}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

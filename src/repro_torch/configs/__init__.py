@@ -2,8 +2,9 @@
 
 The port's counterpart of the JAX package's ``configs``: each ported
 architecture has its own module with the published config and a reduced
-``smoke_config``.  Only the dense-GQA architectures run on the port so
-far; asking for one of the others raises ``KeyError``.
+``smoke_config``.  Dense GQA, MLA, Mamba-2, MoE and the Hymba hybrid run
+on the port; asking for one of the others (M-RoPE and the stub
+frontends) raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -13,15 +14,19 @@ from importlib import import_module
 from ..models.lm import ModelConfig
 
 _MODULES = {
+    "hymba-1.5b": "hymba_1_5b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "gemma2-9b": "gemma2_9b",
     "qwen2-7b": "qwen2_7b",
     "llama3.2-1b": "llama3_2_1b",
+    "minicpm3-4b": "minicpm3_4b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 # Architectures of the JAX package whose blocks are not ported yet
-# (MoE, Mamba, hybrid, MLA, M-RoPE, audio frontend): ROADMAP queue 1.
-NOT_PORTED = ("hymba-1.5b", "granite-moe-3b-a800m", "moonshot-v1-16b-a3b",
-              "minicpm3-4b", "musicgen-medium", "mamba2-780m", "qwen2-vl-7b")
+# (M-RoPE with the vision stub, the audio frontend): ROADMAP queue 1.
+NOT_PORTED = ("musicgen-medium", "qwen2-vl-7b")
 
 ARCH_IDS = tuple(_MODULES)
 

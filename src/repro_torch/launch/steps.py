@@ -112,13 +112,20 @@ def make_cache(cfg: lm.ModelConfig, scfg: StepConfig, *, batch: int,
                          getattr(torch, scfg.cache_dtype), device=device)
 
 
+# Cache entries with a sequence axis (axis 2 of the stacked layout); the
+# Mamba state and convolution tails have none.
+_SEQ_CACHES = ("k", "v", "ckv", "kr")
+
+
 def _check_cache(cache, scfg: StepConfig, batch: int, need: int) -> None:
-    k = cache["k"]
-    if k.dtype != getattr(torch, scfg.cache_dtype) or k.shape[1] != batch \
-            or k.shape[2] < need:
-        raise ValueError(
-            f"cache {k.dtype} {tuple(k.shape)} does not hold batch {batch}"
-            f" and {need} positions in {scfg.cache_dtype}")
+    for name, t in cache.items():
+        if t.dtype != getattr(torch, scfg.cache_dtype) \
+                or t.shape[1] != batch \
+                or (name in _SEQ_CACHES and t.shape[2] < need):
+            raise ValueError(
+                f"cache {name} {t.dtype} {tuple(t.shape)} does not hold"
+                f" batch {batch} and {need} positions in"
+                f" {scfg.cache_dtype}")
 
 
 def make_prefill_step(cfg: lm.ModelConfig, scfg: StepConfig, *,

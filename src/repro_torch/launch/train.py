@@ -15,7 +15,9 @@ Under ``torchrun`` the process group comes from the environment;
 otherwise a one-rank group is started through a ``FileStore`` in a
 temporary directory (``nccl`` on the card, ``gloo`` on the CPU), so the
 gradient all-reduce is always issued.  Tensor parallelism (``--tp``)
-waits for sharding (ROADMAP queue 1, item 9).  ``--resume`` continues
+waits for sharding (ROADMAP queue 1, item 9); the MLA, Mamba, MoE and
+hybrid architectures are refused (the port serves them; their training
+is ROADMAP queue 1, items 7-8).  ``--resume`` continues
 from the latest checkpoint (exact, because the data stream is stateless
 in the step index).  Prints the lines of the JAX package's
 ``launch/train.py`` and one JSON line.
@@ -105,6 +107,13 @@ def main(argv=None) -> int:
     if over:
         cfg = cfg.replace(**over, head_dim=0)
     cfg = cfg.replace(param_dtype=args.param_dtype)
+    if cfg.mixer != "attn" or cfg.mla is not None or cfg.moe is not None:
+        print(f"{cfg.name}: training of the MLA, Mamba, MoE and hybrid"
+              f" families is not ported yet (ROADMAP queue 1, item 7; their"
+              f" gradient sync: item 8); the port serves them"
+              f" (python -m repro_torch.serve --arch {args.arch})",
+              file=sys.stderr)
+        return 2
 
     dev = resolve_device(args.device)
     with tempfile.TemporaryDirectory() as tmp:

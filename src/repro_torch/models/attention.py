@@ -1,17 +1,19 @@
-"""GQA attention with sliding window, softcap and a KV cache.
+"""Attention mixers: GQA (sliding window, softcap) and MLA, with caches.
 
 The port's counterpart of the JAX package's ``models/attention.py``.
 ``masked_attention`` computes attention in query chunks (each chunk's
-softmax is exact over the full key range); a prefill's self-attention
-over the new tokens goes through the hand-written flash-attention kernel
-instead (``kernels.ops.flash_attention``), the CUDA counterpart of the
-Pallas kernel that is the TPU-tiled version of the same contraction.
-MLA (``mla_fwd``/``init_mla``) is not ported yet (ROADMAP queue 1,
-item 7).
+softmax is exact over the full key range); a GQA prefill's
+self-attention over the new tokens goes through the hand-written
+flash-attention kernel instead (``kernels.ops.flash_attention``), the
+CUDA counterpart of the Pallas kernel that is the TPU-tiled version of
+the same contraction.  MLA (multi-head latent attention, MiniCPM3 /
+DeepSeek-V2 style) always takes ``masked_attention``, as in the JAX
+package: its query/key head dim (``qk_nope + qk_rope``) differs from its
+value head dim, which the kernel does not take.
 
 Parameters keep the JAX shapes and names: ``wq`` is
 ``(d_model, H, head_dim)``, ``wk``/``wv`` ``(d_model, Hkv, head_dim)``,
-``wo`` ``(H, head_dim, d_model)``.
+``wo`` ``(H, head_dim, d_model)``; MLA's are listed on :class:`MLA`.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops
-from .layers import apply_rope, dense_init, softcap
+from .layers import apply_rope, dense_init, rms_norm, softcap
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable
 
@@ -47,9 +49,10 @@ def _mask(q_pos, k_pos, window: int):
 
 
 def _attn_block(q, k, v, q_pos, k_pos, window, cap, scale, out_dtype):
-    """q: (B,Sq,H,D); k/v: (B,Sk,Kv,D) with Kv | H -- grouped products,
-    the expanded KV is never materialized.  Scores in f32; probabilities
-    cast to ``out_dtype`` before P.V."""
+    """q: (B,Sq,H,Dk); k: (B,Sk,Kv,Dk), v: (B,Sk,Kv,Dv) with Kv | H --
+    grouped products, the expanded KV is never materialized; the value
+    head dim may differ from the query/key one (MLA).  Scores in f32;
+    probabilities cast to ``out_dtype`` before P.V."""
     b, sq, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -208,4 +211,114 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                                scale=scale, q_chunk=q_chunk)
     dt = torch.promote_types(out.dtype, p.wo.dtype)
     out = torch.einsum("bqhk,hkd->bqd", out.to(dt), p.wo.to(dt))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """MLA projections, allocated uninitialised (:func:`init_mla` fills
+    them): the query down-projection ``w_dq`` (d, q_lora) with its norm
+    ``norm_q`` and up-projection ``w_uq`` (q_lora, H, qk_nope + qk_rope);
+    the KV latent ``w_dkv`` (d, kv_lora) with ``norm_kv``, expanded per
+    head by ``w_uk`` (kv_lora, H, qk_nope) and ``w_uv`` (kv_lora, H,
+    v_dim); the shared rope key ``w_kr`` (d, qk_rope); ``wo`` (H, v_dim,
+    d)."""
+
+    def __init__(self, *, d_model: int, n_heads_padded: int, q_lora: int,
+                 kv_lora: int, qk_nope: int, qk_rope: int, v_dim: int,
+                 dtype, device):
+        super().__init__()
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype,
+                                            device=device),
+                                requires_grad=False)
+        h = n_heads_padded
+        self.w_dq = p(d_model, q_lora)
+        self.norm_q = p(q_lora)
+        self.w_uq = p(q_lora, h, qk_nope + qk_rope)
+        self.w_dkv = p(d_model, kv_lora)
+        self.norm_kv = p(kv_lora)
+        self.w_uk = p(kv_lora, h, qk_nope)
+        self.w_uv = p(kv_lora, h, v_dim)
+        self.w_kr = p(d_model, qk_rope)
+        self.wo = p(h, v_dim, d_model)
+
+
+@torch.no_grad()
+def init_mla(p: MLA, gen: torch.Generator, *, n_heads: int) -> MLA:
+    """Fan-in truncated normals, unit norms; padded head slots are zero
+    in ``w_uq`` and ``wo``."""
+    d_model, q_lora = p.w_dq.shape
+    kv_lora = p.w_dkv.shape[1]
+    h_pad, v_dim = p.wo.shape[:2]
+    dt = p.w_dq.dtype
+    p.w_dq.copy_(dense_init(gen, d_model, (q_lora,), dt))
+    p.norm_q.fill_(1.0)
+    p.w_uq.copy_(dense_init(gen, q_lora, p.w_uq.shape[1:], dt))
+    p.w_dkv.copy_(dense_init(gen, d_model, (kv_lora,), dt))
+    p.norm_kv.fill_(1.0)
+    p.w_uk.copy_(dense_init(gen, kv_lora, p.w_uk.shape[1:], dt))
+    p.w_uv.copy_(dense_init(gen, kv_lora, p.w_uv.shape[1:], dt))
+    p.w_kr.copy_(dense_init(gen, d_model, p.w_kr.shape[1:], dt))
+    p.wo.copy_(dense_init(gen, h_pad * v_dim, (d_model,), dt)
+               .reshape(h_pad, v_dim, d_model))
+    if h_pad > n_heads:
+        p.w_uq[:, n_heads:].zero_()
+        p.wo[n_heads:].zero_()
+    return p
+
+
+def mla_fwd(p: MLA, x: torch.Tensor, *, positions: torch.Tensor,
+            qk_nope: int, qk_rope: int, rope_theta: float = 1e4,
+            window: int = 0,
+            cache: Optional[Dict[str, torch.Tensor]] = None,
+            cache_pos: Optional[int] = None, q_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA: the cache holds only the compressed latent and the shared
+    rope key, ``{'ckv': (B, S_max, kv_lora), 'kr': (B, S_max,
+    qk_rope)}``, written in place at ``cache_pos``.  Every call rebuilds
+    the per-head keys and values from the whole latent it attends over
+    (the full cache when there is one), as the JAX package does."""
+    scale = (qk_nope + qk_rope) ** -0.5
+    cq = rms_norm(x @ p.w_dq, p.norm_q)
+    q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq)
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+
+    ckv = rms_norm(x @ p.w_dkv, p.norm_kv)                   # (B, S, r)
+    kr = apply_rope((x @ p.w_kr)[:, :, None, :], positions,
+                    rope_theta)[:, :, 0, :]                 # (B, S, rope)
+
+    if cache is not None:
+        if cache_pos is None:
+            raise ValueError("mla_fwd: a cache needs cache_pos")
+        s = x.shape[1]
+        cache["ckv"][:, cache_pos:cache_pos + s] = ckv
+        cache["kr"][:, cache_pos:cache_pos + s] = kr
+        ckv_att, kr_att = cache["ckv"], cache["kr"]
+        q_pos = positions if positions.dim() >= 1 else positions[None]
+    else:
+        ckv_att, kr_att = ckv, kr
+        q_pos = torch.arange(x.shape[1], device=x.device)
+    k_pos = torch.arange(ckv_att.shape[1], device=x.device)
+
+    dt = p.w_uk.dtype
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv_att.to(dt), p.w_uk)
+    v = torch.einsum("bsr,rhk->bshk", ckv_att.to(dt), p.w_uv)
+
+    # fold the shared rope key into the head dim so one attention call
+    # works: scores = q_nope . k_nope + q_rope . kr
+    h = q.shape[2]
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    kr_b = kr_att.to(dt)[:, :, None, :].expand(*kr_att.shape[:2], h,
+                                                qk_rope)
+    k_cat = torch.cat([k_nope, kr_b], dim=-1)
+    out = masked_attention(q_cat, k_cat, v, q_pos=q_pos, k_pos=k_pos,
+                           window=window, attn_softcap=None, scale=scale,
+                           q_chunk=q_chunk)
+    out = torch.einsum("bqhk,hkd->bqd", out, p.wo)
     return out, cache

@@ -1,11 +1,12 @@
-"""Decoder block: GQA attention + dense SwiGLU FFN, with optional post
+"""Decoder block: mixer (GQA attention, MLA, Mamba-2, or the hybrid of
+attention and Mamba) + FFN (dense SwiGLU or MoE), with optional post
 norms and zero-centred norms.
 
 The port's counterpart of the JAX package's ``models/blocks.py``.  Each
 layer is its own :class:`Block` module (the JAX package stacks layers on
 a leading L axis and scans); the per-layer sliding window is an argument.
-Mamba, MoE, hybrid and MLA blocks are not ported yet (ROADMAP queue 1,
-item 7) and raise ``NotImplementedError``.
+M-RoPE and the audio and vision stub frontends are not ported yet
+(ROADMAP queue 1, item 7) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,8 +16,15 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import Attention, attention_fwd
+from .attention import MLA, Attention, attention_fwd, mla_fwd
 from .layers import rms_norm, silu
+from .mamba import Mamba, mamba_fwd
+from .moe import MoE, moe_fwd
+
+# The cache entries of each mixer, in the stacked cache's names.
+ATTN_CACHE = ("k", "v")
+MLA_CACHE = ("ckv", "kr")
+MAMBA_CACHE = ("state", "conv_x", "conv_B", "conv_C")
 
 
 class MLP(nn.Module):
@@ -42,12 +50,6 @@ def mlp_fwd(p: MLP, x: torch.Tensor) -> torch.Tensor:
 
 def unsupported(cfg) -> Optional[str]:
     """Why ``cfg``'s block is not ported yet, or None when it is."""
-    if cfg.mixer != "attn":
-        return f"mixer {cfg.mixer!r} (Mamba / hybrid)"
-    if cfg.mla is not None:
-        return "MLA attention"
-    if cfg.moe is not None:
-        return "MoE FFN"
     if cfg.mrope_sections is not None:
         return "M-RoPE"
     if cfg.frontend != "tokens":
@@ -56,8 +58,12 @@ def unsupported(cfg) -> Optional[str]:
 
 
 class Block(nn.Module):
-    """One decoder layer's parameters: ``ln1``, ``attn``, ``ln1_post``
-    (post norm), ``ln2``, ``mlp``, ``ln2_post`` (post norm)."""
+    """One decoder layer's parameters, as the JAX package's
+    ``_init_layer`` lays them out: ``ln1``; ``attn`` (GQA or MLA) for
+    the attention and hybrid mixers; ``mamba`` for the Mamba and hybrid
+    mixers; ``norm_attn`` and ``norm_mamba`` (hybrid); ``ln1_post``
+    (post norm); then, with an FFN, ``ln2``, ``moe`` or ``mlp`` and
+    ``ln2_post`` (post norm)."""
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -72,39 +78,85 @@ class Block(nn.Module):
             return nn.Parameter(torch.empty(d, dtype=dtype, device=device),
                                 requires_grad=False)
         self.ln1 = norm()
-        self.attn = Attention(d_model=d, n_heads_padded=cfg.n_heads_padded,
-                              n_kv=cfg.n_kv, head_dim=cfg.head_dim_,
-                              qkv_bias=cfg.qkv_bias, dtype=dtype,
-                              device=device)
+        if cfg.mixer in ("attn", "hybrid"):
+            if cfg.mla is not None:
+                m = cfg.mla
+                self.attn = MLA(d_model=d, n_heads_padded=cfg.n_heads_padded,
+                                q_lora=m.q_lora, kv_lora=m.kv_lora,
+                                qk_nope=m.qk_nope, qk_rope=m.qk_rope,
+                                v_dim=m.v_dim, dtype=dtype, device=device)
+            else:
+                self.attn = Attention(
+                    d_model=d, n_heads_padded=cfg.n_heads_padded,
+                    n_kv=cfg.n_kv, head_dim=cfg.head_dim_,
+                    qkv_bias=cfg.qkv_bias, dtype=dtype, device=device)
+        if cfg.mixer in ("mamba", "hybrid"):
+            self.mamba = Mamba(d, cfg.mamba, dtype=dtype, device=device)
+        if cfg.mixer == "hybrid":
+            self.norm_attn = norm()
+            self.norm_mamba = norm()
         if cfg.post_norm:
             self.ln1_post = norm()
-        if cfg.d_ff > 0:
+        if cfg.moe is not None or cfg.d_ff > 0:
             self.ln2 = norm()
-            self.mlp = MLP(d, cfg.d_ff, dtype=dtype, device=device)
+            if cfg.moe is not None:
+                self.moe = MoE(d, cfg.moe, dtype=dtype, device=device)
+            else:
+                self.mlp = MLP(d, cfg.d_ff, dtype=dtype, device=device)
             if cfg.post_norm:
                 self.ln2_post = norm()
+
+
+def _sub(cache: Optional[Dict[str, torch.Tensor]], names):
+    return None if cache is None else {k: cache[k] for k in names}
 
 
 def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_pos: Optional[int] = None, flash: bool = True
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One decoder layer.  ``cache``: this layer's {'k', 'v'} views,
-    written in place.  Returns (h', the layer's cache or None)."""
+    """One decoder layer.  ``cache``: this layer's views of the stacked
+    cache ({'k', 'v'}, {'ckv', 'kr'} and/or the Mamba state), written in
+    place.  Returns (h', the layer's cache or None)."""
     zc = cfg.zero_centered_norm
     hin = rms_norm(h, lp.ln1, zero_centered=zc)
-    mix, cache = attention_fwd(
-        lp.attn, hin, positions=positions, head_map=cfg.head_map,
-        window=window, attn_softcap=cfg.attn_softcap,
-        rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
-        q_scale=cfg.q_scale, cache=cache, cache_pos=cache_pos,
-        q_chunk=cfg.q_chunk, flash=flash)
+    outs = []
+    if cfg.mixer in ("attn", "hybrid"):
+        if cfg.mla is not None:
+            a_out, _ = mla_fwd(
+                lp.attn, hin, positions=positions, qk_nope=cfg.mla.qk_nope,
+                qk_rope=cfg.mla.qk_rope, rope_theta=cfg.rope_theta,
+                window=window, cache=_sub(cache, MLA_CACHE),
+                cache_pos=cache_pos, q_chunk=cfg.q_chunk)
+        else:
+            a_out, _ = attention_fwd(
+                lp.attn, hin, positions=positions, head_map=cfg.head_map,
+                window=window, attn_softcap=cfg.attn_softcap,
+                rope_theta=cfg.rope_theta,
+                mrope_sections=cfg.mrope_sections, q_scale=cfg.q_scale,
+                cache=_sub(cache, ATTN_CACHE), cache_pos=cache_pos,
+                q_chunk=cfg.q_chunk, flash=flash)
+        outs.append(a_out)
+    if cfg.mixer in ("mamba", "hybrid"):
+        m_out, _ = mamba_fwd(lp.mamba, hin, mc=cfg.mamba,
+                             d_model=cfg.d_model,
+                             cache=_sub(cache, MAMBA_CACHE))
+        outs.append(m_out)
+    if cfg.mixer == "hybrid":
+        # Hymba: per-branch normalization, then the mean of the two
+        mix = (rms_norm(outs[0], lp.norm_attn, zero_centered=zc)
+               + rms_norm(outs[1], lp.norm_mamba, zero_centered=zc)) * 0.5
+    else:
+        mix = outs[0]
     if cfg.post_norm:
         mix = rms_norm(mix, lp.ln1_post, zero_centered=zc)
     h = h + mix
-    if cfg.d_ff > 0:
+    if cfg.moe is not None or cfg.d_ff > 0:
         hin2 = rms_norm(h, lp.ln2, zero_centered=zc)
-        f_out = mlp_fwd(lp.mlp, hin2)
+        if cfg.moe is not None:
+            f_out = moe_fwd(lp.moe, hin2, mo=cfg.moe)
+        else:
+            f_out = mlp_fwd(lp.mlp, hin2)
         if cfg.post_norm:
             f_out = rms_norm(f_out, lp.ln2_post, zero_centered=zc)
         h = h + f_out

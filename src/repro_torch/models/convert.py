@@ -3,7 +3,9 @@
 The JAX package keeps parameters as a nested dict whose per-layer
 entries are stacked on a leading L axis; the port keeps one module per
 layer with the same names and shapes.  Carry-over is therefore a copy:
-``tree["layers"]["attn"]["wq"][i]`` becomes ``layers.{i}.attn.wq``.
+``tree["layers"]["attn"]["wq"][i]`` becomes ``layers.{i}.attn.wq``, and
+a stacked expert leaf ``tree["layers"]["moe"]["w_gate"]`` (L, E, D, F)
+becomes ``layers.{i}.moe.w_gate`` (E, D, F).
 The functions take and give NumPy arrays (``jax.tree.map(np.asarray,
 params)``), so this module imports nothing of JAX.  The training state
 is ``{"params": LM, "opt": {"step", "m", "v"}}`` with the moments keyed
@@ -69,12 +71,14 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device="cuda",
 
 def cache_from_jax(cache: Dict, device="cuda", dtype=None
                    ) -> Dict[str, torch.Tensor]:
-    """The JAX package's stacked attention cache {'k', 'v'} (NumPy
-    arrays, (L, B, S_max, n_kv, head_dim)) as the port's cache."""
+    """The JAX package's stacked decode cache (NumPy arrays with a
+    leading L axis: attention {'k', 'v'}, MLA {'ckv', 'kr'}, Mamba
+    {'state', 'conv_x', 'conv_B', 'conv_C'}) as the port's cache, in
+    ``dtype`` (default f32)."""
     dev = resolve_device(device)
-    return {name: torch.from_numpy(np.array(cache[name], dtype=np.float32))
+    return {name: torch.from_numpy(np.array(arr, dtype=np.float32))
             .to(device=dev, dtype=dtype or torch.float32)
-            for name in ("k", "v")}
+            for name, arr in cache.items()}
 
 
 def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -2,14 +2,17 @@
 
 The port's counterpart of the JAX package's ``models/lm.py``.  One
 ``ModelConfig`` (field for field the reference's, with copies of
-``MoEConfig``, ``MambaConfig`` and ``MLAConfig``) describes every
-architecture; the port runs the dense-GQA ones (llama, gemma, qwen).
-Parameters live in an :class:`LM` module whose per-layer blocks sit in an
-``nn.ModuleList`` instead of the stacked L axis; their shapes and names
-are the JAX package's, so weights carry over by a copy
+``MoEConfig`` (``models/moe.py``), ``MambaConfig`` (``models/mamba.py``)
+and ``MLAConfig``) describes every architecture; the port runs all but
+M-RoPE and the stub frontends: dense GQA (llama, gemma, qwen), MLA
+(minicpm3), Mamba-2 (mamba2), MoE (granite-moe, moonshot) and the Hymba
+hybrid.  Parameters live in an :class:`LM` module whose per-layer blocks
+sit in an ``nn.ModuleList`` instead of the stacked L axis; their shapes
+and names are the JAX package's, so weights carry over by a copy
 (``models/convert.py``), and :func:`param_leaves` lists them in the order
 of JAX's flattened parameter tree.  The decode cache is a dict of
-preallocated ``(L, B, S_max, n_kv, head_dim)`` tensors, written in place.
+preallocated tensors stacked on a leading L axis in the JAX layout,
+written in place.
 """
 
 from __future__ import annotations
@@ -24,10 +27,17 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..core.fabric_torch import resolve_device
-from .attention import head_to_kv_map, init_attention
+from .attention import MLA, head_to_kv_map, init_attention, init_mla
 from .blocks import Block, block_fwd
 from .layers import chunked_cross_entropy, dense_init, embed_init, rms_norm, \
     softcap
+from .mamba import F32_LEAVES as _MAMBA_F32
+from .mamba import MambaConfig, init_mamba, mamba_cache_shapes
+from .moe import MoEConfig, init_moe
+
+# Parameters the JAX package keeps in f32 whatever the parameter dtype:
+# the MoE router and the Mamba decay, skip and step-bias vectors.
+F32_LEAVES = ("router", *_MAMBA_F32)
 
 
 @dataclass(frozen=True)
@@ -37,41 +47,6 @@ class MLAConfig:
     qk_nope: int = 64
     qk_rope: int = 32
     v_dim: int = 64
-
-
-@dataclass(frozen=True)
-class MoEConfig:
-    n_experts: int
-    top_k: int
-    d_expert: int                 # per-expert FFN hidden size
-    n_experts_padded: int = 0     # 0 -> equal to n_experts
-    capacity_factor: float = 1.25
-    min_capacity: int = 4
-    dispatch_chunk: int = 4096    # tokens routed per scan step
-
-    @property
-    def e_pad(self) -> int:
-        return self.n_experts_padded or self.n_experts
-
-
-@dataclass(frozen=True)
-class MambaConfig:
-    d_state: int = 128
-    head_dim: int = 64
-    n_groups: int = 1
-    d_conv: int = 4
-    expand: int = 2
-    chunk: int = 256
-
-    def d_inner(self, d_model: int) -> int:
-        return self.expand * d_model
-
-    def n_heads(self, d_model: int) -> int:
-        di = self.d_inner(d_model)
-        if di % self.head_dim != 0:
-            raise ValueError(f"d_inner {di} is not a multiple of head_dim"
-                             f" {self.head_dim}")
-        return di // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -186,11 +161,12 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 class LM(nn.Module):
-    """The parameters of a dense-GQA language model, allocated
-    uninitialised on ``device`` in ``dtype`` (default: the config's):
-    ``embed`` (V, d), ``final_norm`` (d,), ``head`` (d, V) unless tied,
-    and ``layers``, one :class:`Block` per layer.  No parameter requires
-    a gradient until training asks for it (``requires_grad_()``)."""
+    """The parameters of a language model, allocated uninitialised on
+    ``device`` in ``dtype`` (default: the config's; the
+    :data:`F32_LEAVES` are always f32): ``embed`` (V, d), ``final_norm``
+    (d,), ``head`` (d, V) unless tied, and ``layers``, one
+    :class:`Block` per layer.  No parameter requires a gradient until
+    training asks for it (``requires_grad_()``)."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype=None):
         super().__init__()
@@ -207,6 +183,17 @@ class LM(nn.Module):
             self.head = p(d, vp)
         self.layers = nn.ModuleList(
             Block(cfg, dtype=dt, device=device) for _ in range(cfg.n_layers))
+
+
+@torch.no_grad()
+def cast(model: LM, dtype: torch.dtype) -> LM:
+    """Cast ``model``'s parameters to ``dtype`` in place, all but the
+    :data:`F32_LEAVES` (what ``init_params`` in ``dtype`` would give from
+    the same draws, as every draw is made in f32)."""
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] not in F32_LEAVES:
+            p.data = p.data.to(dtype)
+    return model
 
 
 def param_leaves(named: Iterable[Tuple[str, torch.Tensor]]
@@ -239,18 +226,20 @@ def _norm_init(cfg: ModelConfig, w: torch.Tensor) -> None:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                device="cuda") -> LM:
+                device="cuda", dtype=None) -> LM:
     """A model of ``cfg`` on ``device``, its weights drawn from ``gen``
-    (a ``torch.Generator`` on the same device) in f32 and cast to the
-    parameter dtype, with the JAX package's initialisers: fan-in
-    truncated normals, ``1/sqrt(d)`` embeddings, unit (or zero-centred
-    zero) norms, zero biases, zeroed padding rows and head slots."""
+    (a ``torch.Generator`` on the same device) in f32 and cast to
+    ``dtype`` (default: the parameter dtype; the :data:`F32_LEAVES` stay
+    f32), with the JAX package's initialisers: fan-in truncated normals,
+    ``1/sqrt(d)`` embeddings, unit (or zero-centred zero) norms, zero
+    biases, the Mamba leaves of ``init_mamba``, zeroed padding rows,
+    head slots and expert slots."""
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"init_params: generator on {gen.device}, model"
                          f" on {dev}")
-    model = LM(cfg, device=dev)
-    dt, d = cfg.dtype, cfg.d_model
+    model = LM(cfg, device=dev, dtype=dtype)
+    dt, d = model.embed.dtype, cfg.d_model
     model.embed.copy_(embed_init(gen, cfg.vocab_padded, d, dt))
     model.embed[cfg.vocab:].zero_()
     _norm_init(cfg, model.final_norm)
@@ -259,14 +248,25 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         model.head[:, cfg.vocab:].zero_()
     for lp in model.layers:
         _norm_init(cfg, lp.ln1)
-        init_attention(lp.attn, gen, n_heads=cfg.n_heads)
+        if isinstance(getattr(lp, "attn", None), MLA):
+            init_mla(lp.attn, gen, n_heads=cfg.n_heads)
+        elif hasattr(lp, "attn"):
+            init_attention(lp.attn, gen, n_heads=cfg.n_heads)
+        if hasattr(lp, "mamba"):
+            init_mamba(lp.mamba, gen)
+        if cfg.mixer == "hybrid":
+            lp.norm_attn.fill_(1.0)
+            lp.norm_mamba.fill_(1.0)
         if cfg.post_norm:
             _norm_init(cfg, lp.ln1_post)
-        if cfg.d_ff > 0:
+        if cfg.moe is not None or cfg.d_ff > 0:
             _norm_init(cfg, lp.ln2)
-            lp.mlp.w_gate.copy_(dense_init(gen, d, (cfg.d_ff,), dt))
-            lp.mlp.w_up.copy_(dense_init(gen, d, (cfg.d_ff,), dt))
-            lp.mlp.w_down.copy_(dense_init(gen, cfg.d_ff, (d,), dt))
+            if cfg.moe is not None:
+                init_moe(lp.moe, gen, cfg.moe)
+            else:
+                lp.mlp.w_gate.copy_(dense_init(gen, d, (cfg.d_ff,), dt))
+                lp.mlp.w_up.copy_(dense_init(gen, d, (cfg.d_ff,), dt))
+                lp.mlp.w_down.copy_(dense_init(gen, cfg.d_ff, (d,), dt))
             if cfg.post_norm:
                 _norm_init(cfg, lp.ln2_post)
     return model
@@ -278,19 +278,31 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device="cuda") -> Dict[str, torch.Tensor]:
-    """Zeroed attention cache {'k', 'v'}: (L, batch, max_len, n_kv,
-    head_dim) each, in ``dtype`` (default: the parameter dtype)."""
-    if cfg.mixer != "attn" or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: only attention caches are ported (ROADMAP queue"
-            f" 1, item 7)")
+    """Zeroed decode cache in ``dtype`` (default: the parameter dtype),
+    stacked on a leading L axis in the JAX layout: attention {'k', 'v'}
+    (L, batch, max_len, n_kv, head_dim); MLA {'ckv'} (L, batch, max_len,
+    kv_lora) and {'kr'} (L, batch, max_len, qk_rope); Mamba {'state'}
+    (L, batch, H, P, N) and {'conv_x', 'conv_B', 'conv_C'} (L, batch,
+    d_conv - 1, C).  The hybrid holds both attention and Mamba."""
     dt = cfg.dtype if dtype is None else dtype
     if isinstance(dt, str):
         dt = getattr(torch, dt)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim_)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    L = cfg.n_layers
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    if cfg.mixer in ("attn", "hybrid"):
+        if cfg.mla is not None:
+            shapes["ckv"] = (L, batch, max_len, cfg.mla.kv_lora)
+            shapes["kr"] = (L, batch, max_len, cfg.mla.qk_rope)
+        else:
+            shapes["k"] = shapes["v"] = (L, batch, max_len, cfg.n_kv,
+                                         cfg.head_dim_)
+    if cfg.mixer in ("mamba", "hybrid"):
+        for k, v in mamba_cache_shapes(batch, cfg.d_model,
+                                       cfg.mamba).items():
+            shapes[k] = (L, *v)
+    return {k: torch.zeros(s, dtype=dt, device=dev)
+            for k, s in shapes.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +355,7 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     for i, (lp, window) in enumerate(zip(params.layers, cfg.windows())):
         lp = param_hook(lp)
         layer_cache = None if cache is None else \
-            {"k": cache["k"][i], "v": cache["v"][i]}
+            {k: t[i] for k, t in cache.items()}
         kw = dict(positions=positions, window=window, cache=layer_cache,
                   cache_pos=cache_pos, flash=flash)
         if remat and cache is None:

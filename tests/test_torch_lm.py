@@ -163,12 +163,12 @@ def test_unported_archs_and_blocks_raise():
             pconfigs.get_config(arch)
     assert set(pconfigs.ARCH_IDS) | set(pconfigs.NOT_PORTED) == \
         set(jconfigs.ARCH_IDS)
-    mamba = jconfigs.get_smoke_config("mamba2-780m")
-    cfg = pconfigs.get_smoke_config("llama3.2-1b").replace(
-        mixer="mamba", mamba=plm.MambaConfig(**dataclasses.asdict(
-            mamba.mamba)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plm.LM(cfg, device="cpu")
+    # the blocks of the two archs left: M-RoPE and a stub frontend
+    llama = pconfigs.get_smoke_config("llama3.2-1b")
+    for cfg in (llama.replace(mrope_sections=(2, 3, 3)),
+                llama.replace(frontend="audio_stub")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            plm.LM(cfg, device="cpu")
 
 
 def test_convert_rejects_mismatched_trees():
