@@ -5,8 +5,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
 drives the port's paths on the card -- the stencil simulator, model
-serving, training, the paper's scenarios, the planner and the serving
-of the MLA, Mamba-2, MoE and hybrid families -- phase by phase; every
+serving, training, the paper's scenarios, the planner, the serving of
+the MLA, Mamba-2, MoE and hybrid families and the two stub frontends,
+and the training of all of them -- phase by phase; every
 phase prints one line and any failure exits non-zero without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
@@ -109,18 +110,33 @@ phase prints one line and any failure exits non-zero without a result:
      ``earlybird.auto_sync_config`` on llama3.2-1b at full width (its
      leaves sized on the ``meta`` device) against the planner's choice
      on the same payload;
- 17. the MLA, Mamba-2, MoE and hybrid families on the serving path:
-     for minicpm3-4b, mamba2-780m, granite-moe-3b-a800m, hymba-1.5b and
-     moonshot-v1-16b-a3b (its depth cut to ``MOONSHOT_LAYERS``), the
+ 17. the MLA, Mamba-2, MoE and hybrid families and the two stub
+     frontends on the serving path: for minicpm3-4b, mamba2-780m,
+     granite-moe-3b-a800m, hymba-1.5b, moonshot-v1-16b-a3b (its depth
+     cut to ``MOONSHOT_LAYERS``), qwen2-vl-7b (M-RoPE, 64 seeded patch
+     embeddings) and musicgen-medium (seeded frame embeddings), the
      smoke config on the card against the CPU (f32 logits of a prefill
-     and 3 decode steps within 2e-5), then at full width the f32
-     prefill/decode check (MoE without capacity drops) and, in bf16, 4
-     prompts of 1024 tokens and 32 greedy decode steps with the flash
-     launches of that run (one per layer for the GQA prefills of
-     granite-moe, hymba and moonshot; none for MLA and Mamba), prefill
-     and decode times, peak memory and the top device ops of one
-     prefill and of 4 decode steps; then the flash kernel against its
-     plain version and timed at those three prefill shapes; then the
+     and 3 decode steps within 2e-5; qwen2-vl with explicit grid
+     positions whose rows differ), then at full width the f32
+     prefill/decode check (MoE without capacity drops; qwen2-vl on
+     text) and, in bf16, 4 prompts of 1024 tokens and 32 greedy decode
+     steps with the flash launches of that run (one per layer for the
+     GQA prefills: granite-moe, hymba, moonshot, qwen2-vl 28, musicgen
+     48; none for MLA and Mamba), prefill and decode times, peak memory
+     and the top device ops of one prefill and of 4 decode steps; then
+     the flash kernel against its plain version and timed beside SDPA,
+     with its bound, at those five prefill shapes;
+ 18. every family trained at full width in f32 (the seven of phase 17),
+     4 x 1024 tokens a step, 1 MiB buckets, on a one-rank ``nccl``
+     group: partitioned for 3 steps, bulk and per_leaf for 1, depth cut
+     only where the reckoned step would leave less than a quarter of
+     the card free (each cut printed); all-reduces a step against the
+     plan's buckets plus the loss's, pack/unpack launches a step
+     against the plan's multi-leaf buckets, the step-0 loss within
+     [0.5, 1.5] ln V and equal across the modes, the smoke config
+     trained on the CPU and on the card within the CPU tests'
+     tolerances; step ms, tokens/s, peak memory, and the device idle
+     share and pack/unpack device ms of one profiled step; then the
      kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -147,6 +163,11 @@ and dequantized values at the non-finite elements), as one JSON line.
 runs phase 17 alone on the model code of ``TREE`` and prints, as one
 JSON line, each family's prefill and decode ms and peak memory: the way
 to hold two versions of the model code against each other in one call.
+
+    python3 chip_smoke.py --train-families [TREE]
+
+does the same for phase 18: each family's layers, step ms, tokens/s,
+peak memory, idle share and pack/unpack device ms, and the depth cuts.
 """
 
 from __future__ import annotations
@@ -913,45 +934,179 @@ def quant_phase(dev, small: bool = False) -> float:
     return err
 
 
-def _expected_packs(model, mode: str, aggr: int) -> int:
-    """Multi-leaf buckets of one step's sync: the pack (and unpack)
-    launches the plan asks for."""
-    from repro_torch.core import bucketing
+def _sync_groups(model, mode: str, aggr: int) -> list:
+    """The leaf groups of one step's sync in ``mode``, each with the
+    aggregation its plan is made with: partitioned syncs the leaves
+    outside the layers and each layer's leaves on their own (``aggr``),
+    bulk all leaves in 256 MiB buckets, per_leaf each leaf alone."""
     from repro_torch.models import lm
-
-    def multi(leaves, a):
-        plan = bucketing.make_plan([s for _, s in leaves], a)
-        return sum(len(b.leaf_ids) > 1 for b in plan.buckets)
     leaves = lm.param_leaves(model.named_parameters())
     if mode == "partitioned":
         rest = [lf for lf in leaves if not lf[0].startswith("layers.")]
-        return multi(rest, aggr) + sum(
-            multi(lm.param_leaves(lp.named_parameters()), aggr)
-            for lp in model.layers)
-    return multi(leaves, 256 << 20 if mode == "bulk" else 0)
+        return [(rest, aggr)] + [(lm.param_leaves(lp.named_parameters()),
+                                  aggr) for lp in model.layers]
+    return [(leaves, 256 << 20 if mode == "bulk" else 0)]
+
+
+def _plans(model, mode: str, aggr: int) -> list:
+    """(leaves, bucket plan) of each group of :func:`_sync_groups`."""
+    from repro_torch.core import bucketing
+    return [(leaves, bucketing.make_plan([s for _, s in leaves], a))
+            for leaves, a in _sync_groups(model, mode, aggr) if leaves]
+
+
+def _expected_packs(model, mode: str, aggr: int) -> int:
+    """Multi-leaf buckets of one step's sync: the pack (and unpack)
+    launches the plan asks for."""
+    return sum(len(b.leaf_ids) > 1 for _, plan in _plans(model, mode, aggr)
+               for b in plan.buckets)
 
 
 def _expected_all_reduces(model, mode: str, aggr: int) -> int:
     """All-reduces of one step's sync: one per bucket of the plan, as the
     JAX package issues them (a stacked leaf is one), plus the loss's."""
-    from repro_torch.core import bucketing
-    from repro_torch.models import lm
+    return 1 + sum(plan.n_buckets for _, plan in _plans(model, mode, aggr))
 
-    def buckets(leaves, a):
-        return bucketing.make_plan([s for _, s in leaves], a).n_buckets
-    leaves = lm.param_leaves(model.named_parameters())
-    if mode == "partitioned":
-        rest = [lf for lf in leaves if not lf[0].startswith("layers.")]
-        return 1 + buckets(rest, aggr) + sum(
-            buckets(lm.param_leaves(lp.named_parameters()), aggr)
-            for lp in model.layers)
-    return 1 + buckets(leaves, 256 << 20 if mode == "bulk" else 0)
+
+def _pack_vs_plain(model, mode: str, aggr: int, what: str) -> dict:
+    """The pack and unpack kernels against their plain versions, bitwise,
+    on ``model``'s gradients in every bucket that ``mode``'s sync packs
+    (the plan's multi-leaf buckets), and the unpacked pieces against the
+    gradients they were packed from.  The launch counts are restored
+    after: these comparisons are not the path's launches."""
+    from repro_torch.kernels import bucket_pack as bp
+    saved = dict(bp.LAUNCHES)
+    n, nbytes = 0, 0
+    for leaves, plan in _plans(model, mode, aggr):
+        for b in plan.buckets:
+            if len(b.leaf_ids) < 2:
+                continue
+            segs = [p.grad for i in b.leaf_ids for p in leaves[i][1]]
+            flat, ref = bp.bucket_pack(segs), bp.bucket_pack_plain(segs)
+            check(_same_bits(flat, ref), f"{what}: the pack kernel and its"
+                  f" plain version differ on bucket {n} ({len(segs)}"
+                  f" segments, {flat.numel()} elements)")
+            got = bp.bucket_unpack(flat, segs)
+            want = bp.bucket_unpack_plain(ref, segs)
+            check(all(_same_bits(x, y) and _same_bits(x, s)
+                      for x, y, s in zip(got, want, segs)),
+                  f"{what}: the unpack kernel, its plain version and the"
+                  f" packed gradients differ on bucket {n}")
+            n += 1
+            nbytes += flat.numel() * flat.element_size()
+            del flat, ref, got, want
+    bp.LAUNCHES.update(saved)
+    return {"buckets": n, "bytes": nbytes}
+
+
+def _step0_against_first(first: dict, recs: dict, mode: str, what: str,
+                         *, tol: float = 1e-6, leaf_scale: bool = False):
+    """An ``at_step0`` for :func:`_train_mode`: the first mode's step-0
+    loss and synced gradients are kept in ``first``, the gradients in
+    one flat host buffer (pinned when they lie on the card, so that the
+    copies run at the link's rate); every later mode's must give the
+    same loss and gradients within ``tol`` relative to each element, or
+    with ``leaf_scale`` to the largest |gradient| of its leaf (for a
+    backward whose sums run in an order that varies from run to run, as
+    MoE dispatch's scatter-adds may, while a misplaced piece of a bucket
+    is off by the leaf's scale).  Each leaf is copied back and compared
+    on the gradients' device; each that differs is listed under
+    ``recs[mode]["grad_diff"]`` with its relative difference."""
+    import torch
+
+    def rel(t, ref):
+        scale = ref.abs().max() if leaf_scale else ref.abs()
+        return float(((t - ref).abs() / scale.clamp_min(1e-30)).max())
+
+    def at_step0(state, loss0):
+        rec = recs.setdefault(mode, {"grad_diff": []})
+        grads = [(n, p.grad) for n, p in state["params"].named_parameters()]
+        dev = grads[0][1].device
+        if not first:
+            check(all(g.dtype == torch.float32 for _, g in grads),
+                  f"{what}: step-0 gradients not all f32")
+            buf = torch.empty(sum(g.numel() for _, g in grads),
+                              pin_memory=dev.type == "cuda")
+            views, off = {}, 0
+            for n, g in grads:
+                views[n] = buf[off:off + g.numel()].view(g.shape)
+                views[n].copy_(g, non_blocking=True)
+                off += g.numel()
+            _sync(dev)
+            first.update(loss=loss0, grads=views)
+            return
+        diff = []
+        for n, g in grads:
+            ref = first["grads"][n].to(dev, non_blocking=True)
+            if not torch.equal(g, ref):
+                diff.append((n, rel(g, ref)))
+        rec["grad_diff"] = diff = sorted(diff, key=lambda nd: -nd[1])
+        check(not diff or diff[0][1] <= tol,
+              f"{what}: step-0 gradients differ from the first mode's"
+              f" beyond {tol} relative"
+              f"{' to their leaf' if leaf_scale else ''}: {diff[:3]}")
+        check(loss0 == first["loss"], f"{what}: step-0 loss {loss0!r} !="
+              f" the first mode's {first['loss']!r}")
+    return at_step0
 
 
 def _sync(dev):
     import torch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _train_mode(cfg, mode: str, n_steps: int, batches, dev, *, seq: int,
+                batch: int, total_steps: int, at_step0=None):
+    """``n_steps`` training steps of ``cfg`` in sync ``mode`` from fresh
+    weights (seed 0) on ``batches``, through ``make_train_step`` on the
+    one-rank group, ``TRAIN_AGGR`` buckets.  Checks finite losses,
+    all-reduces a step equal to the plan's buckets plus the loss's, and
+    on the card pack/unpack launches a step equal to the plan's
+    multi-leaf buckets; ``at_step0(state, loss)`` runs after step 0.
+    Returns (state, step function, record)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.launch import steps
+    on_card = dev.type == "cuda"
+    scfg = steps.StepConfig(sync_mode=mode, aggr_bytes=TRAIN_AGGR,
+                            param_dtype="float32", warmup_steps=1,
+                            total_steps=total_steps)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = steps.build_state(cfg, 0, dev, scfg.adam)
+    step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=batch,
+                                 device=dev)
+    want = _expected_packs(state["params"], mode, TRAIN_AGGR)
+    want_ar = _expected_all_reduces(state["params"], mode, TRAIN_AGGR)
+    losses, times, packs, n_ar = [], [], [], []
+    for i in range(n_steps):
+        before = dict(bp.LAUNCHES)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, loss = step(state, batches[i])
+        losses.append(loss.item())
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        packs.append((bp.LAUNCHES["bucket_pack"] - before["bucket_pack"],
+                      bp.LAUNCHES["bucket_unpack"] - before["bucket_unpack"]))
+        n_ar.append(step.log.count())
+        if i == 0 and at_step0 is not None:
+            at_step0(state, losses[0])
+    what = f"train {cfg.name} {mode}"
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
+    check(not on_card or all(p == (want, want) for p in packs),
+          f"{what}: pack/unpack launches per step {packs}, the plan has"
+          f" {want} multi-leaf buckets")
+    check(all(c == want_ar for c in n_ar),
+          f"{what}: all-reduces per step {n_ar}, the plan has"
+          f" {want_ar - 1} buckets and the loss one")
+    return state, step, {
+        "losses": losses, "times_ms": times, "packs": packs,
+        "plan_multi": want, "n_all_reduce": n_ar, "plan_all_reduce": want_ar,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if on_card else None)}
 
 
 def training_phase(dev, small: bool = False) -> dict:
@@ -963,7 +1118,6 @@ def training_phase(dev, small: bool = False) -> dict:
     step against the plan, and equal step-0 losses and synced gradients
     across the modes; then the smoke config trained 3 steps on the CPU
     and on the card.  Returns what phase 14 and the kernel table need."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import pipeline
@@ -981,7 +1135,7 @@ def training_phase(dev, small: bool = False) -> dict:
                for i in range(n_max + 1)]
     on_card = dev.type == "cuda"
     out = {"cfg": cfg, "tokens": batch * seq, "modes": {}}
-    grads0 = None
+    first = {}  # partitioned's step-0 loss and synced gradients
     for k in bp.LAUNCHES:
         bp.LAUNCHES[k] = 0
     for k in bp.ROUTES:
@@ -990,64 +1144,17 @@ def training_phase(dev, small: bool = False) -> dict:
         q8.LAUNCHES[k] = 0
     t_main = time.perf_counter()
     for mode, n_steps in TRAIN_MODES:
-        scfg = steps.StepConfig(sync_mode=mode, aggr_bytes=TRAIN_AGGR,
-                                param_dtype="float32", warmup_steps=1,
-                                total_steps=n_max)
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(dev)
-        state = steps.build_state(cfg, 0, dev, scfg.adam)
-        step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=batch,
-                                     device=dev)
-        want = _expected_packs(state["params"], mode, TRAIN_AGGR)
-        want_ar = _expected_all_reduces(state["params"], mode, TRAIN_AGGR)
-        losses, times, packs, n_ar = [], [], [], []
-        for i in range(n_steps):
-            before = dict(bp.LAUNCHES)
-            _sync(dev)
-            t0 = time.perf_counter()
-            state, loss = step(state, batches[i])
-            losses.append(loss.item())
-            _sync(dev)
-            times.append((time.perf_counter() - t0) * 1e3)
-            packs.append((bp.LAUNCHES["bucket_pack"] - before["bucket_pack"],
-                          bp.LAUNCHES["bucket_unpack"]
-                          - before["bucket_unpack"]))
-            n_ar.append(step.log.count())
-            if i == 0:  # step-0 synced gradients, kept on the host
-                g = {n: p.grad.cpu() for n, p in
-                     state["params"].named_parameters()}
-                if grads0 is None:
-                    grads0 = g
-                    loss0 = losses[0]
-                else:
-                    diff = [(n, float(((t - grads0[n]).abs()
-                                       / grads0[n].abs().clamp_min(1e-30))
-                                      .max()))
-                            for n, t in g.items()
-                            if not torch.equal(t, grads0[n])]
-                    out["modes"][mode] = {"grad_diff": diff}
-                    check(not diff or max(d for _, d in diff) <= 1e-6,
-                          f"{mode}: step-0 gradients differ from"
-                          f" partitioned beyond 1e-6 relative: {diff[:3]}")
-                    check(losses[0] == loss0,
-                          f"{mode}: step-0 loss {losses[0]!r} !="
-                          f" partitioned {loss0!r}")
-        check(all(np.isfinite(losses)), f"{mode}: non-finite loss {losses}")
+        at_step0 = _step0_against_first(first, out["modes"], mode,
+                                        f"train {cfg.name} {mode}")
+        state, step, m = _train_mode(cfg, mode, n_steps, batches, dev,
+                                     seq=seq, batch=batch, total_steps=n_max,
+                                     at_step0=at_step0)
         if not small:
-            check(LOSS0_RANGE[0] <= losses[0] <= LOSS0_RANGE[1],
-                  f"{mode}: step-0 loss {losses[0]!r} outside {LOSS0_RANGE}")
-        check(not on_card or all(p == (want, want) for p in packs),
-              f"{mode}: pack/unpack launches per step {packs}, the plan"
-              f" has {want} multi-leaf buckets")
-        check(all(c == want_ar for c in n_ar),
-              f"{mode}: all-reduces per step {n_ar}, the plan has"
-              f" {want_ar - 1} buckets and the loss one")
+            check(LOSS0_RANGE[0] <= m["losses"][0] <= LOSS0_RANGE[1],
+                  f"{mode}: step-0 loss {m['losses'][0]!r} outside"
+                  f" {LOSS0_RANGE}")
         rec = out["modes"].setdefault(mode, {"grad_diff": []})
-        rec.update(losses=losses, times_ms=times, packs=packs,
-                   plan_multi=want, n_all_reduce=n_ar,
-                   plan_all_reduce=want_ar,
-                   peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
-                             if on_card else None))
+        rec.update(m)
         if on_card:  # one more step, under the profiler
             rec["profile"] = _device_split(
                 lambda: step(state, batches[n_steps]), dev)
@@ -1057,7 +1164,7 @@ def training_phase(dev, small: bool = False) -> dict:
     out["launches"] = {**bp.LAUNCHES, **q8.LAUNCHES}
     out["routes"] = dict(bp.ROUTES)
     out["main_s"] = time.perf_counter() - t_main
-    del grads0
+    first.clear()
     for mode, rec in out["modes"].items():
         ms = sorted(rec["times_ms"][1:]) or rec["times_ms"]
         rec["step_ms"] = ms[len(ms) // 2]
@@ -1082,21 +1189,23 @@ def training_phase(dev, small: bool = False) -> dict:
     return out
 
 
-def _cpu_vs_card(dev) -> dict:
-    """The smoke config trained 3 steps from the same weights and batches
-    on the CPU (its own gloo group) and on the card: losses within
-    ``TRAIN_LOSS_RTOL``, step-0 synced gradients within
-    ``TRAIN_GRAD_TOL``."""
+def _cpu_vs_card(dev, arch: str = "llama3.2-1b") -> dict:
+    """``arch``'s smoke config trained 3 steps from the same weights and
+    batches on the CPU (its own gloo group) and on the card: losses
+    within ``TRAIN_LOSS_RTOL``, step-0 synced gradients within
+    ``TRAIN_GRAD_TOL``.  qwen2-vl runs 96 tokens (64 patches) with
+    explicit grid positions."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import pipeline
     from repro_torch.launch import steps
-    cfg = get_smoke_config("llama3.2-1b").replace(param_dtype="float32")
+    cfg = get_smoke_config(arch).replace(param_dtype="float32")
     scfg = steps.StepConfig(sync_mode="partitioned", aggr_bytes=1 << 12,
                             param_dtype="float32", warmup_steps=1,
                             total_steps=6)
-    stream = pipeline.for_model(cfg, 64, 4)
+    seq = 96 if cfg.frontend == "vision_stub" else 64
+    stream = pipeline.for_model(cfg, seq, 4)
     card = steps.build_state(cfg, 0, dev)
     cpu = steps.build_state(cfg, 0, "cpu")
     with torch.no_grad():
@@ -1107,11 +1216,11 @@ def _cpu_vs_card(dev) -> dict:
     for name, st, d, group in (("card", card, dev, None),
                                ("cpu", cpu, torch.device("cpu"),
                                 dist.new_group(backend="gloo"))):
-        step = steps.make_train_step(cfg, scfg, seq_len=64, batch=4,
+        step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=4,
                                      group=group, device=d)
         losses, g0 = [], None
         for i in range(3):
-            st, loss = step(st, steps.batch_to_device(stream.batch(i), d))
+            st, loss = step(st, _train_batch(cfg, stream, i, d))
             losses.append(loss.item())
             if i == 0:
                 g0 = {n: p.grad.detach().cpu().clone()
@@ -1122,12 +1231,29 @@ def _cpu_vs_card(dev) -> dict:
     gerr = max(float(((gc[n] - gh[n]).abs()
                       - rtol * gh[n].abs()).max()) for n in gh)
     lerr = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
-    print(f"train smoke cpu vs card, 3 steps: losses card {lc} cpu {lh}"
-          f" (max rel {lerr!r}, tol {TRAIN_LOSS_RTOL}); step-0 gradients"
-          f" max(|d| - {rtol}|g|) = {gerr!r} (tol {atol})")
-    check(lerr <= TRAIN_LOSS_RTOL, "smoke training: cpu and card losses differ")
-    check(gerr <= atol, "smoke training: cpu and card gradients differ")
+    print(f"train {arch} smoke cpu vs card, 3 steps: losses card {lc} cpu"
+          f" {lh} (max rel {lerr!r}, tol {TRAIN_LOSS_RTOL}); step-0"
+          f" gradients max(|d| - {rtol}|g|) = {gerr!r} (tol {atol})")
+    check(lerr <= TRAIN_LOSS_RTOL,
+          f"{arch} smoke training: cpu and card losses differ")
+    check(gerr <= atol, f"{arch} smoke training: cpu and card gradients"
+          f" differ")
     return {"loss_rel": lerr, "grad_excess": gerr}
+
+
+def _train_batch(cfg, stream, i: int, dev):
+    """Batch ``i`` of the data stream on ``dev``; the vision stub's gets
+    explicit M-RoPE grid positions over its 64 patches (the stream makes
+    none, and the train step needs them)."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    b = steps.batch_to_device(stream.batch(i), dev)
+    if cfg.mrope_sections is not None:
+        n, s = b["tokens"].shape
+        b["positions"] = torch.from_numpy(
+            pipeline.grid_positions(n, s, 1, 8, 8)).to(dev)
+    return b
 
 
 def _bytes_bound(nbytes: int):
@@ -1697,13 +1823,16 @@ def planner_phase(dev, baseline: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 17: the MLA, Mamba-2, MoE and hybrid families on the serving path
+# Phase 17: the MLA, Mamba-2, MoE and hybrid families and the two stub
+# frontends on the serving path
 # ---------------------------------------------------------------------------
 
 # In the order they run; the flash kernel launches once per layer in a
-# GQA prefill (granite-moe, hymba, moonshot), never for MLA and Mamba.
+# GQA prefill (granite-moe, hymba, moonshot, qwen2-vl, musicgen), never
+# for MLA and Mamba.
 FAMILY_ARCHS = ("minicpm3-4b", "mamba2-780m", "granite-moe-3b-a800m",
-                "hymba-1.5b", "moonshot-v1-16b-a3b")
+                "hymba-1.5b", "moonshot-v1-16b-a3b", "qwen2-vl-7b",
+                "musicgen-medium")
 # moonshot-v1-16b-a3b's 48 layers are 56 GB in bf16 and 112 GB in f32:
 # it runs at full width with its depth cut to this.
 MOONSHOT_LAYERS = 8
@@ -1712,16 +1841,21 @@ MOONSHOT_LAYERS = 8
 FAMILY_CARD_TOL = 2e-5
 # The prefill shapes this phase gives the flash kernel, bf16 (name, B,
 # H, Hkv, Sq, Sk, D, causal, window, softcap): granite-moe, moonshot,
-# hymba (25 heads, window 1024 on all layers but 0, 16 and 31).
+# hymba (25 heads, window 1024 on all layers but 0, 16 and 31), qwen2-vl
+# (a GQA group of 7 at D 128), musicgen (plain MHA at D 64).
 FAMILY_FLASH_CASES = (
     ("granite-moe-prefill", 4, 24, 8, 1024, 1024, 64, True, 0, None),
     ("moonshot-prefill", 4, 16, 16, 1024, 1024, 128, True, 0, None),
     ("hymba-prefill-window", 4, 25, 5, 1024, 1024, 64, True, 1024, None),
+    ("qwen2-vl-prefill", 4, 28, 4, 1024, 1024, 128, True, 0, None),
+    ("musicgen-prefill", 4, 24, 24, 1024, 1024, 64, True, 0, None),
 )
 FAMILY_FLASH_CASES_SMALL = (
     ("granite-moe-prefill", 1, 6, 2, 96, 96, 64, True, 0, None),
     ("moonshot-prefill", 1, 4, 4, 96, 96, 128, True, 0, None),
     ("hymba-prefill-window", 1, 5, 1, 96, 96, 64, True, 32, None),
+    ("qwen2-vl-prefill", 1, 7, 1, 96, 96, 128, True, 0, None),
+    ("musicgen-prefill", 1, 4, 4, 96, 96, 64, True, 0, None),
 )
 
 
@@ -1738,26 +1872,37 @@ def _family_config(arch: str, small: bool):
 def _family_card_vs_cpu(arch: str, dev) -> float:
     """The smoke config on ``dev`` against the same weights and prompts
     on the CPU: f32 logits of a prefill and 3 decode steps fed the CPU
-    run's greedy tokens.  Returns the largest |difference|."""
+    run's greedy tokens (musicgen: seeded frames; qwen2-vl: 64 patches
+    over 96 tokens with explicit grid positions, whose rows differ).
+    Returns the largest |difference|."""
     import copy
     import torch
     from repro_torch import serve
     from repro_torch.configs import get_smoke_config
+    from repro_torch.data import pipeline
     from repro_torch.models import lm
     cfg = get_smoke_config(arch)
     cpu = serve.build_model(cfg, 0, "cpu")
+    s = 96 if cfg.frontend == "vision_stub" else 24
+    prompts, extra = serve.serving_inputs(cfg, 2, s, 3, 1, "cpu")
+    batch = lm.input_batch(cfg, prompts)
+    if "patch_embeds" in extra:
+        batch.update(patch_embeds=extra["patch_embeds"],
+                     positions=torch.from_numpy(
+                         pipeline.grid_positions(2, s, 1, 8, 8)))
 
     def run_on(d, model, fed):
-        cache = lm.init_cache(cfg, 2, 28, device=d)
+        cache = lm.init_cache(cfg, 2, s + 4, device=d)
         logits, cache = lm.prefill(
-            cfg, model, {"tokens": serve.make_prompts(cfg, 2, 24, 1, d)},
-            cache=cache)
+            cfg, model, {k: v.to(d) for k, v in batch.items()}, cache=cache)
         out = [logits.cpu()[:, :cfg.vocab]]
-        for i, t in enumerate(range(24, 27)):
+        for i, t in enumerate(range(s, s + 3)):
             if len(fed) == i:
                 fed.append(out[-1].argmax(-1))
-            logits, cache = lm.decode_step(cfg, model, cache,
-                                           fed[i].to(d), t)
+            frame = extra.get("frames")
+            logits, cache = lm.decode_step(
+                cfg, model, cache, fed[i].to(d), t,
+                embeds=None if frame is None else frame[:, i:i + 1].to(d))
             out.append(logits.cpu()[:, :cfg.vocab])
         return out
     fed = []
@@ -1797,7 +1942,7 @@ def family_phase(dev, small: bool = False) -> dict:
         card_err = _family_card_vs_cpu(arch, dev)
         cfg = _family_config(arch, small)
         model = serve.build_model(cfg, 0, dev)  # f32
-        taps = ("conv_x", "conv_B", "conv_C")
+        taps = ("conv_x", "conv_B", "conv_C", "bq", "bk", "bv")
         n_matrix = sum(p.numel() for n, p in model.named_parameters()
                        if p.dim() >= 2 and n.rsplit(".", 1)[-1] not in taps)
         check(n_matrix == cfg.param_count(),
@@ -1810,8 +1955,9 @@ def family_phase(dev, small: bool = False) -> dict:
         model = lm.cast(model, getattr(torch, scfg.param_dtype))
         if on_card:
             torch.cuda.empty_cache()
-        prompts = serve.make_prompts(cfg, batch, prompt_len, 2, dev)
-        serve.generate(cfg, scfg, model, prompts, 1)  # warm-up
+        prompts, extra = serve.serving_inputs(cfg, batch, prompt_len, gen,
+                                              2, dev)
+        serve.generate(cfg, scfg, model, prompts, 1, **extra)  # warm-up
         t_setup = time.perf_counter() - t0
 
         # the main path: counts at 0 just before, read just after
@@ -1820,7 +1966,7 @@ def family_phase(dev, small: bool = False) -> dict:
             torch.cuda.reset_peak_memory_stats()
         for key in fa.LAUNCHES:
             fa.LAUNCHES[key] = 0
-        runs = [serve.generate(cfg, scfg, model, prompts, gen)]
+        runs = [serve.generate(cfg, scfg, model, prompts, gen, **extra)]
         launches = dict(fa.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         gqa = cfg.mixer in ("attn", "hybrid") and cfg.mla is None
@@ -1835,7 +1981,7 @@ def family_phase(dev, small: bool = False) -> dict:
               f"{arch}: prefill logits")
         check(tuple(toks.shape) == (batch, gen) and int(toks.min()) >= 0
               and int(toks.max()) < cfg.vocab, f"{arch}: generated tokens")
-        runs += [serve.generate(cfg, scfg, model, prompts, gen)
+        runs += [serve.generate(cfg, scfg, model, prompts, gen, **extra)
                  for _ in range(2)]
         prefill_ms = sorted(r["prefill_ms"] for r in runs)[1]
         decode_ms = sorted(r["decode_ms_per_token"] for r in runs)[1]
@@ -1862,12 +2008,18 @@ def family_phase(dev, small: bool = False) -> dict:
                                       batch=batch, device=dev)
             cache = make_cache(cfg, scfg, batch=batch, max_len=max_len,
                                device=dev)
+            audio = lm.input_key(cfg) == "embeds"
+            pbatch = lm.input_batch(
+                cfg, prompts,
+                **{k: v for k, v in extra.items() if k != "frames"})
+            tok, frame = ((None, extra["frames"][:, :1]) if audio
+                          else (prompts[:, -1], None))
 
             def steps4():
                 for t in range(prompt_len, max_len):
-                    decode(model, cache, prompts[:, -1], t)
+                    decode(model, cache, tok, t, embeds=frame)
             for name, fn, n in (
-                    ("prefill", lambda: prefill(model, prompts, cache), 1),
+                    ("prefill", lambda: prefill(model, pbatch, cache), 1),
                     ("decode", steps4, 4)):
                 wall, busy, events, top = _device_split(fn, dev)
                 tops = "; ".join(f"{k[:48]} {t / n:.3f} ms x{c / n:g}"
@@ -1878,7 +2030,7 @@ def family_phase(dev, small: bool = False) -> dict:
                       f" device events; top: {tops}")
         out[arch] = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
                      "peak_bytes": peak, "launches": launches}
-        del model, prompts, runs, logits
+        del model, prompts, extra, runs, logits
         if on_card:
             torch.cuda.empty_cache()
 
@@ -1901,6 +2053,199 @@ def family_phase(dev, small: bool = False) -> dict:
               f" max_abs_err {err!r} (within {tol})")
         out[case[0]] = _flash_times(case, torch.bfloat16, dev, reps)
         del q, k, v, got, want, g32, w32
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: training of every family at full width
+# ---------------------------------------------------------------------------
+
+# The families and stub frontends (llama3.2-1b is phase 13), in the
+# order they run, and the modes with their steps.
+TRAIN_FAMILY_ARCHS = FAMILY_ARCHS
+TRAIN_FAMILY_MODES = (("partitioned", 3), ("bulk", 1), ("per_leaf", 1))
+# Step-0 synced gradients of the three modes, relative to the largest
+# |gradient| of each leaf: the MoE backward's scatter-adds sum in a
+# varying order (run to run 5.4e-7 on moonshot's smoke config on the
+# CPU); a misplaced or corrupted piece of a bucket is off by about 1.
+TRAIN_FAMILY_GRAD_TOL = 1e-5
+# The share of the card's memory a step may reckon to use.
+TRAIN_MEM_SHARE = 0.75
+
+
+def _train_bytes(cfg, batch: int, seq: int) -> float:
+    """Reckoned peak device bytes of an f32 training step: 16 B a
+    parameter (weights, gradients, two AdamW moments), the layer inputs
+    that remat keeps, and the largest transient of three: the CE
+    chunk's logits with their softmax and gradient, the f32 temporaries
+    of AdamW's update of the largest leaf (up to seven live at once in
+    ``optim.adamw.adamw_update``), and one layer recomputed in
+    backward (12 f32 activations of its widest hidden per token, and
+    the attention scores of a query chunk three times over)."""
+    tokens, d = batch * seq, cfg.d_model
+    largest = cfg.vocab_padded * d
+    width = max(cfg.d_ff, d)
+    if cfg.moe is not None:
+        mo = cfg.moe
+        largest = max(largest, mo.e_pad * d * mo.d_expert)
+        width = max(width, int(mo.capacity_factor * mo.top_k
+                               * mo.d_expert) + mo.e_pad)
+    if cfg.mamba is not None:
+        width = max(width, 3 * cfg.mamba.d_inner(d))
+    scores = 3 * batch * cfg.n_heads_padded * min(cfg.q_chunk, seq) * seq
+    ws = max(3 * batch * min(cfg.loss_chunk, seq) * cfg.vocab_padded,
+             7 * largest, 12 * tokens * width + scores)
+    return 4 * (4 * cfg.param_count(padded=True) + cfg.n_layers * tokens * d
+                + ws)
+
+
+def train_depth(cfg, batch: int, seq: int, total: int) -> int:
+    """The most layers, up to the config's, whose reckoned step
+    (:func:`_train_bytes`) keeps a quarter of ``total`` bytes free."""
+    n = cfg.n_layers
+    while n > 1 and _train_bytes(cfg.replace(n_layers=n), batch, seq) \
+            > TRAIN_MEM_SHARE * total:
+        n -= 1
+    return n
+
+
+def train_family_phase(dev, small: bool = False) -> dict:
+    """Phase 18: every family trained at full width in f32 (the smoke
+    configs when ``small``), 4 x 1024 tokens a step, 1 MiB buckets, on
+    the one-rank group: partitioned for 3 steps, bulk and per_leaf for
+    1, each from the same weights and batches.  Depth is cut only where
+    the reckoned step (:func:`train_depth`) would leave less than a
+    quarter of the card free; each cut is printed and listed.  Checks:
+    all-reduces a step equal the plan's buckets plus the loss's,
+    pack/unpack launches a step equal the plan's multi-leaf buckets, a
+    finite step-0 loss within [0.5, 1.5] ln V, the same step-0 loss in
+    the three modes and step-0 synced gradients within
+    ``TRAIN_FAMILY_GRAD_TOL`` of their leaf's scale (per_leaf packs
+    nothing, so partitioned and bulk are held against the sync without
+    a pack kernel), on the card the pack and unpack
+    kernels bitwise against their plain versions on every bucket of the
+    step-0 gradients that partitioned and bulk pack, and the smoke
+    config's step-0 gradients and losses on the card against the CPU.
+    Reports step ms, tokens/s, peak memory, and from a profile of one
+    more partitioned step the device idle share and the pack/unpack
+    kernels' device ms."""
+    import math
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import bucket_pack as bp
+
+    on_card = dev.type == "cuda"
+    batch = 4
+    total = torch.cuda.mem_get_info(dev)[1] if on_card else 0
+    out, cuts = {}, []
+    n_max = max(n for _, n in TRAIN_FAMILY_MODES)
+    for arch in TRAIN_FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = (get_smoke_config if small else get_config)(arch).replace(
+            param_dtype="float32")
+        seq = (96 if small else 1024) if cfg.frontend == "vision_stub" \
+            else (64 if small else 1024)
+        if on_card and not small:
+            depth = train_depth(cfg, batch, seq, total)
+            if depth < cfg.n_layers:
+                cuts.append((arch, depth, cfg.n_layers))
+                print(f"train {arch}: depth cut to {depth} of"
+                      f" {cfg.n_layers} layers (reckoned"
+                      f" {_train_bytes(cfg, batch, seq) / 1e9:.1f} GB at"
+                      f" full depth,"
+                      f" {_train_bytes(cfg.replace(n_layers=depth), batch, seq) / 1e9:.1f}"
+                      f" GB cut, budget {TRAIN_MEM_SHARE * total / 1e9:.1f}"
+                      f" GB)")
+                cfg = cfg.replace(n_layers=depth)
+        stream = pipeline.for_model(cfg, seq, batch)
+        batches = [_train_batch(cfg, stream, i, dev)
+                   for i in range(n_max + 1)]
+        rec = {"layers": cfg.n_layers, "params": cfg.param_count(),
+               "reckoned_gb": _train_bytes(cfg, batch, seq) / 1e9,
+               "modes": {}}
+        for key in bp.LAUNCHES:  # counts at 0 just before the path
+            bp.LAUNCHES[key] = 0
+        first = {}  # partitioned's step-0 loss and synced gradients
+        for mode, n_steps in TRAIN_FAMILY_MODES:
+            what = f"train {arch} {mode}"
+            grads0 = _step0_against_first(first, rec["modes"], mode, what,
+                                          tol=TRAIN_FAMILY_GRAD_TOL,
+                                          leaf_scale=True)
+
+            def at_step0(state, loss0, mode=mode, what=what, grads0=grads0):
+                grads0(state, loss0)
+                if on_card:
+                    rec["modes"][mode]["pack_check"] = _pack_vs_plain(
+                        state["params"], mode, TRAIN_AGGR, what)
+            state, step, m = _train_mode(cfg, mode, n_steps, batches, dev,
+                                         seq=seq, batch=batch,
+                                         total_steps=n_max,
+                                         at_step0=at_step0)
+            lo, hi = 0.5 * math.log(cfg.vocab), 1.5 * math.log(cfg.vocab)
+            check(lo <= m["losses"][0] <= hi,
+                  f"{what}: step-0 loss {m['losses'][0]!r} outside"
+                  f" [{lo:.3f}, {hi:.3f}]")
+            check(mode != "per_leaf" or m["plan_multi"] == 0,
+                  f"{what}: the plan packs {m['plan_multi']} buckets; the"
+                  f" other modes' gradients are held against this one's as"
+                  f" the sync without a pack kernel")
+            if on_card and mode == "partitioned":
+                wall, busy, events, evs = _device_split(
+                    lambda: step(state, batches[n_steps]), dev)
+                pk = [(t, c) for t, k, c in evs if "bucket_kernel" in k]
+                m["profile"] = {
+                    "wall_ms": wall, "busy_ms": busy,
+                    "idle_share": 1 - busy / wall, "events": events,
+                    "pack_ms": sum(t for t, _ in pk),
+                    "pack_kernels": sum(c for _, c in pk),
+                    "nccl_ms": sum(t for t, k, _ in evs if "nccl" in k.lower()),
+                    "top": [(round(t, 3), k[:48]) for t, k, _ in evs[:4]]}
+            rec["modes"][mode].update(m)
+            del state, step
+            if on_card:
+                torch.cuda.empty_cache()
+        rec["launches"] = dict(bp.LAUNCHES)  # read just after
+        first.clear()
+        check(not on_card or rec["launches"]["bucket_pack"] > 0,
+              f"train {arch}: no pack kernel launched")
+        part = rec["modes"]["partitioned"]
+        ms = sorted(part["times_ms"][1:]) or part["times_ms"]
+        rec["step_ms"] = ms[len(ms) // 2]
+        rec["tokens_per_s"] = batch * seq / (rec["step_ms"] / 1e3)
+        rec["peak_gib"] = max((m["peak_gib"] or 0.0)
+                              for m in rec["modes"].values())
+        prof = part.get("profile", {})
+        print(f"train family {arch}{' smoke' if small else ''}"
+              f" ({cfg.n_layers} layers, d {cfg.d_model}, {rec['params']}"
+              f" parameters, reckoned {rec['reckoned_gb']:.1f} GB): "
+              + "; ".join(
+                  f"{mode} losses {m['losses']} ms"
+                  f" {[round(t, 3) for t in m['times_ms']]} all-reduces"
+                  f" {m['n_all_reduce']} (plan {m['plan_all_reduce'] - 1}"
+                  f" + 1) pack/unpack {m['packs']}, step-0 gradients vs"
+                  f" partitioned"
+                  f" {'bitwise equal' if not m['grad_diff'] else m['grad_diff'][:3]}"
+                  f", pack/unpack kernels vs plain bitwise on"
+                  f" {m.get('pack_check')}"
+                  for mode, m in rec["modes"].items())
+              + f"; step {rec['step_ms']:.3f} ms (partitioned, median after"
+              f" step 0), {rec['tokens_per_s']:.1f} tokens/s, peak"
+              f" {rec['peak_gib']:.3f} GiB"
+              f" ({rec['peak_gib'] * 2**30 / total if total else 0:.3f} of"
+              f" the card); profile of one partitioned step:"
+              f" wall {prof.get('wall_ms', float('nan')):.3f} ms, idle share"
+              f" {prof.get('idle_share', float('nan')):.3f}, pack/unpack"
+              f" kernels {prof.get('pack_ms', float('nan')):.3f} ms in"
+              f" {prof.get('pack_kernels')} launches, nccl"
+              f" {prof.get('nccl_ms', float('nan')):.3f} ms, top"
+              f" {prof.get('top')}")
+        if on_card:
+            rec["cpu_vs_card"] = _cpu_vs_card(dev, arch)
+        rec["wall_s"] = time.perf_counter() - t_arch
+        out[arch] = rec
+    print(f"train families: depth cuts {cuts or 'none'}")
+    out["cuts"] = cuts
     return out
 
 
@@ -2156,10 +2501,22 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     planner_phase(dev, baseline)
     print(f"phase 16 wall {time.perf_counter() - t0:.3f} s")
 
-    # 17. the MLA, Mamba-2, MoE and hybrid families -------------------------
+    # 17. the families and the stub frontends on the serving path -------
     t0 = time.perf_counter()
     family_phase(dev, small)
     print(f"phase 17 wall {time.perf_counter() - t0:.3f} s")
+
+    # 18. every family trained at full width --------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo", rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            train_family_phase(dev, small)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 18 wall {time.perf_counter() - t0:.3f} s")
     return {"kernels": [fabric, *flash, *train_kernels]}
 
 
@@ -2290,6 +2647,35 @@ def families_times(tree: Path) -> dict:
                          if arch in FAMILY_ARCHS}}
 
 
+def train_families_times(tree: Path) -> dict:
+    """Phase 18 on the port of the source tree ``tree``: each family's
+    layers, step ms, tokens/s, peak memory, device idle share and
+    pack/unpack device ms, the depth cuts, and the card's name and power
+    limit."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            out = train_family_phase(torch.device("cuda"))
+        finally:
+            dist.destroy_process_group()
+    keys = ("layers", "step_ms", "tokens_per_s", "peak_gib", "wall_s")
+    return {"tree": str(tree), "card": smi, "cuts": out["cuts"],
+            "families": {arch: {**{k: rec[k] for k in keys},
+                                "profile": rec["modes"]["partitioned"]
+                                .get("profile")}
+                         for arch, rec in out.items() if arch != "cuts"}}
+
+
 def _card_ready() -> bool:
     try:
         import torch
@@ -2310,7 +2696,8 @@ def main(argv=None) -> int:
     import torch
     tree = ROOT
     times = {"--fabric-times": fabric_times, "--quant8-times": quant8_times,
-             "--families": families_times}
+             "--families": families_times,
+             "--train-families": train_families_times}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port's counterpart of the JAX package's ``configs``: each ported
-architecture has its own module with the published config and a reduced
-``smoke_config``.  Dense GQA, MLA, Mamba-2, MoE and the Hymba hybrid run
-on the port; asking for one of the others (M-RoPE and the stub
-frontends) raises ``KeyError``.
+The port's counterpart of the JAX package's ``configs``: each of the JAX
+package's architectures has its own module with the published config
+and a reduced ``smoke_config``: dense GQA,
+M-RoPE with the vision stub (qwen2-vl), the audio stub (musicgen), MLA,
+Mamba-2, MoE and the Hymba hybrid.
 """
 
 from __future__ import annotations
@@ -21,20 +21,15 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "llama3.2-1b": "llama3_2_1b",
     "minicpm3-4b": "minicpm3_4b",
+    "musicgen-medium": "musicgen_medium",
     "mamba2-780m": "mamba2_780m",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
-
-# Architectures of the JAX package whose blocks are not ported yet
-# (M-RoPE with the vision stub, the audio frontend): ROADMAP queue 1.
-NOT_PORTED = ("musicgen-medium", "qwen2-vl-7b")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _mod(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP queue"
-                       f" 1, item 7); ported: {ARCH_IDS}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; one of {ARCH_IDS}")
     return import_module(f"{__name__}.{_MODULES[arch_id]}")

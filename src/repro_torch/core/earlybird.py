@@ -37,7 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..models.lm import param_leaves
+from ..models.lm import param_leaves, unread_params
 from .bucketing import bucketed_apply, leaf_nbytes
 
 
@@ -239,7 +239,10 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
     them by parameter name; the loss is averaged over the group too.
     In bulk and per_leaf mode each stacked leaf's gradients end as slices
     of one buffer (:func:`stack_layer_grads`), so every bucket of the
-    plan is one all-reduce.
+    plan is one all-reduce.  A parameter the model's config names as
+    unread (``lm.unread_params``: musicgen's ``embed``) gets a zero
+    gradient, as JAX's, and is synced and updated like any other; any
+    other parameter without a gradient raises.
     ``wrapped.log`` is the :class:`SyncLog` of the last call.
     """
     def wrapped(model, *args):
@@ -260,6 +263,11 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
         if left:
             raise RuntimeError(f"early-bird sync: layers {left} never got"
                                f" all their gradients")
+        cfg = getattr(model, "cfg", None)
+        for name in () if cfg is None else unread_params(cfg):
+            p = model.get_parameter(name)  # JAX's gradient: zeros
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         for name, p in model.named_parameters():
             if p.grad is None:
                 raise RuntimeError(f"early-bird sync: {name} got no"

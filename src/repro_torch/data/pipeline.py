@@ -101,3 +101,18 @@ def for_model(model_cfg, seq_len: int, global_batch: int, *, seed: int = 0,
                    global_batch=global_batch, seed=seed,
                    frontend=model_cfg.frontend, d_model=model_cfg.d_model),
         host_index=host_index, host_count=host_count)
+
+
+def grid_positions(b: int, s: int, t: int, h: int, w: int) -> np.ndarray:
+    """Qwen2-VL M-RoPE positions (3, b, s) int32: a t x h x w patch grid
+    first (rows temporal, height, width), then text whose three rows
+    continue together after the grid's largest index.  The stream makes
+    no positions; a batch with the vision stub's patches takes these."""
+    n = t * h * w
+    ti, hi, wi = np.meshgrid(np.arange(t), np.arange(h), np.arange(w),
+                             indexing="ij")
+    grid = np.stack([ti.ravel(), hi.ravel(), wi.ravel()])
+    text = np.broadcast_to(np.arange(s - n) + grid.max() + 1, (3, s - n))
+    pos = np.concatenate([grid, text], axis=1)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, s))
+                                ).astype(np.int32)

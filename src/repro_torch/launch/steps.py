@@ -62,6 +62,40 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
             for k, v in batch.items()}
 
 
+def _check_batch(what: str, cfg: lm.ModelConfig, b: Dict[str, Any],
+                 batch: int, seq_len: int, dev: torch.device, *,
+                 labels: bool = False) -> None:
+    """Raise ``ValueError`` unless every entry of ``b`` has its step's
+    shape on ``dev``: ``tokens`` (batch, seq_len), or ``embeds`` (batch,
+    seq_len, d) for the audio stub; ``labels`` as the tokens; where
+    present, ``positions`` (3, batch, seq_len) under M-RoPE, else
+    (batch, seq_len) or (seq_len,), and ``patch_embeds`` (batch, P, d)
+    with P <= seq_len."""
+    d = cfg.d_model
+    rows = (batch, seq_len)
+
+    def bad(name, t, need):
+        got = "missing" if t is None else f"{tuple(t.shape)} on {t.device}"
+        raise ValueError(f"{what}: {name} {got}, need {need} on {dev}")
+    key = lm.input_key(cfg)
+    want = {key: [(*rows, d) if key == "embeds" else rows]}
+    if labels:
+        want["labels"] = [rows]
+    if "positions" in b:
+        want["positions"] = ([(3, *rows)] if cfg.mrope_sections is not None
+                             else [rows, (seq_len,)])
+    for name, ok in want.items():
+        t = b.get(name)
+        if t is None or tuple(t.shape) not in ok \
+                or t.device.type != dev.type:
+            bad(name, t, " or ".join(map(str, ok)))
+    pe = b.get("patch_embeds")
+    if pe is not None and (pe.dim() != 3 or pe.shape[0] != batch
+                           or pe.shape[1] > seq_len or pe.shape[2] != d
+                           or pe.device.type != dev.type):
+        bad("patch_embeds", pe, f"({batch}, P <= {seq_len}, {d})")
+
+
 def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
                     batch: int, group=None, device="cuda") -> Callable:
     """``step_fn(state, batch) -> (state, loss)``: one training step on
@@ -84,13 +118,8 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
 
     def step_fn(state: Dict[str, Any], b: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
-        toks = b["tokens"]
-        if tuple(toks.shape) != (batch, seq_len) \
-                or tuple(b["labels"].shape) != (batch, seq_len) \
-                or toks.device.type != dev.type:
-            raise ValueError(f"train_step: tokens {tuple(toks.shape)} on"
-                             f" {toks.device}, need ({batch}, {seq_len})"
-                             f" on {dev}")
+        _check_batch("train_step", cfg, b, batch, seq_len, dev,
+                     labels=True)
         model = state["params"]
         loss, grads = vg(model, b)
         step_fn.log = vg.log
@@ -130,42 +159,49 @@ def _check_cache(cache, scfg: StepConfig, batch: int, need: int) -> None:
 
 def make_prefill_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
                       seq_len: int, batch: int, device="cuda") -> Callable:
-    """``prefill_step(params, tokens (batch, seq_len), cache) ->
-    (logits (batch, V) f32, cache)``; the cache is written in place."""
+    """``prefill_step(params, batch, cache) -> (logits (batch, V) f32,
+    cache)``, the cache written in place.  ``batch`` is the JAX step's
+    dict: ``tokens`` (batch, seq_len), or ``embeds`` (batch, seq_len, d)
+    for the audio stub; optionally ``patch_embeds`` and ``positions``.
+    A tensor is taken as the model input (:func:`lm.input_batch`)."""
     cfg = cfg.replace(param_dtype=scfg.param_dtype)
     dev = resolve_device(device)
 
-    def prefill_step(params: lm.LM, tokens: torch.Tensor, cache
-                     ) -> Tuple[torch.Tensor, Dict]:
-        if tuple(tokens.shape) != (batch, seq_len) \
-                or tokens.device.type != dev.type:
-            raise ValueError(f"prefill_step: tokens {tuple(tokens.shape)} on"
-                             f" {tokens.device}, need ({batch}, {seq_len})"
-                             f" on {dev}")
+    def prefill_step(params: lm.LM, b, cache) -> Tuple[torch.Tensor, Dict]:
+        if isinstance(b, torch.Tensor):
+            b = lm.input_batch(cfg, b)
+        _check_batch("prefill_step", cfg, b, batch, seq_len, dev)
         _check_cache(cache, scfg, batch, seq_len)
-        return lm.prefill(cfg, params, {"tokens": tokens}, cache=cache)
+        return lm.prefill(cfg, params, b, cache=cache)
 
     return prefill_step
 
 
 def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
                      seq_len: int, batch: int, device="cuda") -> Callable:
-    """``decode_step(params, cache, tokens (batch,), pos) -> (logits
-    (batch, V) f32, cache)``; ``seq_len`` is the cache length, one new
-    token is decoded at write offset ``pos``."""
+    """``decode_step(params, cache, tokens (batch,), pos, embeds=None)
+    -> (logits (batch, V) f32, cache)``; ``seq_len`` is the cache
+    length, one new token is decoded at write offset ``pos``.  The
+    audio stub decodes from ``embeds`` (batch, 1, d) instead of
+    tokens."""
     cfg = cfg.replace(param_dtype=scfg.param_dtype)
     dev = resolve_device(device)
+    key = lm.input_key(cfg)
 
-    def decode_step(params: lm.LM, cache, tokens: torch.Tensor, pos: int
+    def decode_step(params: lm.LM, cache, tokens: Optional[torch.Tensor],
+                    pos: int, embeds: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict]:
-        if tuple(tokens.shape) != (batch,) \
-                or tokens.device.type != dev.type:
-            raise ValueError(f"decode_step: tokens {tuple(tokens.shape)} on"
-                             f" {tokens.device}, need ({batch},) on {dev}")
+        x, need = ((embeds, (batch, 1, cfg.d_model)) if key == "embeds"
+                   else (tokens, (batch,)))
+        if x is None or tuple(x.shape) != need or x.device.type != dev.type:
+            got = "missing" if x is None else \
+                f"{tuple(x.shape)} on {x.device}"
+            raise ValueError(f"decode_step: {key} {got}, need {need} on"
+                             f" {dev}")
         if not 0 <= pos < seq_len:
             raise ValueError(f"decode_step: position {pos} outside the"
                              f" cache of {seq_len}")
         _check_cache(cache, scfg, batch, seq_len)
-        return lm.decode_step(cfg, params, cache, tokens, pos)
+        return lm.decode_step(cfg, params, cache, tokens, pos, embeds=embeds)
 
     return decode_step

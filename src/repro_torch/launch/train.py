@@ -15,12 +15,15 @@ Under ``torchrun`` the process group comes from the environment;
 otherwise a one-rank group is started through a ``FileStore`` in a
 temporary directory (``nccl`` on the card, ``gloo`` on the CPU), so the
 gradient all-reduce is always issued.  Tensor parallelism (``--tp``)
-waits for sharding (ROADMAP queue 1, item 9); the MLA, Mamba, MoE and
-hybrid architectures are refused (the port serves them; their training
-is ROADMAP queue 1, items 7-8).  ``--resume`` continues
-from the latest checkpoint (exact, because the data stream is stateless
-in the step index).  Prints the lines of the JAX package's
-``launch/train.py`` and one JSON line.
+waits for sharding (ROADMAP queue 1, item 9).  Every architecture
+trains but qwen2-vl-7b, which is refused (exit 2) as the JAX package's
+training CLI fails on it: the synthetic stream makes no M-RoPE
+``positions``, which its train step needs (``make_train_step`` trains
+it when the batch holds them).  musicgen-medium trains on the stream's
+frame embeddings; its unread ``embed`` gets a zero gradient, as in JAX.
+``--resume`` continues from the latest checkpoint (exact, because the
+data stream is stateless in the step index).  Prints the lines of the
+JAX package's ``launch/train.py`` and one JSON line.
 """
 
 from __future__ import annotations
@@ -107,12 +110,13 @@ def main(argv=None) -> int:
     if over:
         cfg = cfg.replace(**over, head_dim=0)
     cfg = cfg.replace(param_dtype=args.param_dtype)
-    if cfg.mixer != "attn" or cfg.mla is not None or cfg.moe is not None:
-        print(f"{cfg.name}: training of the MLA, Mamba, MoE and hybrid"
-              f" families is not ported yet (ROADMAP queue 1, item 7; their"
-              f" gradient sync: item 8); the port serves them"
-              f" (python -m repro_torch.serve --arch {args.arch})",
-              file=sys.stderr)
+    if cfg.mrope_sections is not None:
+        print(f"{cfg.name}: the synthetic data stream makes no M-RoPE"
+              f" positions (3, B, S), which the train step needs; the JAX"
+              f" package's training CLI (python -m repro.launch.train"
+              f" --arch {args.arch}) fails on the same batch."
+              f"  make_train_step"
+              f" trains it on batches that hold them.", file=sys.stderr)
         return 2
 
     dev = resolve_device(args.device)

@@ -151,12 +151,13 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.
 
-    x: (B, S, D).  positions: (S,) or (B, S).  cache: {'k', 'v'}:
+    x: (B, S, D).  positions: (S,) or (B, S), or (3, S) or (3, B, S)
+    for M-RoPE, whose temporal row masks the keys.  cache: {'k', 'v'}:
     (B, S_max, n_kv, head_dim) tensors, written in place at offset
     ``cache_pos``; keys are read back from the cache in its dtype.
 
     A prefill -- a cache written from position 0 with more than one new
-    token, 1-D positions and the uniform head map -- runs its
+    token, 1-D (temporal) positions and the uniform head map -- runs its
     self-attention over the new tokens through the flash-attention
     kernel (``flash=False`` takes ``masked_attention`` instead, the
     oracle of that choice); decode and every other shape use
@@ -173,6 +174,7 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
 
     q = apply_rope(q, positions, rope_theta, mrope_sections)
     k = apply_rope(k, positions, rope_theta, mrope_sections)
+    tpos = positions if mrope_sections is None else positions[0]
 
     sq = q.shape[1]
     if cache is not None:
@@ -181,7 +183,7 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
         cache["k"][:, cache_pos:cache_pos + sq] = k
         cache["v"][:, cache_pos:cache_pos + sq] = v
         k, v = cache["k"], cache["v"]
-        q_pos = positions if positions.dim() >= 1 else positions[None]
+        q_pos = tpos if tpos.dim() >= 1 else tpos[None]
     else:
         q_pos = torch.arange(sq, device=x.device)
     k_pos = torch.arange(k.shape[1], device=x.device)
@@ -192,7 +194,7 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                tuple(head_map) == tuple(i // (h_padded // n_kv)
                                         for i in range(h_padded)))
     if (flash and cache is not None and cache_pos == 0 and sq > 1
-            and positions.dim() == 1 and uniform):
+            and tpos.dim() == 1 and uniform):
         # keys beyond the new tokens are hidden by causality: pass [:S]
         out = ops.flash_attention(
             q.transpose(1, 2), k[:, :sq].transpose(1, 2),

@@ -5,8 +5,6 @@ norms and zero-centred norms.
 The port's counterpart of the JAX package's ``models/blocks.py``.  Each
 layer is its own :class:`Block` module (the JAX package stacks layers on
 a leading L axis and scans); the per-layer sliding window is an argument.
-M-RoPE and the audio and vision stub frontends are not ported yet
-(ROADMAP queue 1, item 7) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,15 +46,6 @@ def mlp_fwd(p: MLP, x: torch.Tensor) -> torch.Tensor:
     return (silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
 
 
-def unsupported(cfg) -> Optional[str]:
-    """Why ``cfg``'s block is not ported yet, or None when it is."""
-    if cfg.mrope_sections is not None:
-        return "M-RoPE"
-    if cfg.frontend != "tokens":
-        return f"frontend {cfg.frontend!r}"
-    return None
-
-
 class Block(nn.Module):
     """One decoder layer's parameters, as the JAX package's
     ``_init_layer`` lays them out: ``ln1``; ``attn`` (GQA or MLA) for
@@ -67,11 +56,6 @@ class Block(nn.Module):
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
-        why = unsupported(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {why} is not ported yet (ROADMAP queue 1,"
-                f" item 7)")
         d = cfg.d_model
 
         def norm():

@@ -1,7 +1,8 @@
 """Basic neural-net layers as plain functions on tensors.
 
 The port's counterpart of the JAX package's ``models/layers.py``:
-RMSNorm, soft-capping, SiLU, rotary position embeddings, the parameter
+RMSNorm, soft-capping, SiLU, rotary position embeddings (classic and
+Qwen2-VL's multimodal M-RoPE), the parameter
 initialisers, which draw from an explicit ``torch.Generator``, and the
 chunked cross entropy of training.
 """
@@ -60,7 +61,7 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (classic RoPE)
+# Rotary position embeddings (classic + multimodal M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -74,14 +75,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Optional[Tuple[int, ...]] = None
                ) -> torch.Tensor:
     """Rotate ``x`` of shape ``(..., S, H, D)`` by position-dependent
-    angles; ``positions`` is ``(..., S)``.  Angles are f32 and the result
-    is cast back to ``x``'s dtype."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet: ROADMAP queue 1, item 7")
+    angles.  ``positions``: ``(..., S)`` for classic RoPE, or ``(3, ...,
+    S)`` for Qwen2-VL M-RoPE, in which case ``mrope_sections`` splits the
+    D/2 frequency slots into (temporal, height, width) groups, each
+    driven by its own position row.  Angles are f32 and the result is
+    cast back to ``x``'s dtype."""
     half = x.shape[-1] // 2
     inv = rope_freqs(x.shape[-1], theta, device=x.device)
-    ang = positions[..., None].float() * inv      # (..., S, half)
+    if mrope_sections is None:
+        ang = positions[..., None].float() * inv  # (..., S, half)
+    else:
+        assert positions.dim() >= 2 and positions.shape[0] == 3, (
+            "M-RoPE expects positions shaped (3, ..., S)")
+        assert sum(mrope_sections) == half, (mrope_sections, half)
+        ang_all = positions[..., None].float() * inv  # (3, ..., S, half)
+        chunks, off = [], 0
+        for i, sec in enumerate(mrope_sections):
+            chunks.append(ang_all[i, ..., off:off + sec])
+            off += sec
+        ang = torch.cat(chunks, dim=-1)           # (..., S, half)
     cos = torch.cos(ang)[..., None, :]            # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -3,10 +3,13 @@
 The port's counterpart of the JAX package's ``models/lm.py``.  One
 ``ModelConfig`` (field for field the reference's, with copies of
 ``MoEConfig`` (``models/moe.py``), ``MambaConfig`` (``models/mamba.py``)
-and ``MLAConfig``) describes every architecture; the port runs all but
-M-RoPE and the stub frontends: dense GQA (llama, gemma, qwen), MLA
-(minicpm3), Mamba-2 (mamba2), MoE (granite-moe, moonshot) and the Hymba
-hybrid.  Parameters live in an :class:`LM` module whose per-layer blocks
+and ``MLAConfig``) describes every architecture: dense GQA (llama,
+gemma, qwen), M-RoPE with the vision stub (qwen2-vl), the audio stub
+(musicgen), MLA (minicpm3), Mamba-2 (mamba2), MoE (granite-moe,
+moonshot) and the Hymba hybrid.  The stub frontends take precomputed
+embeddings: musicgen's frame embeddings replace the token lookup, and
+qwen2-vl's patch embeddings overwrite the first token embeddings.
+Parameters live in an :class:`LM` module whose per-layer blocks
 sit in an ``nn.ModuleList`` instead of the stacked L axis; their shapes
 and names are the JAX package's, so weights carry over by a copy
 (``models/convert.py``), and :func:`param_leaves` lists them in the order
@@ -309,27 +312,92 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
 # Forward / prefill / decode
 # ---------------------------------------------------------------------------
 
+def input_key(cfg: ModelConfig) -> str:
+    """The batch entry that carries the model's input: ``embeds`` (B, S,
+    d) for the audio stub, whose EnCodec frontend is a stub that takes
+    precomputed frame embeddings, else ``tokens`` (B, S)."""
+    return "embeds" if cfg.frontend == "audio_stub" else "tokens"
+
+
+def input_batch(cfg: ModelConfig, x: torch.Tensor, **extra) -> Dict:
+    """A batch with ``x`` under :func:`input_key` and each of ``extra``
+    (``patch_embeds``, ``positions``, ``labels``) that is not None."""
+    return {input_key(cfg): x,
+            **{k: v for k, v in extra.items() if v is not None}}
+
+
+def _model_input(cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    key = input_key(cfg)
+    if key not in batch:
+        shape = "(B, S, d), not tokens" if key == "embeds" else "(B, S)"
+        raise KeyError(f"{cfg.name}: the model takes batch[{key!r}] {shape}")
+    return batch[key]
+
+
+def _decode_batch(cfg: ModelConfig, tokens: Optional[torch.Tensor],
+                  embeds: Optional[torch.Tensor]) -> Dict:
+    """The one-position batch of a decode step: the audio stub's
+    ``embeds`` (B, 1, d) (its ``tokens``, if any, unread, as in JAX),
+    else ``tokens`` (B,).  Raises ``ValueError`` when that input is
+    missing, or for ``embeds`` given to a model that reads tokens."""
+    key = input_key(cfg)
+    x = embeds if key == "embeds" else tokens
+    if x is None:
+        raise ValueError(f"{cfg.name}: a decode step takes {key}"
+                         f" {'(B, 1, d)' if key == 'embeds' else '(B,)'}")
+    if key == "tokens" and embeds is not None:
+        raise ValueError(f"{cfg.name}: embeds are the audio stub's input;"
+                         f" this model decodes tokens")
+    return {key: x if key == "embeds" else x[:, None]}
+
+
 def _embed_inputs(cfg: ModelConfig, params: LM, batch: Dict) -> torch.Tensor:
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet")
-    h = params.embed[batch["tokens"].long()]
+    x = _model_input(cfg, batch)
+    if cfg.frontend == "audio_stub":
+        # musicgen: precomputed frame embeddings come straight in
+        return x.to(cfg.dtype)
+    h = params.embed[x.long()]
     if cfg.emb_scale:  # the scale is rounded to the parameter dtype first
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        # the patches overwrite the first token embeddings; a patch block
+        # larger than the stream raises, as JAX's dynamic_update_slice
+        pe = batch["patch_embeds"]
+        if pe.dim() != h.dim() or any(a > b for a, b in zip(pe.shape,
+                                                              h.shape)):
+            raise ValueError(f"{cfg.name}: patch_embeds {tuple(pe.shape)}"
+                             f" do not fit the token embeddings"
+                             f" {tuple(h.shape)}")
+        h[:pe.shape[0], :pe.shape[1], :pe.shape[2]] = pe.to(h.dtype)
     return h
 
 
 def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int,
                cache_pos: Optional[int], device) -> torch.Tensor:
-    if "positions" in batch or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "explicit and M-RoPE positions are not ported yet (ROADMAP"
-            " queue 1, item 7)")
+    """Explicit ``batch['positions']`` as given; else decode's write
+    offset (B, 1), or ``arange(S)``.  Under M-RoPE the three rows are
+    equal: (3, B, 1) in decode, (3, S) otherwise -- JAX's (3, B, S)
+    broadcast over the batch, whose temporal row stays 1-D, so a prefill
+    keeps the flash kernel's causal mask."""
+    if "positions" in batch:
+        return batch["positions"]
+    mrope = cfg.mrope_sections is not None
     if cache_pos is not None and s == 1:  # decode
-        return torch.full((b, 1), cache_pos, dtype=torch.int32,
-                          device=device)
-    return torch.arange(s, dtype=torch.int32, device=device)
+        pos = torch.full((b, 1), cache_pos, dtype=torch.int32,
+                         device=device)
+        return pos.expand(3, b, 1) if mrope else pos
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    return pos.expand(3, s) if mrope else pos
+
+
+def unread_params(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Parameters the loss never reads, whose gradient JAX gives as
+    zeros: the audio stub takes frame embeddings, so ``embed`` is unread
+    unless it is also the (tied) head."""
+    if cfg.frontend == "audio_stub" and not cfg.tie_embeddings:
+        return ("embed",)
+    return ()
 
 
 def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
@@ -339,9 +407,10 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             param_hook: Callable[[Block], Block] = lambda lp: lp
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Run the decoder stack: returns (hidden (B, S, D) after the final
-    norm, the cache written in place or None).  ``flash=False`` runs a
-    prefill's attention through ``masked_attention`` instead of the
-    flash kernel.
+    norm, the cache written in place or None).  ``flash=False``, or
+    explicit ``batch['positions']`` (whose causal mask is theirs, not
+    the token order), runs a prefill's attention through
+    ``masked_attention`` instead of the flash kernel.
 
     ``param_hook`` is called on each layer's module before the layer
     runs -- the attach point of the early-bird gradient sync
@@ -352,6 +421,7 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     h = _embed_inputs(cfg, params, batch)
     b, s = h.shape[0], h.shape[1]
     positions = _positions(cfg, batch, b, s, cache_pos, h.device)
+    flash = flash and "positions" not in batch
     for i, (lp, window) in enumerate(zip(params.layers, cfg.windows())):
         lp = param_hook(lp)
         layer_cache = None if cache is None else \
@@ -401,10 +471,13 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict, *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
             flash: bool = True) -> Tuple[torch.Tensor, Dict]:
     """Forward pass that fills a KV cache from position 0; returns
-    (last-token logits (B, V) f32, the cache)."""
-    b, s = batch["tokens"].shape[:2]
+    (last-token logits (B, V) f32, the cache).  ``batch`` holds
+    ``tokens`` (B, S), or ``embeds`` (B, S, d) for the audio stub, and
+    optionally ``patch_embeds`` and ``positions``."""
+    x = _model_input(cfg, batch)
+    b, s = x.shape[:2]
     if cache is None:
-        cache = init_cache(cfg, b, s, device=batch["tokens"].device)
+        cache = init_cache(cfg, b, s, device=x.device)
     h, cache = forward(cfg, params, batch, cache=cache, cache_pos=0,
                        flash=flash)
     return _final_logits(cfg, h[:, -1, :], params), cache
@@ -412,10 +485,12 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict, *,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, cache: Dict[str, torch.Tensor],
-                tokens: torch.Tensor, pos: int
+                tokens: Optional[torch.Tensor], pos: int, *,
+                embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One decode step: tokens (B,) int, ``pos`` the write offset.
-    Returns (logits (B, V) f32, the cache written in place)."""
-    h, cache = forward(cfg, params, {"tokens": tokens[:, None]},
-                       cache=cache, cache_pos=int(pos))
+    """One decode step: tokens (B,) int, ``pos`` the write offset; the
+    audio stub takes ``embeds`` (B, 1, d) instead.  Returns (logits
+    (B, V) f32, the cache written in place)."""
+    batch = _decode_batch(cfg, tokens, embeds)
+    h, cache = forward(cfg, params, batch, cache=cache, cache_pos=int(pos))
     return _final_logits(cfg, h[:, -1, :], params), cache

@@ -6,12 +6,19 @@
     python -m repro_torch.serve --smoke --device cpu
 
 The port's counterpart of the JAX package's
-``examples/serve_pipelined.py``, for every ported architecture (dense
-GQA, MLA, Mamba-2, MoE, the Hymba hybrid).  Weights are random, drawn
-from a ``torch.Generator`` seeded with ``--seed``; prompts are seeded
-too.  The model is first built in f32 and checked: prefilling a short
-prompt must give the same last-token logits as decoding it token by
-token (64 tokens, ``< 2e-2``).  Where the card's free memory cannot hold
+``examples/serve_pipelined.py``, for every architecture (dense GQA,
+qwen2-vl's M-RoPE with the vision stub, musicgen's audio stub, MLA,
+Mamba-2, MoE, the Hymba hybrid).  Weights are random, drawn from a
+``torch.Generator`` seeded with ``--seed``; prompts are seeded too.
+qwen2-vl's prompts are tokens with 64 seeded patch embeddings (the data
+stream's ``n_patches``) over the first positions, under JAX's default
+positions.  musicgen's are seeded frame embeddings (B, S, d), and each
+decode step takes the next seeded (B, 1, d) frame: the EnCodec frontend
+is a stub in both packages, so the argmax codes are recorded but not
+fed back.  The model is first built in f32 and checked: prefilling a
+short prompt must give the same last-token logits as decoding it token
+by token (64 tokens, ``< 2e-2``; qwen2-vl's check is text only, as
+JAX's decode takes no patches).  Where the card's free memory cannot hold
 the f32 weights of every layer (moonshot-v1-16b-a3b: 112 GB), the check
 runs on the first layers that fit, and the served model is built in the
 serving dtype directly.  The model, in the serving dtype (bf16),
@@ -28,7 +35,7 @@ import dataclasses
 import json
 import sys
 import time
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +48,7 @@ from .models import lm
 
 CONSISTENCY_TOL = 2e-2
 CHECK_LEN = 64  # prompt length of the prefill/decode check
+N_PATCHES = 64  # the data stream's patch count (data.pipeline.DataConfig)
 
 
 def build_model(cfg: lm.ModelConfig, seed: int, device="cuda",
@@ -69,10 +77,36 @@ def check_layers(cfg: lm.ModelConfig, device) -> int:
 
 def make_prompts(cfg: lm.ModelConfig, batch: int, length: int, seed: int,
                  device="cuda") -> torch.Tensor:
-    """Seeded prompt tokens, (batch, length) int64."""
+    """Seeded prompts: tokens (batch, length) int64, or for the audio
+    stub frame embeddings (batch, length, d) f32 (standard normal, as
+    the data stream's)."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, size=(batch, length))
-    return torch.from_numpy(toks).to(resolve_device(device))
+    if cfg.frontend == "audio_stub":
+        x = rng.standard_normal((batch, length, cfg.d_model),
+                                dtype=np.float32)
+    else:
+        x = rng.integers(0, cfg.vocab, size=(batch, length))
+    return torch.from_numpy(x).to(resolve_device(device))
+
+
+def serving_inputs(cfg: lm.ModelConfig, batch: int, length: int, gen: int,
+                   seed: int, device="cuda") -> Tuple[torch.Tensor, Dict]:
+    """``(prompts, extra)`` of a serving run, for
+    ``generate(cfg, scfg, params, prompts, gen, **extra)``: the seeded
+    prompts; for the vision stub ``patch_embeds`` (batch, 64, d) seeded
+    with ``seed + 1``; for the audio stub the ``frames`` (batch, gen, d)
+    its decode steps take, which continue the prompt's seeded stream."""
+    if cfg.frontend == "audio_stub":
+        x = make_prompts(cfg, batch, length + gen, seed, device)
+        return x[:, :length], {"frames": x[:, length:]}
+    prompts = make_prompts(cfg, batch, length, seed, device)
+    if cfg.frontend == "vision_stub":
+        rng = np.random.default_rng(seed + 1)
+        pe = rng.standard_normal((batch, N_PATCHES, cfg.d_model),
+                                 dtype=np.float32)
+        return prompts, {"patch_embeds":
+                         torch.from_numpy(pe).to(prompts.device)}
+    return prompts, {}
 
 
 def _sync(dev: torch.device) -> None:
@@ -82,8 +116,9 @@ def _sync(dev: torch.device) -> None:
 
 def check_consistency(cfg: lm.ModelConfig, params: lm.LM,
                       prompt: torch.Tensor) -> float:
-    """Max |logit| difference between prefilling ``prompt`` and decoding
-    it token by token, both into a cache of the parameter dtype.  An MoE
+    """Max |logit| difference between prefilling ``prompt`` (tokens, or
+    the audio stub's frame embeddings) and decoding it token by token
+    (frame by frame), both into a cache of the parameter dtype.  An MoE
     runs with ``capacity_factor = n_experts / top_k``, which drops no
     slot: under capacity drops a prefill (its chunk's capacity) and a
     decode step (``min_capacity``) route differently, in the JAX package
@@ -91,25 +126,38 @@ def check_consistency(cfg: lm.ModelConfig, params: lm.LM,
     if cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
-    b, s = prompt.shape
+    b, s = prompt.shape[:2]
     dev = prompt.device
-    logits_p, _ = lm.prefill(cfg, params, {"tokens": prompt},
+    audio = lm.input_key(cfg) == "embeds"
+    logits_p, _ = lm.prefill(cfg, params, lm.input_batch(cfg, prompt),
                              cache=lm.init_cache(cfg, b, s, device=dev))
     cache = lm.init_cache(cfg, b, s, device=dev)
     for t in range(s):
-        logits_i, cache = lm.decode_step(cfg, params, cache, prompt[:, t], t)
+        logits_i, cache = lm.decode_step(
+            cfg, params, cache, None if audio else prompt[:, t], t,
+            embeds=prompt[:, t:t + 1] if audio else None)
     return float((logits_p - logits_i).abs().max())
 
 
 def generate(cfg: lm.ModelConfig, scfg: StepConfig, params: lm.LM,
-             prompts: torch.Tensor, gen: int) -> Dict:
-    """Prefill ``prompts`` into a cache of ``prompt_len + gen``
-    positions, then decode ``gen`` tokens greedily.  Returns the prefill
-    logits, the decoded tokens (batch, gen) (the tokens fed to each
-    decode step, as the JAX example records them), and host times."""
-    b, s = prompts.shape
+             prompts: torch.Tensor, gen: int, *,
+             patch_embeds: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None) -> Dict:
+    """Prefill ``prompts`` (with ``patch_embeds`` for the vision stub)
+    into a cache of ``prompt_len + gen`` positions, then decode ``gen``
+    tokens greedily; the audio stub's steps take ``frames`` (batch, gen,
+    d) instead of their tokens.  Returns the prefill logits, the decoded
+    tokens (batch, gen) (the argmax fed to each decode step, as the JAX
+    example records them; for the audio stub recorded only), and host
+    times."""
+    b, s = prompts.shape[:2]
     dev = prompts.device
     max_len = s + gen
+    audio = lm.input_key(cfg) == "embeds"
+    if audio and gen and (frames is None or frames.shape[1] < gen):
+        raise ValueError(f"{cfg.name}: decoding {gen} steps needs {gen}"
+                         f" frames (batch, {gen}, d)")
+    batch = lm.input_batch(cfg, prompts, patch_embeds=patch_embeds)
     prefill_step = make_prefill_step(cfg, scfg, seq_len=s, batch=b,
                                      device=dev)
     decode_step = make_decode_step(cfg, scfg, seq_len=max_len, batch=b,
@@ -117,14 +165,16 @@ def generate(cfg: lm.ModelConfig, scfg: StepConfig, params: lm.LM,
     cache = make_cache(cfg, scfg, batch=b, max_len=max_len, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits_p, cache = prefill_step(params, prompts, cache)
+    logits_p, cache = prefill_step(params, batch, cache)
     _sync(dev)
     t1 = time.perf_counter()
     tok = logits_p[:, :cfg.vocab].argmax(dim=-1)
     toks = []
-    for t in range(s, max_len):
+    for i, t in enumerate(range(s, max_len)):
         toks.append(tok)
-        logits, cache = decode_step(params, cache, tok, t)
+        logits, cache = decode_step(
+            params, cache, tok, t,
+            embeds=frames[:, i:i + 1] if audio else None)
         tok = logits[:, :cfg.vocab].argmax(dim=-1)
     _sync(dev)
     t2 = time.perf_counter()
@@ -167,10 +217,11 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
         params = build_model(cfg, args.seed, dev, serve_dtype)
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed + 2,
-                           dev)
-    generate(cfg, scfg, params, prompts, 1)  # warm-up: build, allocator
-    out = generate(cfg, scfg, params, prompts, args.gen)
+    prompts, extra = serving_inputs(cfg, args.batch, args.prompt_len,
+                                    args.gen, args.seed + 2, dev)
+    # warm-up: the kernel's build, the allocator
+    generate(cfg, scfg, params, prompts, min(args.gen, 1), **extra)
+    out = generate(cfg, scfg, params, prompts, args.gen, **extra)
     print(json.dumps({
         "arch": cfg.name, "device": str(dev),
         "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda"

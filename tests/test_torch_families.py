@@ -13,8 +13,10 @@ SSD scan over ragged lengths, an initial state and grouped B/C; the
 Mamba-2 mixer over a full sequence, a prefill into a cache and three
 decode tokens; MLA over a prefill and three decodes.  Also: prefill
 against token-by-token decode, the configs field for field, the
-initialisers, the serving steps and CLI in bf16, and the training CLI's
-refusal of these families.
+initialisers, the serving steps and CLI in bf16, and one step of each
+family's training CLI.  Their bf16 logits against JAX are in
+``test_torch_families_bf16.py``, their training against JAX in
+``test_torch_train_families.py``.
 """
 
 import dataclasses
@@ -506,8 +508,12 @@ def test_serve_cli_on_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_cli_refuses_new_families(arch, capsys):
+def test_train_cli_refuses_new_families(arch, capsys, tmp_path):
+    """The families train now: one step of each family's training CLI."""
     assert ptrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                        "--steps", "1"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "item 7" in err
+                        "--steps", "1", "--seq-len", "32",
+                        "--ckpt-dir", str(tmp_path)]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["arch"] == arch + "-smoke" and rec["steps"] == 1
+    assert np.isfinite(rec["losses"]).all()
+    assert rec["sync_all_reduces_last_step"] > 1
