@@ -7,7 +7,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
 drives the port's paths on the card -- the stencil simulator, model
 serving, training, the paper's scenarios, the planner, the serving of
 the MLA, Mamba-2, MoE and hybrid families and the two stub frontends,
-and the training of all of them -- phase by phase; every
+the training of all of them, and partitioned communication over
+``torch.distributed`` (ring collectives, the int8 ring with error
+feedback, partitioned-KV flash decode) -- phase by phase; every
 phase prints one line and any failure exits non-zero without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
@@ -136,8 +138,30 @@ phase prints one line and any failure exits non-zero without a result:
      [0.5, 1.5] ln V and equal across the modes, the smoke config
      trained on the CPU and on the card within the CPU tests'
      tolerances; step ms, tokens/s, peak memory, and the device idle
-     share and pack/unpack device ms of one profiled step; then the
-     kernel table as one JSON line.
+     share and pack/unpack device ms of one profiled step;
+ 19. partitioned communication on a one-rank ``nccl`` group (the card
+     holds one device, and NCCL takes one rank a device; the multi-rank
+     behaviour is the CPU tests' on gloo ranks): (a) every ring
+     collective of ``core.chunked_collectives`` at 64 MiB of f32 and 1,
+     2 and 4 channels equal to its input, the int8 ring equal to
+     quantize -> dequantize and to the CPU's, both collective matmuls
+     equal to ``x @ w``, and ``compress_with_feedback`` over 3 steps on
+     an f32 and a bf16 leaf equal to the CPU's, all bitwise; (b)
+     ``flash_decode_shard`` against ``flash_decode_ref`` at llama3.2-1b's
+     decode shape over its 128k context (B 1, H 32, Kv 8, D 64, S
+     131072, bf16: the last position, position 17, a window of 4096,
+     and that window with a softcap of 50), with its time, the oracle's
+     and the default ``masked_attention`` decode's beside the byte
+     bound; (c) llama3.2-1b at full width in bf16, 4 prompts of 1024
+     tokens and 32 decode steps through ``make_decode_step`` with
+     ``flash_decode``, teacher-forced from the default decode: logits
+     within 5 bf16 ulps of its, 48 all-reduces a step, decode ms a token
+     with and without, and the idle share of 8 steps of each; and the
+     gemma2-9b and hymba-1.5b (at 4 layers) smoke configs decoded the
+     same way in f32 on the card and on a one-rank gloo group on the
+     CPU, within 2e-5.  Every line of the phase carries the card's
+     ``nvidia-smi`` name and power limit.  Then the kernel table as one
+     JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -212,6 +236,18 @@ class SmokeFailure(Exception):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the card, printed beside
+    the numbers ("cpu" in a rehearsal)."""
+    import torch
+    if not torch.cuda.is_available():
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def _timed(fn, device, reps: int, warmup: int = 2) -> float:
@@ -2249,6 +2285,314 @@ def train_family_phase(dev, small: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: partitioned communication on torch.distributed
+# ---------------------------------------------------------------------------
+
+# 19b: llama3.2-1b's decode attention at its 128k context, bf16 (B, H,
+# Kv, D, S) and the cases (pos, window, softcap): the last position, an
+# early one, gemma2-9b's window of 4096, and that window with gemma2's
+# attention softcap of 50 at three quarters of the sequence.
+DECODE_SHAPE = (1, 32, 8, 64, 131072)
+DECODE_SHAPE_SMALL = (1, 8, 2, 16, 4096)
+# 19c: logits through flash decode against the default decode, bf16:
+# the rule of tests/test_torch_families_bf16.py (5 bf16 ulps at the
+# logit scale, the ulp of the default path's largest |logit|).
+DECODE_ULPS = 5
+# 19c: the smoke configs decoded through flash decode, card against CPU.
+FLASH_DECODE_SMOKE = (("gemma2-9b", {}), ("hymba-1.5b", {"n_layers": 4}))
+
+
+def _bf16_ulp(x: float) -> float:
+    """The bf16 ulp at magnitude ``x`` (8 significant bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _collectives_check(dev, card: str, small: bool) -> None:
+    """19a: every collective of ``core.chunked_collectives`` on one rank
+    at 64 MiB of f32, and ``compress_with_feedback`` on the card against
+    the CPU, bitwise."""
+    import torch
+    from repro_torch.core import chunked_collectives as cc
+    from repro_torch.optim import grad_compress as gcm
+    rows, cols = (64, 64) if small else (4096, 4096)
+    x = _seeded((rows, cols), torch.float32, dev, 0)
+    w = _seeded((cols, cols // 4), torch.float32, dev, 1)
+    n = 0
+    for c in (1, 2, 4):
+        for name, got in (
+                ("ring_all_gather tiled",
+                 cc.ring_all_gather(x, n_channels=c, tiled=True)),
+                ("ring_all_gather", cc.ring_all_gather(x, n_channels=c)[0]),
+                ("ring_reduce_scatter",
+                 cc.ring_reduce_scatter(x[None], n_channels=c)),
+                ("ring_all_reduce", cc.ring_all_reduce(x, n_channels=c))):
+            check(_same_bits(got, x), f"{name} at {c} channels differs"
+                  f" from its input on one rank")
+            n += 1
+    check(_same_bits(cc.ring_all_reduce_q8(x), cc._dq8(*cc._q8(x))),
+          "ring_all_reduce_q8 differs from quantize -> dequantize")
+    xc = x.cpu()
+    check(_same_bits(cc._q8(x)[1].cpu(), cc._q8(xc)[1])
+          and _same_bits(cc.ring_all_reduce_q8(x).cpu(),
+                         cc.ring_all_reduce_q8(xc)),
+          "ring_all_reduce_q8: the card's scale differs from the CPU's")
+    ref = x @ w
+    check(_same_bits(cc.collective_ag_matmul(x, w), ref),
+          "collective_ag_matmul differs from x @ w")
+    check(_same_bits(cc.collective_matmul_rs(x, w), ref),
+          "collective_matmul_rs differs from x @ w")
+    leaves = {"w": torch.float32, "b": torch.bfloat16}
+    ef_d = gcm.init_error_feedback({k: x for k in leaves})
+    ef_c = {k: v.cpu() for k, v in ef_d.items()}
+    for step in range(3):
+        g = {k: _seeded((rows, cols), dt, dev, 10 + step)
+             for k, dt in leaves.items()}
+        sent_d, ef_d = gcm.compress_with_feedback(g, ef_d)
+        sent_c, ef_c = gcm.compress_with_feedback(
+            {k: v.cpu() for k, v in g.items()}, ef_c)
+        for k in leaves:
+            check(_same_bits(sent_d[k].cpu(), sent_c[k])
+                  and _same_bits(ef_d[k].cpu(), ef_c[k]),
+                  f"compress_with_feedback step {step} leaf {k}: the card"
+                  f" differs from the CPU")
+    print(f"[{card}] partitioned collectives, one rank, {rows}x{cols} f32"
+          f" ({x.numel() * 4} bytes): all-gather (tiled, stacked),"
+          f" reduce-scatter and all-reduce at 1, 2 and 4 channels equal"
+          f" their input bitwise ({n} cases); ring_all_reduce_q8 equals"
+          f" quantize -> dequantize and the CPU's, bitwise;"
+          f" collective_ag_matmul and collective_matmul_rs equal x @ w"
+          f" ({cols}x{cols // 4}) bitwise; compress_with_feedback over 3"
+          f" steps on an f32 and a bf16 leaf equals the CPU's bitwise")
+
+
+def _decode_breakdown(q, k, v, dev, reps: int, card: str) -> None:
+    """Event times of flash decode's largest steps at the 128k shape:
+    the f32 copy of K (and of V), the scores product Q.K in f32, the
+    probabilities' product P.V in f32 as one product (the reference's
+    and ``flash_decode_ref``'s) and in runs of ``PV_CHUNK`` keys
+    (``flash_decode_shard``'s ``_pv``), and P.V in bf16
+    (``masked_attention``'s)."""
+    import torch
+    from repro_torch.core import flash_decode as fd
+    b, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, kv, h // kv, d).float()
+    kf, vf = k.float(), v.float()
+    p = torch.softmax(torch.einsum("bkgd,bskd->bkgs", qg, kf), dim=-1)
+    pb = p.to(torch.bfloat16)
+    parts = {
+        "K to f32": lambda: k.float(),
+        "Q.K f32": lambda: torch.einsum("bkgd,bskd->bkgs", qg, kf),
+        "P.V f32 one product": lambda: torch.einsum("bkgs,bskd->bkgd", p,
+                                                     vf),
+        f"P.V f32 in runs of {fd.PV_CHUNK}": lambda: fd._pv(p, vf),
+        "P.V bf16": lambda: torch.einsum("bkgs,bskd->bkgd", pb, v)}
+    print(f"[{card}] flash decode steps at S {k.shape[1]}: "
+          + ", ".join(f"{name} {_timed(fn, dev, reps):.4f} ms"
+                      for name, fn in parts.items()))
+
+
+def _decode_attention_check(dev, card: str, small: bool) -> None:
+    """19b: ``flash_decode_shard`` on one rank against
+    ``flash_decode_ref`` at llama3.2-1b's decode shape over its 128k
+    context, bf16, each case with its CUDA-event time, the default
+    ``masked_attention`` decode's beside it, and the byte bound."""
+    import torch
+    from repro_torch.core.flash_decode import (flash_decode_ref,
+                                               flash_decode_shard)
+    from repro_torch.models.attention import masked_attention
+    b, h, kv, d, s = DECODE_SHAPE_SMALL if small else DECODE_SHAPE
+    q = _seeded((b, h, d), torch.bfloat16, dev, 1)
+    k = _seeded((b, s, kv, d), torch.bfloat16, dev, 2)
+    v = _seeded((b, s, kv, d), torch.bfloat16, dev, 3)
+    k_pos = torch.arange(s, device=dev)
+    nbytes = 2 * (q.numel() * 2) + 2 * k.numel() * 2
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    reps = 10 if dev.type == "cuda" else 2
+    tol = FLASH_TOL["bfloat16"]
+    for pos, window, cap in ((s - 1, 0, None), (17, 0, None),
+                             (s - 1, 4096, None), (3 * s // 4, 4096, 50.0)):
+        kw = dict(pos=pos, window=window, attn_softcap=cap, scale=d ** -0.5)
+        got = flash_decode_shard(q, k, v, **kw)
+        want = flash_decode_ref(q, k, v, **kw)
+
+        def masked():
+            return masked_attention(
+                q[:, None], k, v, q_pos=torch.full((b, 1), pos, device=dev),
+                k_pos=k_pos, window=window, attn_softcap=cap,
+                scale=d ** -0.5)[:, 0]
+        err = float((got.float() - want.float()).abs().max())
+        err_m = float((masked().float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()) and bool(
+            ((got.float() - want.float()).abs()
+             <= tol + tol * want.float().abs()).all()),
+              f"flash_decode_shard pos {pos} window {window} softcap {cap}"
+              f" differs from flash_decode_ref by {err!r}")
+        ms = _timed(lambda: flash_decode_shard(q, k, v, **kw), dev, reps)
+        ref_ms = _timed(lambda: flash_decode_ref(q, k, v, **kw), dev, reps)
+        masked_ms = _timed(masked, dev, reps)
+        print(f"[{card}] flash decode B {b} H {h} Kv {kv} D {d} S {s} bf16,"
+              f" pos {pos} window {window} softcap {cap}: max_abs_err vs"
+              f" flash_decode_ref {err!r} (tol {tol}; masked_attention"
+              f" {err_m!r}); flash_decode_shard {ms:.4f} ms,"
+              f" flash_decode_ref {ref_ms:.4f} ms, masked_attention"
+              f" decode {masked_ms:.4f} ms; bound {bound_ms:.4f} ms"
+              f" (bytes: {nbytes})")
+        if pos == s - 1 and not window:
+            _decode_breakdown(q, k, v, dev, reps, card)
+
+
+def _teacher_forced(cfg, scfg, model, prompts, gen, dev, *, group=None,
+                    feed=None, reps: int = 1):
+    """Prefill ``prompts``, then ``gen`` decode steps through
+    ``make_decode_step`` (``group``: flash decode's), each fed the token
+    of ``feed`` (None: greedy, recorded).  Returns (the logits of every
+    step, the fed tokens, the all-reduces of every step, the median
+    decode ms a token over ``reps`` runs of the steps on the same cache,
+    a callable running 8 of the steps)."""
+    import torch
+    from repro_torch import compat
+    from repro_torch.launch.steps import (make_cache, make_decode_step,
+                                          make_prefill_step)
+    b, s = prompts.shape
+    cache = make_cache(cfg, scfg, batch=b, max_len=s + gen, device=dev)
+    logits, cache = make_prefill_step(cfg, scfg, seq_len=s, batch=b,
+                                      device=dev)(model, prompts, cache)
+    step = make_decode_step(cfg, scfg, seq_len=s + gen, batch=b, device=dev,
+                            group=group)
+    fed = [] if feed is None else feed
+    out, calls = [], []
+    for i, t in enumerate(range(s, s + gen)):
+        if feed is None:
+            fed.append(logits[:, :cfg.vocab].argmax(-1))
+        before = compat.CALLS["all_reduce"]
+        logits, cache = step(model, cache, fed[i], t)
+        calls.append(compat.CALLS["all_reduce"] - before)
+        out.append(logits)
+
+    def steps(n=gen):
+        for i, t in enumerate(range(s, s + n)):
+            step(model, cache, fed[i], t)
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / gen)
+    return out, fed, calls, sorted(times)[len(times) // 2], \
+        (lambda: steps(8))
+
+
+def _flash_decode_serving(dev, card: str, small: bool) -> None:
+    """19c: llama3.2-1b at full width in bf16 decoding through flash
+    decode on one rank, teacher-forced from the default decode."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.steps import StepConfig
+    cfg = (get_smoke_config if small else get_config)("llama3.2-1b")
+    batch, prompt_len, gen = (2, 64, 8) if small else (4, 1024, 32)
+    model = serve.build_model(cfg, 0, dev).to(torch.bfloat16)
+    prompts = serve.make_prompts(cfg, batch, prompt_len, 2, dev)
+    reps = 3 if dev.type == "cuda" else 1
+    base, fed, calls0, base_ms, base8 = _teacher_forced(
+        cfg, StepConfig(), model, prompts, gen, dev, reps=reps)
+    fd, _, calls, fd_ms, fd8 = _teacher_forced(
+        cfg, StepConfig(flash_decode=True), model, prompts, gen, dev,
+        feed=fed, reps=reps)
+    check(set(calls0) == {0}, f"default decode issued all-reduces {calls0}")
+    check(calls == [3 * cfg.n_layers] * gen,
+          f"flash decode issued {calls} all-reduces, not"
+          f" {3 * cfg.n_layers} a step")
+    worst = 0.0
+    for i, (a, r) in enumerate(zip(fd, base)):
+        a, r = a[:, :cfg.vocab].float(), r[:, :cfg.vocab].float()
+        check(bool(torch.isfinite(a).all()), f"step {i}: logits not finite")
+        ulps = float((a - r).abs().max()) / _bf16_ulp(float(r.abs().max()))
+        worst = max(worst, ulps)
+    check(worst <= DECODE_ULPS, f"flash decode logits {worst:.2f} bf16 ulps"
+          f" from the default decode's (allowed {DECODE_ULPS})")
+    idle = {}
+    if dev.type == "cuda":
+        for name, fn in (("default", base8), ("flash_decode", fd8)):
+            wall, busy, _, _ = _device_split(fn, dev)
+            idle[name] = 1 - busy / wall if wall > 0 else float("nan")
+    name = "llama3.2-1b smoke" if small else "llama3.2-1b"
+    print(f"[{card}] flash decode serving {name}"
+          f" ({cfg.n_layers} layers) bf16, batch {batch}, {prompt_len}-token"
+          f" prompts, {gen} teacher-forced decode steps on one rank:"
+          f" logits within {worst:.2f} bf16 ulps of the default decode's"
+          f" (allowed {DECODE_ULPS}); all_reduce a step {calls[0]} (3 x"
+          f" {cfg.n_layers} layers); decode {fd_ms:.3f} ms a token with"
+          f" flash_decode, {base_ms:.3f} ms without (median of {reps},"
+          f" host clock); idle share of 8 steps {idle or 'not measured'}")
+
+
+def _flash_decode_card_vs_cpu(dev, cpu_group, card: str) -> None:
+    """19c: the smoke configs with windows and softcaps, decoded through
+    flash decode in f32 on the card and on the CPU, within 2e-5."""
+    import copy
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import StepConfig
+    scfg = StepConfig(param_dtype="float32", cache_dtype="float32",
+                      flash_decode=True)
+    for arch, changes in FLASH_DECODE_SMOKE:
+        cfg = get_smoke_config(arch).replace(**changes)
+        cpu = serve.build_model(cfg, 0, "cpu")
+        prompts = serve.make_prompts(cfg, 2, 24, 1, "cpu")
+        want, fed, calls_c, _, _ = _teacher_forced(
+            cfg, scfg, cpu, prompts, 4, torch.device("cpu"),
+            group=cpu_group)
+        got, _, calls, _, _ = _teacher_forced(
+            cfg, scfg, copy.deepcopy(cpu).to(dev), prompts.to(dev), 4, dev,
+            feed=[t.to(dev) for t in fed])
+        err = 0.0
+        for a, b in zip(got, want):
+            a = a.cpu()
+            check(bool(((a - b).abs() <= FAMILY_CARD_TOL
+                        + FAMILY_CARD_TOL * b.abs()).all()),
+                  f"{arch} smoke flash decode: the card differs from the"
+                  f" CPU by {float((a - b).abs().max())!r}")
+            err = max(err, float((a - b).abs().max()))
+        check(calls == calls_c == [3 * cfg.n_layers] * 4,
+              f"{arch} smoke: all-reduces {calls} on the card, {calls_c} on"
+              f" the CPU")
+        print(f"[{card}] flash decode {arch} smoke ({cfg.n_layers} layers,"
+              f" windows {cfg.windows()}, softcap {cfg.attn_softcap}) f32,"
+              f" 4 teacher-forced steps: card vs CPU max|d| {err!r} (tol"
+              f" {FAMILY_CARD_TOL}), all_reduce a step {calls[0]}")
+
+
+def partitioned_phase(dev, small: bool = False) -> None:
+    """Phase 19: the partitioned collectives, the int8 ring and gradient
+    compression (19a), flash decode at the 128k decode shape (19b) and
+    decoding through it (19c), on a one-rank group of the default
+    process group's backend (a one-rank gloo group beside it for the
+    CPU side of 19c on the card)."""
+    import torch.distributed as dist
+    card = _card_name()
+    on_card = dev.type == "cuda"
+    cpu_group = dist.new_group(backend="gloo") if on_card else None
+    t0 = time.perf_counter()
+    _collectives_check(dev, card, small)
+    print(f"[{card}] phase 19a wall {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    _decode_attention_check(dev, card, small)
+    print(f"[{card}] phase 19b wall {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    _flash_decode_serving(dev, card, small)
+    if on_card:
+        _flash_decode_card_vs_cpu(dev, cpu_group, card)
+    print(f"[{card}] phase 19c wall {time.perf_counter() - t0:.3f} s")
+
+
 def run(device_name: str = "cuda", small: bool = False) -> dict:
     """All phases on ``device_name``; returns the kernel table.
     ``small`` cuts the serving and training phases to the llama smoke
@@ -2280,11 +2624,7 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
 
     # 1. the card and the build -----------------------------------------
     if on_card:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
-        print(f"card: {smi}")
+        print(f"card: {_card_name()}")
         t0 = time.perf_counter()
         paths = build.build()
         print(f"build: {', '.join(p.name for p in paths.values())} in"
@@ -2517,6 +2857,18 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
         finally:
             dist.destroy_process_group()
     print(f"phase 18 wall {time.perf_counter() - t0:.3f} s")
+
+    # 19. partitioned communication on torch.distributed -----------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo", rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            partitioned_phase(dev, small)
+        finally:
+            dist.destroy_process_group()
+    print(f"[{_card_name()}] phase 19 wall {time.perf_counter() - t0:.3f} s")
     return {"kernels": [fabric, *flash, *train_kernels]}
 
 
@@ -2635,10 +2987,7 @@ def families_times(tree: Path) -> dict:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _card_name()
     out = family_phase(torch.device("cuda"))
     return {"tree": str(tree), "card": smi,
             "families": {arch: {k: v for k, v in rec.items()
@@ -2656,10 +3005,7 @@ def train_families_times(tree: Path) -> dict:
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _card_name()
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
             "nccl", rank=0, world_size=1,

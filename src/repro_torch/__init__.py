@@ -9,7 +9,9 @@ the stencil sweep specs and the golden-baseline check, and
 serving path; ``core.bucketing``, ``core.earlybird``, ``optim``,
 ``data``, ``ckpt``, ``runtime`` and ``python -m
 repro_torch.launch.train`` the training path with early-bird gradient
-sync; ``kernels`` the build, wrappers and plain versions of the
+sync; ``compat``, ``core.chunked_collectives``, ``core.flash_decode``
+and ``optim.grad_compress`` partitioned communication over
+``torch.distributed``; ``kernels`` the build, wrappers and plain versions of the
 hand-written CUDA kernels in ``csrc``.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 """

@@ -1,0 +1,108 @@
+"""Process-group counterparts of the shard_map collective primitives.
+
+The JAX package runs its partitioned collectives inside ``shard_map``
+over named mesh axes (``jax.lax.axis_index``, ``ppermute``, ``pmax``,
+``psum``; ``repro/compat.py`` supplies ``axis_size``).  The port runs
+them over a ``torch.distributed`` process group instead: a tuple of
+mesh axes becomes one flat group whose rank is the row-major index
+over those axes, and ``group=None`` is the default group.
+
+``ppermute`` is one ``batch_isend_irecv`` of a send to this rank's
+destination and a receive from its source under ``perm``;
+:func:`ppermute_start` posts it and returns a handle, so a caller can
+compute while the block is in flight.  Peers are group ranks, mapped to
+global ranks when the group is not the default one.  On a group of one
+rank nothing is sent (NCCL has no send to self; the JAX loops run zero
+hops there).  ``pmax_`` and ``psum_`` are ``all_reduce`` in place.
+
+``CALLS`` counts the collectives issued through this module
+(``all_reduce`` and ``ppermute``, a posted permutation counting once),
+as the kernel wrappers count their launches.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+CALLS: Dict[str, int] = {"all_reduce": 0, "ppermute": 0}
+
+
+def axis_size(group=None) -> int:
+    """Ranks in ``group`` (``jax.lax.axis_size`` of the group's axes)."""
+    return dist.get_world_size(group)
+
+
+def axis_index(group=None) -> int:
+    """This rank's index in ``group`` (``jax.lax.axis_index``)."""
+    return dist.get_rank(group)
+
+
+def _global(group, rank: int) -> int:
+    if group is None or group is dist.GroupMember.WORLD:
+        return rank
+    return dist.get_global_rank(group, rank)
+
+
+class Pending:
+    """A posted permutation: :meth:`wait` returns the received tensor."""
+
+    def __init__(self, out: torch.Tensor, works: List):
+        self._out, self._works = out, works
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        self._works = []
+        return self._out
+
+
+def ppermute_start(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]],
+                   tag: int = 0) -> Pending:
+    """Post ``jax.lax.ppermute(x, axis, perm)``: send ``x`` to the rank
+    this one maps to and receive the block of the rank that maps here
+    (a rank no pair names receives zeros, as in JAX).  ``tag`` keeps
+    concurrent streams apart."""
+    n, me = axis_size(group), axis_index(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute: rank {me} appears twice in {perm}")
+    if n == 1:
+        return Pending(x if src else torch.zeros_like(x), [])
+    out = (torch.empty if src else torch.zeros)(
+        x.shape, dtype=x.dtype, device=x.device)
+    ops = []
+    if dst:
+        ops.append(dist.P2POp(dist.isend, x.contiguous().view(-1),
+                              _global(group, dst[0]), group, tag))
+    if src:
+        ops.append(dist.P2POp(dist.irecv, out.view(-1),
+                              _global(group, src[0]), group, tag))
+    CALLS["ppermute"] += 1
+    return Pending(out, dist.batch_isend_irecv(ops) if ops else [])
+
+
+def ppermute(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]],
+             tag: int = 0) -> torch.Tensor:
+    """``jax.lax.ppermute`` over ``group``: :func:`ppermute_start`, then
+    wait."""
+    return ppermute_start(x, group, perm, tag).wait()
+
+
+def _all_reduce_(x: torch.Tensor, op, group) -> torch.Tensor:
+    CALLS["all_reduce"] += 1
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def pmax_(x: torch.Tensor, group: Optional[object] = None) -> torch.Tensor:
+    """``jax.lax.pmax`` over ``group``, in place on ``x``."""
+    return _all_reduce_(x, dist.ReduceOp.MAX, group)
+
+
+def psum_(x: torch.Tensor, group: Optional[object] = None) -> torch.Tensor:
+    """``jax.lax.psum`` over ``group``, in place on ``x``."""
+    return _all_reduce_(x, dist.ReduceOp.SUM, group)

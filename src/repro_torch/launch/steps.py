@@ -6,9 +6,13 @@ plain callables.  ``make_train_step`` runs the loss, backward with the
 early-bird gradient sync over a ``torch.distributed`` process group
 (each rank holding one card and its share of the batch), the schedule
 and AdamW.  ``make_prefill_step`` and ``make_decode_step`` check their
-inputs and run ``lm.prefill`` / ``lm.decode_step``.  The mesh, tensor-
-and sequence-parallel sharding, ZeRO-1 and the partitioned-KV
-``flash_decode`` are not ported yet (ROADMAP queue 1, item 9).
+inputs and run ``lm.prefill`` / ``lm.decode_step``; with
+``StepConfig.flash_decode`` the decode step's attention is the
+partitioned-KV flash decode over a process group
+(``core.flash_decode``), each rank attending to its slice of the
+sequence.  Every rank still holds the whole cache: the mesh, tensor-
+and sequence-parallel sharding (the cache's among them) and ZeRO-1 are
+not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..compat import axis_index, axis_size
 from ..core.earlybird import SyncConfig, value_and_synced_grad
 from ..core.fabric_torch import resolve_device
+from ..core.flash_decode import flash_decode_shard
 from ..models import lm
 from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from ..optim.schedule import warmup_cosine
@@ -39,6 +45,7 @@ class StepConfig:
     adam: AdamWConfig = field(default_factory=AdamWConfig)
     cache_dtype: str = "bfloat16"
     ce_gather_targets: bool = False  # True = take the targets by a gather
+    flash_decode: bool = False       # partitioned-KV decode attention
 
 
 def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
@@ -177,16 +184,48 @@ def make_prefill_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
     return prefill_step
 
 
+def _flash_decode_fn(group) -> Callable:
+    """The partitioned-KV decode hook (``attention_fwd``'s
+    ``decode_attn``): rank r of ``group``'s N takes the sequence slice
+    [r S/N, (r+1) S/N) of the cache, and ``flash_decode_shard`` combines
+    the partitions -- the paper's partition-consume pattern on the
+    inference side.  The compute is split as in the JAX package's
+    shard_map; the cache itself is not (every rank holds all of it)."""
+    def hook(q, k, v, *, pos, window, attn_softcap, scale):
+        n, r = axis_size(group), axis_index(group)
+        s = k.shape[1]
+        if s % n:
+            raise ValueError(f"flash_decode: a cache of {s} positions does"
+                             f" not split over {n} ranks")
+        sl = slice(r * (s // n), (r + 1) * (s // n))
+        return flash_decode_shard(q, k[:, sl], v[:, sl], group=group,
+                                  pos=pos, window=window,
+                                  attn_softcap=attn_softcap, scale=scale)
+    return hook
+
+
 def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
-                     seq_len: int, batch: int, device="cuda") -> Callable:
+                     seq_len: int, batch: int, device="cuda",
+                     group=None) -> Callable:
     """``decode_step(params, cache, tokens (batch,), pos, embeds=None)
     -> (logits (batch, V) f32, cache)``; ``seq_len`` is the cache
     length, one new token is decoded at write offset ``pos``.  The
     audio stub decodes from ``embeds`` (batch, 1, d) instead of
-    tokens."""
+    tokens.  With ``scfg.flash_decode`` the attention layers decode
+    through the partitioned-KV flash decode over the process group
+    ``group`` (None: the default group, which must be initialised; every
+    rank calls the step with the same inputs); ``seq_len`` must split
+    evenly over its ranks."""
     cfg = cfg.replace(param_dtype=scfg.param_dtype)
     dev = resolve_device(device)
     key = lm.input_key(cfg)
+    decode_attn = None
+    if scfg.flash_decode:
+        n = axis_size(group)
+        if seq_len % n:
+            raise ValueError(f"flash_decode: a cache of {seq_len} positions"
+                             f" does not split over {n} ranks")
+        decode_attn = _flash_decode_fn(group)
 
     def decode_step(params: lm.LM, cache, tokens: Optional[torch.Tensor],
                     pos: int, embeds: Optional[torch.Tensor] = None
@@ -202,6 +241,7 @@ def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
             raise ValueError(f"decode_step: position {pos} outside the"
                              f" cache of {seq_len}")
         _check_cache(cache, scfg, batch, seq_len)
-        return lm.decode_step(cfg, params, cache, tokens, pos, embeds=embeds)
+        return lm.decode_step(cfg, params, cache, tokens, pos, embeds=embeds,
+                              decode_attn=decode_attn)
 
     return decode_step

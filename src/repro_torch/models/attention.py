@@ -147,7 +147,7 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                   q_scale: Optional[float] = None,
                   cache: Optional[Dict[str, torch.Tensor]] = None,
                   cache_pos: Optional[int] = None, q_chunk: int = 512,
-                  flash: bool = True
+                  flash: bool = True, decode_attn=None
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.
 
@@ -160,7 +160,11 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     token, 1-D (temporal) positions and the uniform head map -- runs its
     self-attention over the new tokens through the flash-attention
     kernel (``flash=False`` takes ``masked_attention`` instead, the
-    oracle of that choice); decode and every other shape use
+    oracle of that choice).  A decode step -- one new token into a
+    cache under the uniform head map -- goes through ``decode_attn(q
+    (B, H, D), k, v (B, S, Kv, D), *, pos, window, attn_softcap, scale)
+    -> (B, H, D)`` when one is given (the partitioned-KV flash decode of
+    ``launch.steps.make_decode_step``); every other shape uses
     ``masked_attention``.
     """
     head_dim = p.wq.shape[-1]
@@ -193,6 +197,13 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     uniform = (h_padded % n_kv == 0 and
                tuple(head_map) == tuple(i // (h_padded // n_kv)
                                         for i in range(h_padded)))
+    if decode_attn is not None and cache is not None and sq == 1 \
+            and uniform:
+        out = decode_attn(q[:, 0], k, v, pos=cache_pos, window=window,
+                          attn_softcap=attn_softcap, scale=scale)
+        dt = torch.promote_types(out.dtype, p.wo.dtype)
+        out = torch.einsum("bhk,hkd->bd", out.to(dt), p.wo.to(dt))
+        return out[:, None, :], cache
     if (flash and cache is not None and cache_pos == 0 and sq > 1
             and tpos.dim() == 1 and uniform):
         # keys beyond the new tokens are hidden by causality: pass [:S]

@@ -97,11 +97,13 @@ def _sub(cache: Optional[Dict[str, torch.Tensor]], names):
 
 def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
               cache: Optional[Dict[str, torch.Tensor]] = None,
-              cache_pos: Optional[int] = None, flash: bool = True
-              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+              cache_pos: Optional[int] = None, flash: bool = True,
+              decode_attn=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One decoder layer.  ``cache``: this layer's views of the stacked
     cache ({'k', 'v'}, {'ckv', 'kr'} and/or the Mamba state), written in
-    place.  Returns (h', the layer's cache or None)."""
+    place.  ``decode_attn``: the GQA mixer's decode hook
+    (``attention_fwd``); MLA and Mamba never take it.  Returns (h', the
+    layer's cache or None)."""
     zc = cfg.zero_centered_norm
     hin = rms_norm(h, lp.ln1, zero_centered=zc)
     outs = []
@@ -119,7 +121,7 @@ def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
                 rope_theta=cfg.rope_theta,
                 mrope_sections=cfg.mrope_sections, q_scale=cfg.q_scale,
                 cache=_sub(cache, ATTN_CACHE), cache_pos=cache_pos,
-                q_chunk=cfg.q_chunk, flash=flash)
+                q_chunk=cfg.q_chunk, flash=flash, decode_attn=decode_attn)
         outs.append(a_out)
     if cfg.mixer in ("mamba", "hybrid"):
         m_out, _ = mamba_fwd(lp.mamba, hin, mc=cfg.mamba,

@@ -404,8 +404,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
             cache_pos: Optional[int] = None, flash: bool = True,
             remat: bool = False,
-            param_hook: Callable[[Block], Block] = lambda lp: lp
-            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+            param_hook: Callable[[Block], Block] = lambda lp: lp,
+            decode_attn=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Run the decoder stack: returns (hidden (B, S, D) after the final
     norm, the cache written in place or None).  ``flash=False``, or
     explicit ``batch['positions']`` (whose causal mask is theirs, not
@@ -417,7 +417,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     (``core.earlybird``).  ``remat`` recomputes each layer in backward
     (``torch.utils.checkpoint``) instead of keeping its activations; the
     hook is called outside the checkpointed region, so a recomputation
-    does not call it again."""
+    does not call it again.  ``decode_attn`` is the attention layers'
+    decode hook (``attention.attention_fwd``)."""
     h = _embed_inputs(cfg, params, batch)
     b, s = h.shape[0], h.shape[1]
     positions = _positions(cfg, batch, b, s, cache_pos, h.device)
@@ -427,7 +428,7 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
         layer_cache = None if cache is None else \
             {k: t[i] for k, t in cache.items()}
         kw = dict(positions=positions, window=window, cache=layer_cache,
-                  cache_pos=cache_pos, flash=flash)
+                  cache_pos=cache_pos, flash=flash, decode_attn=decode_attn)
         if remat and cache is None:
             h, _ = torch.utils.checkpoint.checkpoint(
                 block_fwd, cfg, lp, h, use_reentrant=False, **kw)
@@ -486,11 +487,13 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict, *,
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, cache: Dict[str, torch.Tensor],
                 tokens: Optional[torch.Tensor], pos: int, *,
-                embeds: Optional[torch.Tensor] = None
+                embeds: Optional[torch.Tensor] = None, decode_attn=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step: tokens (B,) int, ``pos`` the write offset; the
-    audio stub takes ``embeds`` (B, 1, d) instead.  Returns (logits
-    (B, V) f32, the cache written in place)."""
+    audio stub takes ``embeds`` (B, 1, d) instead.  ``decode_attn``: the
+    attention layers' decode hook (``attention.attention_fwd``).
+    Returns (logits (B, V) f32, the cache written in place)."""
     batch = _decode_batch(cfg, tokens, embeds)
-    h, cache = forward(cfg, params, batch, cache=cache, cache_pos=int(pos))
+    h, cache = forward(cfg, params, batch, cache=cache, cache_pos=int(pos),
+                       decode_attn=decode_attn)
     return _final_logits(cfg, h[:, -1, :], params), cache

@@ -1,2 +1,3 @@
-"""The optimizer of training: the learning-rate schedules (``schedule``)
-and AdamW (``adamw``)."""
+"""The optimizer of training: the learning-rate schedules (``schedule``),
+AdamW (``adamw``) and per-leaf int8 gradient compression with error
+feedback (``grad_compress``)."""
