@@ -9,7 +9,9 @@ serving, training, the paper's scenarios, the planner, the serving of
 the MLA, Mamba-2, MoE and hybrid families and the two stub frontends,
 the training of all of them, and partitioned communication over
 ``torch.distributed`` (ring collectives, the int8 ring with error
-feedback, partitioned-KV flash decode) -- phase by phase; every
+feedback, partitioned-KV flash decode), and the evaluation tooling (the
+sweep's throughput bench, worker pool and profile, the benchmark
+harness and the chaos command line) -- phase by phase; every
 phase prints one line and any failure exits non-zero without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
@@ -160,8 +162,22 @@ phase prints one line and any failure exits non-zero without a result:
      gemma2-9b and hymba-1.5b (at 4 layers) smoke configs decoded the
      same way in f32 on the card and on a one-rank gloo group on the
      CPU, within 2e-5.  Every line of the phase carries the card's
-     ``nvidia-smi`` name and power limit.  Then the kernel table as one
-     JSON line.
+     ``nvidia-smi`` name and power limit;
+ 20. the evaluation tooling: (a) the sweep's ``--bench-engine`` smoke
+     cells (every spec but the orchestration-bound runners' on engines
+     vector, torch and cuda, the 32768-rank XXL tier on torch and cuda
+     only; best of 3 cold runs, with the kernel's launches a cell) and
+     the torch-vs-vector and cuda-vs-torch speedups, gated 2x against
+     the committed ``BENCH_engine_torch.json``; (b) ``run_specs`` over
+     the full ``fig5_contention`` and ``halo1d`` grids on engine cuda
+     with two spawned workers, bitwise the in-process run and on the
+     baseline; (c) ``--profile`` of the XXL smoke tier: the cold and
+     warm walls and the memo counters; (d) ``python -m
+     repro_torch.benchmarks.run --fast`` on engine cuda, its 288 rows
+     equal in value to engine reference's (and its scenario JSON); (e)
+     ``python -m repro_torch.chaos`` with 8 campaigns on the card, no
+     violation.  Every line carries the card's name and power limit.
+     Then the kernel table as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -2593,6 +2609,173 @@ def partitioned_phase(dev, small: bool = False) -> None:
     print(f"[{card}] phase 19c wall {time.perf_counter() - t0:.3f} s")
 
 
+# Phase 20: the evaluation tooling.  The smoke throughput cells of the
+# engines the card run gates (the scalar reference is measured only for
+# the committed full document), the specs the spawned pool runs, and
+# the chaos campaigns through the command line.
+BENCH_PORT = ROOT / "BENCH_engine_torch.json"
+BENCH_SMOKE_ENGINES = ("vector", "torch", "cuda")
+JOBS_SPECS = ("fig5_contention", "halo1d")
+TOOLING_CHAOS = 8
+
+
+def _same_card(a: str, b: str) -> bool:
+    """Two ``nvidia-smi`` name/power-limit strings of one card model."""
+    return a.split(",")[0].strip() == b.split(",")[0].strip()
+
+
+def tooling_phase(dev, baseline: dict, small: bool = False) -> dict:
+    """Phase 20: the port's evaluation tooling on the card.  (a) the
+    sweep's ``--bench-engine`` smoke cells on vector, torch and cuda
+    (the XXL tier on torch and cuda only), gated 2x against the
+    committed ``BENCH_engine_torch.json``; (b) ``run_specs`` with two
+    spawned workers on engine cuda, bitwise the in-process run and on
+    the baseline; (c) ``--profile`` of the XXL smoke tier, cold and
+    warm, with the memo counters; (d) the benchmark harness's ``--fast``
+    rows on cuda, equal in value to engine reference's; (e) the chaos
+    command line.  Every line carries the card's name and power limit.
+    ``small`` (a CPU rehearsal) leaves the XXL tier out of (a) and
+    profiles the XL one."""
+    import contextlib
+    import io
+
+    from repro_torch import chaos as chaos_cli
+    from repro_torch import sweep
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.core import fabric_cuda as fc
+    from repro_torch.experiments import SPECS, compare_to_baseline, run_specs
+    from repro_torch.experiments import engine as exp_engine
+    card = _card_name()
+    on_card = dev.type == "cuda"
+    out = {}
+
+    # (a) engine throughput, measured by the command line in a fresh
+    # process, as the committed document was: after phases 1-19 one
+    # process times the short cells differently (on an H100 the
+    # 27 648-event weak_scaling smoke cell's cuda/torch ratio read 1.61
+    # there, 3.37 and 3.54 in fresh processes)
+    t0 = time.perf_counter()
+    if on_card:
+        import torch
+        torch.cuda.empty_cache()
+    src = Path(sweep.__file__).resolve().parents[1]
+    names = [s.name for s in SPECS.values()
+             if not (small and s.name == "weak_scaling_xxl")]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bench.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.sweep", "--bench-engine",
+             "--smoke", "--bench-engines", ",".join(BENCH_SMOKE_ENGINES),
+             "--specs", ",".join(names), "--device", dev.type,
+             "--bench-out", str(path)],
+            env={**os.environ, "PYTHONPATH": str(src)}, capture_output=True,
+            text=True, timeout=900)
+        print(proc.stdout, end="")
+        check(proc.returncode == 0, f"sweep --bench-engine exited"
+              f" {proc.returncode}: {proc.stderr[-2000:]}")
+        doc = json.loads(path.read_text())
+    cells = {(e["spec"], e["engine"]): e for e in doc["entries"]}
+    tiers = ("weak_scaling", "weak_scaling_xl") + (
+        () if small else ("weak_scaling_xxl",))
+    for tier in tiers:
+        n = cells[(tier, "cuda")]["launches"]
+        check(n >= 1 or not on_card, f"bench {tier}/cuda: {n} launches")
+    speedups = {k: v for k, v in doc["totals"].items()
+                if k.startswith("speedup_")}
+    check(set(speedups) == {"speedup_torch_vs_vector",
+                            "speedup_cuda_vs_torch"}, f"{speedups}")
+    if on_card:
+        committed = json.loads(BENCH_PORT.read_text())
+        check(_same_card(committed["device"], doc["device"]),
+              f"bench: measured on {doc['device']!r}, committed on"
+              f" {committed['device']!r}")
+        violations = sweep.check_bench_regression(
+            doc, {**committed, "device": doc["device"]})
+        check(not violations, "bench: " + "; ".join(violations))
+        gate = (f"2x gate against {BENCH_PORT.name} (committed on"
+                f" {committed['device']}) passed")
+    else:
+        gate = "no gate on the CPU"
+    print(f"[{card}] bench-engine smoke: {len(doc['entries'])} cells, "
+          + ", ".join(f"{k[8:]} {v:.2f}x" for k, v in speedups.items())
+          + f"; {gate}; wall {time.perf_counter() - t0:.3f} s")
+    out["bench"] = doc
+
+    # (b) two spawned workers against the in-process run
+    t0 = time.perf_counter()
+    jspecs = [SPECS[n] for n in JOBS_SPECS]
+    exp_engine._CACHE.clear()
+    one = run_specs(jspecs, mode="full", engine="cuda", device=dev)
+    t_one = time.perf_counter() - t0
+    exp_engine._CACHE.clear()
+    t0 = time.perf_counter()
+    two = run_specs(jspecs, mode="full", engine="cuda", device=dev, jobs=2)
+    t_two = time.perf_counter() - t0
+    exp_engine._CACHE.clear()
+    check(json.dumps(two, sort_keys=True) == json.dumps(one, sort_keys=True),
+          "--jobs 2 records differ from --jobs 1")
+    v = compare_to_baseline(baseline, two)
+    check(not v, "--jobs 2 baseline drift: " + "; ".join(v[:5]))
+    n = sum(len(r) for r in two.values())
+    print(f"[{card}] run_specs {', '.join(JOBS_SPECS)} full (cuda): {n}"
+          f" records, --jobs 2 (spawned workers) bitwise --jobs 1 and on"
+          f" the baseline; wall {t_one:.3f} s in process, {t_two:.3f} s"
+          f" with 2 workers")
+
+    # (c) --profile of the XXL smoke tier
+    tier = "weak_scaling_xl" if small else "weak_scaling_xxl"
+    results, prof = sweep.profile_specs([SPECS[tier]], "smoke", "cuda", dev)
+    v = compare_to_baseline(baseline, results)
+    check(not v, f"profile {tier}: " + "; ".join(v))
+    check(prof["launches"] >= 2 or not on_card,
+          f"profile {tier}: {prof['launches']} launches")
+    lines = io.StringIO()
+    sweep.print_profile(prof, lines)
+    for line in lines.getvalue().splitlines():
+        print(f"[{card}] profile {tier} smoke (cuda) {line}")
+    out["profile"] = prof
+
+    # (d) the harness's --fast rows, cuda against reference
+    t0 = time.perf_counter()
+    before = fc.LAUNCHES["fabric_scan"]
+    csv = io.StringIO()
+    with contextlib.redirect_stdout(csv):
+        rc = bench_run.main(["--fast", "--engine", "cuda", "--device",
+                             str(dev)])
+    t_cuda = time.perf_counter() - t0
+    launches = fc.LAUNCHES["fabric_scan"] - before
+    check(rc == 0, f"benchmarks.run exited {rc}")
+    t0 = time.perf_counter()
+    want = bench_run.collect(0, "reference", "cpu")
+    t_ref = time.perf_counter() - t0
+    got = bench_run.collect(0, "cuda", str(dev))
+    check(got == want, "benchmarks.run --fast: cuda rows differ from"
+          " reference: " + str([(a, b) for a, b in zip(got, want)
+                                if a != b][:3]))
+    check(bench_run.scenario_results(0, "cuda", str(dev))
+          == bench_run.scenario_results(0, "reference", "cpu"),
+          "benchmarks.run --json: cuda results differ from reference")
+    rows = csv.getvalue().splitlines()
+    check(len(rows) == 1 + len(want) == 289, f"{len(rows)} CSV lines")
+    check(all(x == x and abs(x) != float("inf") for _, x, _ in got),
+          "benchmarks.run: a value is not finite")
+    print(f"[{card}] benchmarks.run --fast (cuda): {len(got)} rows equal"
+          f" in value to engine reference's, fabric_scan launches"
+          f" {launches}; wall {t_cuda:.3f} s (reference {t_ref:.3f} s)")
+
+    # (e) the chaos command line
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = chaos_cli.main(["--campaigns", str(TOOLING_CHAOS), "--device",
+                             str(dev)])
+    check(rc == 0 and "0 violations" in text.getvalue(),
+          f"chaos exited {rc}: {text.getvalue()[-500:]}")
+    print(f"[{card}] {text.getvalue().strip()}; wall"
+          f" {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def run(device_name: str = "cuda", small: bool = False) -> dict:
     """All phases on ``device_name``; returns the kernel table.
     ``small`` cuts the serving and training phases to the llama smoke
@@ -2869,6 +3052,11 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
         finally:
             dist.destroy_process_group()
     print(f"[{_card_name()}] phase 19 wall {time.perf_counter() - t0:.3f} s")
+
+    # 20. the evaluation tooling ------------------------------------------
+    t0 = time.perf_counter()
+    tooling_phase(dev, baseline, small)
+    print(f"[{_card_name()}] phase 20 wall {time.perf_counter() - t0:.3f} s")
     return {"kernels": [fabric, *flash, *train_kernels]}
 
 

@@ -17,7 +17,8 @@ hops there).  ``pmax_`` and ``psum_`` are ``all_reduce`` in place.
 
 ``CALLS`` counts the collectives issued through this module
 (``all_reduce`` and ``ppermute``, a posted permutation counting once),
-as the kernel wrappers count their launches.
+as the kernel wrappers count their launches, and the bytes this rank
+contributes to its all-reduces (``all_reduce_bytes``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-CALLS: Dict[str, int] = {"all_reduce": 0, "ppermute": 0}
+CALLS: Dict[str, int] = {"all_reduce": 0, "ppermute": 0,
+                         "all_reduce_bytes": 0}
 
 
 def axis_size(group=None) -> int:
@@ -94,6 +96,7 @@ def ppermute(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]],
 
 def _all_reduce_(x: torch.Tensor, op, group) -> torch.Tensor:
     CALLS["all_reduce"] += 1
+    CALLS["all_reduce_bytes"] += x.numel() * x.element_size()
     dist.all_reduce(x, op=op, group=group)
     return x
 

@@ -23,8 +23,9 @@ Three modes mirror the paper's §2.3 taxonomy:
 
 ``comm_dtype`` (e.g. ``'bfloat16'``) casts each bucket for the wire.
 The data-parallel axes of the JAX package become a ``torch.distributed``
-process group; its ``pmean`` becomes ``all_reduce(SUM)`` followed by a
-division by the group's size.  Leaves follow the JAX package's order
+process group; its ``pmean`` becomes ``compat.psum_`` (an
+``all_reduce(SUM)``, counted in ``compat.CALLS``) followed by a division
+by the group's size.  Leaves follow the JAX package's order
 (``models.lm.param_leaves``), so the bucket plans are the same, and
 :func:`auto_sync_config` lets the planner choose the mode.
 """
@@ -37,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..compat import psum_
 from ..models.lm import param_leaves, unread_params
 from .bucketing import bucketed_apply, leaf_nbytes
 
@@ -73,7 +75,7 @@ def _pmean_(flat: torch.Tensor, sync: SyncConfig, log: SyncLog,
     x = flat
     if sync.comm_dtype is not None:
         x = flat.to(getattr(torch, sync.comm_dtype))
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=sync.group)
+    psum_(x, sync.group)
     x.div_(dist.get_world_size(sync.group))
     log.entries.append((tag, x.numel()))
     if x is not flat:

@@ -657,6 +657,12 @@ _OPS_MEMO = _fb.CappedMemo(8)
 _ARR_MEMO = _fb.CappedMemo(32)
 
 
+def memo_stats() -> dict:
+    """Hit/miss counters of the super-batch operand memo and the
+    arrivals-mode structure memo."""
+    return {"grid_ops": _OPS_MEMO.stats(), "arrivals": _ARR_MEMO.stats()}
+
+
 def clear_memos() -> None:
     """Reset the cuda engine's operand caches with their counters."""
     _OPS_MEMO.clear()

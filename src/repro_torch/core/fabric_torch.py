@@ -75,6 +75,12 @@ RawLayout = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 _LAYOUT_MEMO = _fb.CappedMemo(64)
 
 
+def layout_memo_stats() -> dict:
+    """Hit/miss counters of the stage-layout memo (shared by the torch
+    and cuda engines)."""
+    return _LAYOUT_MEMO.stats()
+
+
 def clear_layout_memo() -> None:
     """Reset the torch engine's layout caches (stage layouts and stacked
     bucket operands) with their counters."""

@@ -647,13 +647,22 @@ def _scenario_class_key(sc: Scenario) -> tuple:
 # shapes the columns — including the NetConfig *values*, so recycled
 # object ids can never alias two different configurations.
 _MERGE_MEMO = CappedMemo(64)
+_MERGE_MESSAGES_SAVED = [0]
+
+
+def merge_memo_stats() -> dict:
+    """Hit/miss counters of the merge-order memo (``sweep --profile``
+    prints these to show what repeated runs stopped re-sorting)."""
+    return {**_MERGE_MEMO.stats(),
+            "messages_saved": _MERGE_MESSAGES_SAVED[0]}
 
 
 def clear_merge_memo() -> None:
     """Reset the merge-order, assembled-grid-point and the torch/cuda
     engines' stage-layout/bucket/operand memos with their counters, so
-    a following run starts cold."""
+    a following run starts cold (``sweep --profile``'s cold pass)."""
     _MERGE_MEMO.clear()
+    _MERGE_MESSAGES_SAVED[0] = 0
     _GRID_MEMO.clear()
     fabric_torch.clear_layout_memo()
     fabric_cuda.clear_memos()
@@ -664,6 +673,7 @@ def _merge_order(t_ready: np.ndarray,
     """The merge's stable sort permutation, memoized per merge key."""
     order = _MERGE_MEMO.get(memo_key)
     if order is not None:
+        _MERGE_MESSAGES_SAVED[0] += int(order.shape[0])
         return order
     order = np.argsort(t_ready, kind="stable")
     _MERGE_MEMO.put(memo_key, order)
@@ -1061,6 +1071,13 @@ def simulate_stencil(approach: str, *, dims: Sequence[int] = (),
 # points) skip re-assembly entirely and go straight to the device.  The
 # entries hold host arrays only, so every device and engine shares them.
 _GRID_MEMO = CappedMemo(32)
+
+
+def grid_memo_stats() -> dict:
+    """Hit/miss counters of the assembled-grid-point memo (the torch and
+    cuda whole-grid path's outermost cache; when it hits, the merge and
+    layout memos underneath are never consulted)."""
+    return _GRID_MEMO.stats()
 
 
 @dataclass

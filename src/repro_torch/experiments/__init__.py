@@ -2,8 +2,9 @@
 chaos campaigns.
 
   engine  — SweepSpec grid expansion, deduplicated and cached runs
-            (stencil grids through the whole-grid device path), gain
-            metrics, baseline comparison
+            (stencil grids through the whole-grid device path, the rest
+            optionally over spawned worker processes), the opt-in disk
+            cache, gain metrics, baseline documents and comparison
   specs   — the registry: Figs 4-8, ``halo1d``, ``steady_state``, the
             stencil and weak-scaling tiers, ``imbalance``, ``serving``,
             ``autotune``, ``faults``, ``membership``, ``serving_faults``,
@@ -15,6 +16,7 @@ chaos campaigns.
 """
 
 from .engine import (BASELINE_VERSION, DEFAULT_ENGINE, SweepSpec,  # noqa: F401
-                     compare_to_baseline, parse_key, record_key, run_records,
-                     run_records_batched, run_spec)
+                     compare_to_baseline, load_disk_cache, make_baseline,
+                     parse_key, record_key, run_records, run_records_batched,
+                     run_spec, run_specs, save_disk_cache)
 from .specs import SPECS, contention_crossover  # noqa: F401

@@ -11,9 +11,12 @@ product over approach x dims x ...), and an optional reduced ``smoke``
 grid.  The engine expands grids deterministically, deduplicates points
 by a canonical record key, runs stencil grids through the whole-grid
 device path (:func:`run_records_batched`) and every other point through
-its runner, derives per-group gain metrics against a declared baseline
-approach, and diffs records against a versioned golden-baseline
-document (``BENCH_scenarios.json``) with :func:`compare_to_baseline`.
+its runner (in spawned worker processes with ``jobs`` > 1), derives
+per-group gain metrics against a declared baseline approach, writes
+baseline documents (:func:`make_baseline`) and an opt-in run cache
+(:func:`save_disk_cache`), and diffs records against a versioned
+golden-baseline document (``BENCH_scenarios.json``) with
+:func:`compare_to_baseline`.
 
 Records are keyed by the *full* parameter dict; the engine and device
 are not part of the record key — every engine must reproduce the same
@@ -23,6 +26,9 @@ baseline records — but they do key the run cache.
 from __future__ import annotations
 
 import itertools
+import json
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -605,6 +611,14 @@ PRIMARY_METRIC = {
 }
 
 
+def _run_point(arg: Tuple[str, Mapping[str, Any], str, str]
+               ) -> Dict[str, float]:
+    """One point through its runner: ``(runner, params, engine,
+    device)``.  Top level, so a process pool can pickle the work."""
+    runner, params, engine, device = arg
+    return RUNNERS[runner](params, engine=engine, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Specs and the engine
 # ---------------------------------------------------------------------------
@@ -677,10 +691,49 @@ def run_records_batched(runner: str, points: Sequence[Mapping[str, Any]],
     return [None if r is None else _stencil_metrics(r) for r in results]
 
 
+class WorkerPool:
+    """``jobs`` worker processes that run :func:`_run_point`, started at
+    the first :meth:`map` and shared by every run inside one ``with``
+    block, so a sweep of many specs pays the workers' start-up once.
+
+    The workers are spawned, never forked: CUDA cannot run in a forked
+    child of a process that has touched the card.  On the card the
+    parent builds the fabric kernel before a map, so each worker only
+    loads the library from the build directory."""
+
+    def __init__(self, jobs: int):
+        self.jobs, self._ex = jobs, None
+
+    def map(self, args: List[tuple]) -> List[Dict[str, float]]:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        if any(a[2] == "cuda" and a[3].startswith("cuda") for a in args):
+            from ..kernels import build
+            build.build(["fabric_scan"])
+        if self._ex is None:
+            self._ex = ProcessPoolExecutor(
+                max_workers=self.jobs,
+                mp_context=multiprocessing.get_context("spawn"))
+        return list(self._ex.map(_run_point, args))
+
+    def __enter__(self) -> "WorkerPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._ex is not None:
+            self._ex.shutdown()
+            self._ex = None
+
+
 def run_records(runner: str, points: Sequence[Mapping[str, Any]],
-                engine: str = DEFAULT_ENGINE, device="cuda"
+                engine: str = DEFAULT_ENGINE, device="cuda", jobs: int = 1,
+                pool: Optional[WorkerPool] = None
                 ) -> Dict[str, Dict[str, float]]:
-    """Run deduplicated points through one runner; returns key -> metrics."""
+    """Run deduplicated points through one runner; returns key -> metrics.
+
+    Stencil grids take the whole-grid path in this process; with
+    ``jobs`` > 1 the remaining points run in ``pool`` (a
+    :class:`WorkerPool` of its own when none is given)."""
     dev = str(sim.resolve_device(device))
     keyed: Dict[str, Dict[str, Any]] = {}
     for p in points:
@@ -698,10 +751,92 @@ def run_records(runner: str, points: Sequence[Mapping[str, Any]],
                 else:
                     _CACHE[(runner, k, engine, dev)] = metrics
             missing = left
-    for k, p in missing:
-        _CACHE[(runner, k, engine, dev)] = RUNNERS[runner](
-            p, engine=engine, device=dev)
+    args = [(runner, p, engine, dev) for _, p in missing]
+    if jobs > 1 and len(missing) > 1:
+        if pool is None:
+            with WorkerPool(jobs) as own:
+                done = own.map(args)
+        else:
+            done = pool.map(args)
+    else:
+        done = [_run_point(a) for a in args]
+    for (k, _), metrics in zip(missing, done):
+        _CACHE[(runner, k, engine, dev)] = metrics
     return {k: dict(_CACHE[(runner, k, engine, dev)]) for k in keyed}
+
+
+# ---------------------------------------------------------------------------
+# Persistent run cache (opt-in)
+# ---------------------------------------------------------------------------
+
+# The port's cache document: records by device, engine, runner and
+# record key, with the baseline version they were made under.
+CACHE_FORMAT = "repro_torch run cache"
+
+
+def load_disk_cache(path: str) -> int:
+    """Seed the process cache from a cache file written by
+    :func:`save_disk_cache`; returns the entries loaded.  A file that
+    is missing, unreadable, malformed, of another format or of another
+    baseline version loads nothing: the cache only ever skips re-running
+    pure functions, so dropping it is always safe."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        if doc.get("format") != CACHE_FORMAT \
+                or doc.get("baseline_version") != BASELINE_VERSION:
+            return 0
+        loaded = {}
+        for device, engines in doc.get("records", {}).items():
+            for engine, runners in engines.items():
+                for runner, recs in runners.items():
+                    if runner not in RUNNERS:
+                        continue
+                    for key, metrics in recs.items():
+                        loaded[(runner, key, engine, device)] = {
+                            m: float(v) for m, v in metrics.items()}
+    except (OSError, json.JSONDecodeError, TypeError, ValueError,
+            AttributeError):
+        return 0  # nothing was seeded above: all or nothing
+    n = 0
+    for k, metrics in loaded.items():
+        if k not in _CACHE:
+            _CACHE[k] = metrics
+            n += 1
+    return n
+
+
+def save_disk_cache(path: str) -> int:
+    """Write the process cache to ``path``; returns the entries written.
+
+    The write is atomic: the document goes to a temporary file in the
+    target's directory, which is then ``os.replace``-d over ``path``, so
+    a crash (or a concurrent run) never leaves a truncated cache:
+    readers see the old whole file or the new one."""
+    records: Dict[str, Dict[str, Dict[str, Dict[str, Dict[str, float]]]]] \
+        = {}
+    for runner, key, engine, device in sorted(
+            _CACHE, key=lambda k: (k[3], k[2], k[0], k[1])):
+        records.setdefault(device, {}).setdefault(engine, {}).setdefault(
+            runner, {})[key] = _CACHE[(runner, key, engine, device)]
+    doc = {"format": CACHE_FORMAT, "baseline_version": BASELINE_VERSION,
+           "records": records}
+    path = os.path.abspath(path)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    return len(_CACHE)
 
 
 def _add_gains(spec: SweepSpec, keyed: Mapping[str, Dict[str, Any]],
@@ -722,20 +857,54 @@ def _add_gains(spec: SweepSpec, keyed: Mapping[str, Dict[str, Any]],
 
 
 def run_spec(spec: SweepSpec, mode: str = "full",
-             engine: str = DEFAULT_ENGINE, device="cuda"
+             engine: str = DEFAULT_ENGINE, device="cuda", jobs: int = 1,
+             pool: Optional[WorkerPool] = None
              ) -> Dict[str, Dict[str, float]]:
     """Run one spec's grid; returns sorted key -> metrics (incl. gains)."""
     points = spec.points(mode)
     keyed = {record_key(p): p for p in points}
-    records = run_records(spec.runner, points, engine=engine, device=device)
+    records = run_records(spec.runner, points, engine=engine, device=device,
+                          jobs=jobs, pool=pool)
     if spec.baseline_approach:
         _add_gains(spec, keyed, records)
     return dict(sorted(records.items()))
 
 
+def run_specs(specs: Sequence[SweepSpec], mode: str = "full",
+              engine: str = DEFAULT_ENGINE, device="cuda", jobs: int = 1
+              ) -> Dict[str, Dict[str, Dict[str, float]]]:
+    """:func:`run_spec` over ``specs``, one worker pool shared by all
+    of them; returns name -> records."""
+    with WorkerPool(jobs) as pool:
+        return {spec.name: run_spec(spec, mode=mode, engine=engine,
+                                    device=device, jobs=jobs, pool=pool)
+                for spec in specs}
+
+
 # ---------------------------------------------------------------------------
 # Golden baselines
 # ---------------------------------------------------------------------------
+
+def make_baseline(specs: Sequence[SweepSpec],
+                  results: Mapping[str, Mapping[str, Mapping[str, float]]]
+                  ) -> dict:
+    """A versioned baseline document with per-metric tolerances recorded
+    next to the values, so the checker needs no code-side configuration
+    (the JAX package's layout; ``generator`` names the port's command)."""
+    doc: dict = {
+        "version": BASELINE_VERSION,
+        "generator": "python -m repro_torch.sweep --update",
+        "specs": {},
+    }
+    for spec in specs:
+        doc["specs"][spec.name] = {
+            "runner": spec.runner,
+            "tol_rel": spec.tol_rel,
+            "tolerances": {"n_messages": 0.0, **dict(spec.tolerances)},
+            "records": {k: dict(m) for k, m in results[spec.name].items()},
+        }
+    return doc
+
 
 def compare_to_baseline(
         doc: Mapping[str, Any],

@@ -1,9 +1,9 @@
 """Import hygiene of the PyTorch port and its plan layer.
 
 Importing every ``repro_torch`` module in a fresh interpreter must load
-no ``jax`` module and nothing of the JAX package ``repro``; the port
-keeps its own copies of the plan layer, topology and NumPy fabric, which
-must agree with the reference's.
+no ``jax`` module and nothing of the JAX package ``repro`` or of its
+``benchmarks``; the port keeps its own copies of the plan layer,
+topology and NumPy fabric, which must agree with the reference's.
 """
 
 import ast
@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib')) or m == 'repro'"
-        " or m.startswith('repro.'))\n"
+        " or m.startswith('repro.') or m == 'benchmarks'"
+        " or m.startswith('benchmarks.'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -56,6 +57,24 @@ def test_planner_and_ir_sources_are_covered():
             if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
+def test_evaluation_tooling_sources_are_covered():
+    """The sweep and chaos command lines and every module of the port's
+    benchmark harness are among the modules imported above and the
+    files scanned below; none names the JAX package's ``benchmarks``."""
+    harness = ("common", "tableA_delayrate", "fig4_latency",
+               "fig5_congestion", "fig6_vci", "fig7_aggregation",
+               "fig8_earlybird", "scen_steady", "scen_halo", "scen_stencil",
+               "scen_imbalance", "scen_serving", "scen_faults", "earlybird",
+               "run")
+    for name in ("repro_torch.sweep", "repro_torch.chaos",
+                 *(f"repro_torch.benchmarks.{m}" for m in harness)):
+        assert name in MODULES, name
+        path = REPO / "src" / (name.replace(".", "/") + ".py")
+        assert path.is_file() and not [
+            m for m in _imported_names(path)
+            if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
+
+
 def _imported_names(path):
     """Every module an ``import`` statement anywhere in ``path`` names,
     function-local imports included."""
@@ -72,7 +91,7 @@ def _imported_names(path):
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_names_jax_or_repro(path):
     bad = [m for m in _imported_names(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert not bad, f"{path.name} imports {bad}"
 
 
