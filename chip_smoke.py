@@ -176,8 +176,26 @@ phase prints one line and any failure exits non-zero without a result:
      repro_torch.benchmarks.run --fast`` on engine cuda, its 288 rows
      equal in value to engine reference's (and its scenario JSON); (e)
      ``python -m repro_torch.chaos`` with 8 campaigns on the card, no
-     violation.  Every line carries the card's name and power limit.
-     Then the kernel table as one JSON line.
+     violation.  Every line carries the card's name and power limit;
+ 21. the float32 mode and the mesh layer: (a) with
+     ``compat.x64_mode(False)``, the XXL smoke tier on engine cuda (the
+     float32 path: its ``fabric_scan_f32`` launches), then the XXL smoke
+     tier and the thirteen scenario grids (155 records) on engines torch
+     and cuda and the batched drivers' smoke records with the cutoffs at
+     0, every float32 kernel launch held bitwise against its plain
+     version on the same operands, every record within 1e-4 of the
+     float64 oracle's times (rates and ratios of two times within
+     2e-4), the counters exact; a float64 pass after it bitwise equal to
+     the one before; the float32 kernel's event and device ms at the
+     XXL super-batch beside the float64 kernel's, with both bounds;
+     (b) a (1, 1) ``DeviceMesh`` over the one-rank ``nccl`` group:
+     llama3.2-1b at full width in f32, 3 ZeRO-1 steps bitwise equal
+     (losses, parameters, moments) to 3 unsharded steps from the same
+     seed and to phase 13's partitioned losses, and the decode cell of
+     phase 19 (4 prompts of 1024 tokens, 32 steps through flash decode,
+     bf16) with the cache placed by ``_cache_shardings``, its logits
+     bitwise equal to the replicated-cache path's.  Then the kernel
+     table as one JSON line, the float32 fabric kernel a row of its own.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -208,6 +226,14 @@ to hold two versions of the model code against each other in one call.
 
 does the same for phase 18: each family's layers, step ms, tokens/s,
 peak memory, idle share and pack/unpack device ms, and the depth cuts.
+
+    python3 chip_smoke.py --trace-attribution [TREE]
+
+takes 60 profiler traces each of 10 pack and of 10 unpack calls at the
+two buckets of phase 14 and prints, as one JSON line, how many measured
+kernels each trace shows by their traced start time and by their launch,
+and how far a kernel's traced start lies from its launch: the evidence
+for the way phases 14 and 21 count a trace's kernels.
 """
 
 from __future__ import annotations
@@ -364,16 +390,18 @@ def _random_ragged_grid(device):
 
 def _scan_bytes(ops) -> int:
     """Bytes the super-batch moves at least in the kernel's layout:
-    every input read once (three float64 columns, the slot and output
-    words, the finish offsets, the record descriptors and block starts,
-    warm clocks), every output written once."""
+    every input read once (three float columns of the operands' width w,
+    the slot and output words, the finish offsets, the record
+    descriptors and block starts, warm clocks), every output written
+    once."""
     n, (g1, r, g3) = ops.n, ops.sizes
-    inputs = 32 * n + 4 * ops.desc.numel() + 4 * ops.cta.numel()
+    w = ops.t_ready.element_size()
+    inputs = (3 * w + 8) * n + 4 * ops.desc.numel() + 4 * ops.cta.numel()
     if ops.init is not None:
-        inputs += 8 * (g1 + r + g3)
+        inputs += w * (g1 + r + g3)
     if ops.finish:
-        return inputs + 8 * n + 8 * ops.n_out
-    return inputs + 8 * n + 8 * (g1 + r + g3)
+        return inputs + w * n + w * ops.n_out
+    return inputs + w * n + w * (g1 + r + g3)
 
 
 def _legacy_bytes(ops, fins) -> int:
@@ -391,7 +419,7 @@ def _legacy_bytes(ops, fins) -> int:
 
 
 def _scan_ops(ops) -> int:
-    """Float64 operations of the super-batch: max and add in each of the
+    """Float operations of the super-batch: max and add in each of the
     three queues and the two adds of the delivery tail per message, the
     rendezvous add where one is paid, and in finish mode the offset add
     and the max into the rank."""
@@ -1502,45 +1530,65 @@ def train_times(dev, train: dict, errs: dict, small: bool = False) -> list:
     return entries
 
 
+TRACE_GROUPS = ("warm-up", "measured", "tail")
+
+
+def _trace_groups(fn, n: int):
+    """One plain ``torch.profiler`` trace of three groups of ``n`` calls of
+    ``fn`` -- a warm-up, the measured calls in a ``record_function``
+    range, a tail -- each group drained by a synchronise and 2 ms apart.
+    Returns the trace's events, the measured range and the correlation
+    ids of the runtime calls (``cudaLaunchKernel``, ``cudaMemsetAsync``,
+    ...) that start inside it: a device event shares its id with the
+    call that issued it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for group in TRACE_GROUPS:
+            time.sleep(0.002)
+            with record_function(group):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e.time_range for e in events
+                if e.name == "measured" and e.device_type != cuda)
+    issued = {e.id for e in events
+              if e.device_type != cuda and e.name.startswith("cu")
+              and span.start <= e.time_range.start <= span.end}
+    return events, span, issued
+
+
 def _device_profile(fn, n: int = 10, expect=None):
     """Device ms per call, device events and host-to-device copies of
     ``n`` calls of ``fn`` under ``torch.profiler``.  Also the device
     events' names and counts.
 
-    One plain trace holds three groups of ``n`` calls -- a warm-up, the
-    measured calls in a ``record_function`` range, a tail -- each group
-    drained by a synchronise and 2 ms apart, and only the device events
-    that start inside the measured range count.  A trace may lose device
-    events near its start or its end: on the H100 a scheduled profile (a
-    traced warm-up step dropped, the active step read in
-    ``on_trace_ready``) lost some or all kernel events in 17 of 60
-    traces (chip run 3, PR 19) and a trace of the ``n`` calls alone lost
-    half of them in every try of one run (run 4); the groups around the
-    measured range absorb such losses.  Where the caller knows how many
-    device events the ``n`` calls make (``expect``), a trace holding
-    another count is taken again, up to three traces, and the last one is
-    returned (the caller checks its count)."""
+    A device event of a ``_trace_groups`` trace counts when the runtime
+    call that issued it starts inside the measured range.  The device
+    events' own start times are no guide: on the H100 the trace places
+    kernels up to milliseconds before or after their launch on the
+    host's clock, so that a test by start time misses some or all of
+    the measured kernels in a few traces in a hundred, while the trace
+    holds every one of them (``python3 chip_smoke.py
+    --trace-attribution``); durations come from the device's clock
+    alone and are sound.  A trace can still lose a group's events, if
+    rarely (one in 240 there, outside the measured range).  Where
+    the caller knows how many device events the ``n`` calls make
+    (``expect``), a trace holding another count is taken again, up to
+    three traces, and the last one is returned (the caller checks its
+    count)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
     cuda = torch.autograd.DeviceType.CUDA
-    groups = ("warm-up", "measured", "tail")
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for group in groups:
-                time.sleep(0.002)
-                with record_function(group):
-                    for _ in range(n):
-                        fn()
-                    torch.cuda.synchronize()
-        events = prof.events()
-        span = next(e.time_range for e in events
-                    if e.name == "measured" and e.device_type != cuda)
+        events, _, issued = _trace_groups(fn, n)
         evs = {}
         for e in events:
-            if (e.device_type == cuda and e.name not in groups
-                    and span.start <= e.time_range.start <= span.end):
+            if (e.device_type == cuda and e.name not in TRACE_GROUPS
+                    and e.id in issued):
                 c, t = evs.get(e.name, (0, 0.0))
                 evs[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
         if expect is None or sum(c for c, _ in evs.values()) == expect:
@@ -2461,9 +2509,10 @@ def _decode_attention_check(dev, card: str, small: bool) -> None:
 
 
 def _teacher_forced(cfg, scfg, model, prompts, gen, dev, *, group=None,
-                    feed=None, reps: int = 1):
+                    feed=None, reps: int = 1, mesh=None):
     """Prefill ``prompts``, then ``gen`` decode steps through
-    ``make_decode_step`` (``group``: flash decode's), each fed the token
+    ``make_decode_step`` (``group``: flash decode's; ``mesh``: the cache
+    placed on it), each fed the token
     of ``feed`` (None: greedy, recorded).  Returns (the logits of every
     step, the fed tokens, the all-reduces of every step, the median
     decode ms a token over ``reps`` runs of the steps on the same cache,
@@ -2473,11 +2522,13 @@ def _teacher_forced(cfg, scfg, model, prompts, gen, dev, *, group=None,
     from repro_torch.launch.steps import (make_cache, make_decode_step,
                                           make_prefill_step)
     b, s = prompts.shape
-    cache = make_cache(cfg, scfg, batch=b, max_len=s + gen, device=dev)
+    cache = make_cache(cfg, scfg, batch=b, max_len=s + gen, device=dev,
+                       mesh=mesh)
     logits, cache = make_prefill_step(cfg, scfg, seq_len=s, batch=b,
-                                      device=dev)(model, prompts, cache)
+                                      device=dev, mesh=mesh)(
+        model, prompts, cache)
     step = make_decode_step(cfg, scfg, seq_len=s + gen, batch=b, device=dev,
-                            group=group)
+                            group=group, mesh=mesh)
     fed = [] if feed is None else feed
     out, calls = [], []
     for i, t in enumerate(range(s, s + gen)):
@@ -2776,6 +2827,298 @@ def tooling_phase(dev, baseline: dict, small: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the float32 mode of the fabric engines and the mesh layer
+# ---------------------------------------------------------------------------
+
+# 21a: float32 against the float64 oracle (tests/_engines.py's contract):
+# times within F32_RTOL of the record's largest time, rates and ratios
+# of two times within twice that, counters exact.
+F32_RTOL = 1e-4
+F32_EXACT_SUFFIXES = ("_bytes", "_kept", "_factor", "bytes_max",
+                      "bytes_min")
+
+
+def _f32_violations(got: dict, want: dict) -> list:
+    """Where float32 records leave the float64 oracle's tolerance."""
+    bad = []
+    for spec, recs in want.items():
+        for key, m in recs.items():
+            g = got[spec][key]
+            us = max([abs(v) for k, v in m.items() if k.endswith("_us")]
+                     or [0.0])
+            for k, v in m.items():
+                if k.startswith(("n_", "plan_")) or k.endswith(
+                        F32_EXACT_SUFFIXES):
+                    ok = g[k] == v
+                elif k.endswith("_us"):
+                    ok = abs(g[k] - v) <= F32_RTOL * us
+                else:
+                    ok = abs(g[k] - v) <= 2 * F32_RTOL * abs(v)
+                if not ok:
+                    bad.append(f"{spec}/{key} {k}: {g[k]!r} vs {v!r}")
+    return bad
+
+
+def _scan_cost(ops):
+    """(bytes, operations, bound ms, bound_by) of a super-batch at its
+    operands' float width, against HBM and the rate of that type."""
+    import torch
+    rate = FP64_OPS_PER_S if ops.t_ready.dtype == torch.float64 \
+        else F32_FLOPS
+    nbytes, nops = _scan_bytes(ops), _scan_ops(ops)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / rate
+    return nbytes, nops, max(t_b, t_o) * 1e3, \
+        ("bytes" if t_b >= t_o else "operations")
+
+
+def f32_phase(dev, baseline: dict) -> dict:
+    """Phase 21a: the fabric engines' float32 mode on the card.  Returns
+    the float32 kernel's row of the kernel table."""
+    import torch
+    from repro_torch import compat
+    from repro_torch.core import fabric as fb
+    from repro_torch.core import fabric_cuda as fc
+    from repro_torch.core import simulator as sim
+    from repro_torch.experiments import SPECS, run_spec
+    from repro_torch.experiments import engine as exp_engine
+    card, on_card = _card_name(), dev.type == "cuda"
+    xxl = SPECS["weak_scaling_xxl"]
+
+    def cold():
+        exp_engine._CACHE.clear()
+        sim.clear_merge_memo()
+
+    def run_all(engine):
+        out = {}
+        for name in SCENARIO_LAUNCHES:
+            cold()
+            out[name] = run_spec(SPECS[name], "full", engine=engine,
+                                 device=dev)
+        cold()
+        out[xxl.name] = run_spec(xxl, "smoke", engine=engine, device=dev)
+        return out
+
+    t0 = time.perf_counter()
+    want = run_all("cuda")
+    n_rec = sum(len(r) for r in want.values())
+    check(n_rec == 155 + len(want[xxl.name]),
+          f"phase 21a: {n_rec} oracle records")
+
+    # the float32 main path: the XXL smoke tier, counts read around it
+    for k in fc.LAUNCHES:
+        fc.LAUNCHES[k] = 0
+    with compat.x64_mode(False):
+        cold()
+        main = {xxl.name: run_spec(xxl, "smoke", engine="cuda", device=dev)}
+    launches = fc.LAUNCHES["fabric_scan_f32"]
+    check(launches > 0 or not on_card,
+          "the float32 path did not launch fabric_scan_f32")
+    check(fc.LAUNCHES["fabric_scan_f64"] == 0,
+          "the float32 path launched the float64 kernel")
+    bad = _f32_violations(main, {xxl.name: want[xxl.name]})
+    check(not bad, "float32 XXL smoke: " + "; ".join(bad[:5]))
+
+    # every float32 launch against its plain version, bitwise
+    real, checked = fc.fabric_scan, []
+
+    def checking(ops):
+        out = real(ops)
+        check(ops.t_ready.dtype == torch.float32,
+              f"a {ops.t_ready.dtype} super-batch in the float32 mode")
+        check(_outputs_equal(out, fc.fabric_scan_ref(ops)),
+              f"fabric_scan_f32 differs from its plain version on a"
+              f" super-batch of {ops.n} messages")
+        checked.append(ops.n)
+        return out
+    got, per_engine = {}, {}
+    fc.fabric_scan = checking
+    try:
+        with compat.x64_mode(False):
+            for engine in ("torch", "cuda"):
+                before = len(checked)
+                got[engine] = run_all(engine)
+                bad = _f32_violations(got[engine], want)
+                check(not bad, f"float32 on {engine}: " + "; ".join(bad[:5]))
+                per_engine[engine] = len(checked) - before
+            cutoffs = fb.SCALAR_BATCH_CUTOFF, fb.MIN_GROUP_PARALLELISM
+            fb.SCALAR_BATCH_CUTOFF = fb.MIN_GROUP_PARALLELISM = 0
+            before = len(checked)
+            try:
+                forced = {}
+                for name in FORCED_SPECS:
+                    points = [p for p in SPECS[name].points("smoke")
+                              if p.get("fault_rate", 0.0) == 0.0]
+                    cold()
+                    forced[name] = exp_engine.run_records(
+                        SPECS[name].runner, points, engine="cuda",
+                        device=dev)
+            finally:
+                fb.SCALAR_BATCH_CUTOFF, fb.MIN_GROUP_PARALLELISM = cutoffs
+            per_engine["forced"] = len(checked) - before
+    finally:
+        fc.fabric_scan = real
+    check(per_engine["torch"] == 0, "engine torch called the kernel")
+    check(per_engine["cuda"] > 0 and per_engine["forced"] > 0,
+          f"float32 kernel calls checked: {per_engine}")
+    forced64 = {}
+    for name in FORCED_SPECS:
+        points = [p for p in SPECS[name].points("smoke")
+                  if p.get("fault_rate", 0.0) == 0.0]
+        cold()
+        forced64[name] = exp_engine.run_records(
+            SPECS[name].runner, points, engine="reference", device=dev)
+    bad = _f32_violations(forced, forced64)
+    check(not bad, "float32 forced records: " + "; ".join(bad[:5]))
+
+    # float64 again in the same process: bitwise the first pass
+    again = run_all("cuda")
+    check(again == want, "float64 after float32 differs from the first"
+          " float64 pass (an operand memo crossed the modes)")
+    wall = time.perf_counter() - t0
+    print(f"[{card}] float32 mode: XXL smoke on cuda {len(main[xxl.name])}"
+          f" records, fabric_scan_f32 launches {launches} (float64"
+          f" launches 0); the 13 scenario grids and the XXL smoke tier"
+          f" ({n_rec} records) on torch and cuda and the forced smoke"
+          f" records of {len(forced)} drivers within {F32_RTOL} of the"
+          f" float64 oracle, counters exact; {len(checked)} float32"
+          f" kernel calls bitwise equal to fabric_scan_ref ({per_engine});"
+          f" float64 after float32 bitwise; wall {wall:.3f} s")
+
+    # times at the XXL super-batch, float64 and float32 in turns
+    pts = [_smoke_point(xxl, ap) for ap in ("pt2pt_single", "part")]
+    items, fins = _grid(pts)
+    reps = 20 if on_card else 3
+    row, line = {}, []
+    for x64 in (True, False, False, True):
+        with compat.x64_mode(x64):
+            ops, _ = fc.grid_ops(items, fins, dev)
+        ms = _timed(lambda: fc.fabric_scan(ops), dev, reps)
+        dev_ms = "not measured"
+        if on_card:  # a finish launch is two device events: memset, kernel
+            per_call, n_ev, _, _ = _device_profile(
+                lambda: fc.fabric_scan(ops), 10, expect=20)
+            if n_ev == 20:
+                dev_ms = f"{per_call:.4f} ms"
+        nbytes, nops, bound, by = _scan_cost(ops)
+        tag = "f64" if x64 else "f32"
+        line.append(f"{tag} event {ms:.4f} ms, device {dev_ms}, bound"
+                    f" {bound:.4f} ms ({nbytes} bytes, {nops} ops, {by})")
+        if not x64 and "ms" not in row:
+            err = _max_abs_err(fc.fabric_scan(ops), fc.fabric_scan_ref(ops))
+            plain = _timed(lambda: fc.fabric_scan_ref(ops), dev,
+                           max(3, reps // 4))
+            row = {"name": "fabric_scan_f32", "route": "cuda",
+                   "source": "src/repro_torch/csrc/fabric_scan.cu",
+                   "replaces": "src/repro/core/fabric_pallas.py:434",
+                   "launches": launches, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                   "library_ms": None}
+    print(f"[{card}] times XXL super-batch ({ops.n} messages), float64 and"
+          f" float32 in turns: " + "; ".join(line)
+          + f"; fabric_scan_ref in float32 {row['plain_ms']:.4f} ms")
+    return row
+
+
+def mesh_phase(dev, train_losses, small: bool = False) -> None:
+    """Phase 21b: the mesh layer on a (1, 1) ``DeviceMesh`` over the
+    one-rank group: ZeRO-1 training and the sequence-sharded cache's
+    decode cell, each bitwise against the unsharded path."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import param_leaves
+    card, on_card = _card_name(), dev.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+
+    # ZeRO-1: 3 steps against 3 unsharded steps, phase 13's config
+    arch = "llama3.2-1b"
+    cfg = (get_smoke_config if small else get_config)(arch).replace(
+        param_dtype="float32")
+    batch, seq = (4, 64) if small else (4, 1024)
+    stream = pipeline.for_model(cfg, seq, batch)
+    n_steps, total = 3, max(n for _, n in TRAIN_MODES)
+    data = [steps.batch_to_device(stream.batch(i), dev)
+            for i in range(n_steps)]
+    scfg = steps.StepConfig(sync_mode="partitioned", aggr_bytes=TRAIN_AGGR,
+                            param_dtype="float32", warmup_steps=1,
+                            total_steps=total)
+    runs = {}
+    for name, mesh_ in (("unsharded", None), ("zero1", mesh)):
+        for k in bp.LAUNCHES:
+            bp.LAUNCHES[k] = 0
+        state = steps.build_state(cfg, 0, dev, scfg.adam, mesh=mesh_)
+        step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=batch,
+                                     device=dev, mesh=mesh_)
+        losses, times = [], []
+        for b in data:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state, b)
+            losses.append(loss.item())
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = (state, losses, times, dict(bp.LAUNCHES))
+    (plain, l_u, t_u, _), (zero, l_z, t_z, launches_z) = \
+        runs["unsharded"], runs["zero1"]
+    check(l_z == l_u, f"ZeRO-1 losses {l_z} != unsharded {l_u}")
+    check(not train_losses or l_z == train_losses[:n_steps],
+          f"ZeRO-1 losses {l_z} != phase 13's {train_losses[:n_steps]}")
+    pz = dict(zero["params"].named_parameters())
+    check(all(_same_bits(p, pz[k]) for k, p in
+              plain["params"].named_parameters()),
+          "ZeRO-1 parameters differ from the unsharded step's")
+    for key in ("m", "v"):
+        for leaf, segs in param_leaves(plain["opt"][key].items()):
+            whole = torch.stack(segs) if leaf.startswith("layers.") \
+                else segs[0]
+            check(_same_bits(whole, zero["opt"][key][leaf].to_local()),
+                  f"ZeRO-1 moment {key} {leaf} differs")
+    check(not on_card or launches_z["bucket_pack"] > 0,
+          "the ZeRO-1 path launched no pack kernel")
+    del runs, plain, zero, pz
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"[{card}] ZeRO-1 {cfg.name} f32 on a (1, 1) mesh, {batch} x"
+          f" {seq} tokens: {n_steps} steps bitwise equal to the unsharded"
+          f" step's (losses {l_z}, parameters and both moments) and to"
+          f" phase 13's losses; step ms {[round(t, 3) for t in t_z]}"
+          f" (unsharded {[round(t, 3) for t in t_u]}); pack/unpack"
+          f" launches {launches_z}")
+
+    # the decode cell of phase 19 with the cache placed on the mesh
+    cfg = (get_smoke_config if small else get_config)(arch)
+    batch, prompt_len, gen = (2, 64, 8) if small else (4, 1024, 32)
+    model = serve.build_model(cfg, 0, dev).to(torch.bfloat16)
+    prompts = serve.make_prompts(cfg, batch, prompt_len, 2, dev)
+    scfg = steps.StepConfig(flash_decode=True)
+    want, fed, _, ms_r, _ = _teacher_forced(cfg, scfg, model, prompts, gen,
+                                            dev, reps=1)
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    got, _, calls, ms_m, _ = _teacher_forced(cfg, scfg, model, prompts, gen,
+                                             dev, feed=fed, reps=1,
+                                             mesh=mesh)
+    flash = fa.LAUNCHES["flash_attention"]
+    check(not on_card or flash > 0, "the mesh decode cell launched no"
+          " flash kernel in its prefill")
+    check(calls == [3 * cfg.n_layers] * gen,
+          f"mesh flash decode issued {calls} all-reduces")
+    check(all(_same_bits(a, b) for a, b in zip(got, want)),
+          "mesh-placed cache logits differ from the replicated cache's")
+    print(f"[{card}] sequence-sharded cache on a (1, 1) mesh: {cfg.name}"
+          f" bf16, {batch} prompts of {prompt_len}, {gen} flash-decode"
+          f" steps, logits bitwise equal to the replicated cache's;"
+          f" all_reduce a step {calls[0]}; flash launches {flash}; decode"
+          f" {ms_m:.3f} ms a token on the mesh, {ms_r:.3f} ms replicated"
+          f" (host clock, one run)")
+
+
 def run(device_name: str = "cuda", small: bool = False) -> dict:
     """All phases on ``device_name``; returns the kernel table.
     ``small`` cuts the serving and training phases to the llama smoke
@@ -3057,7 +3400,22 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     t0 = time.perf_counter()
     tooling_phase(dev, baseline, small)
     print(f"[{_card_name()}] phase 20 wall {time.perf_counter() - t0:.3f} s")
-    return {"kernels": [fabric, *flash, *train_kernels]}
+
+    # 21. the float32 mode and the mesh layer -----------------------------
+    t0 = time.perf_counter()
+    fabric_f32 = f32_phase(dev, baseline)
+    print(f"[{_card_name()}] phase 21a wall {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo", rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            mesh_phase(dev, train["modes"]["partitioned"]["losses"], small)
+        finally:
+            dist.destroy_process_group()
+    print(f"[{_card_name()}] phase 21b wall {time.perf_counter() - t0:.3f} s")
+    return {"kernels": [fabric, fabric_f32, *flash, *train_kernels]}
 
 
 def fabric_times(tree: Path) -> dict:
@@ -3124,6 +3482,50 @@ def _quant_device(fn, kernel: str):
           f"10 calls traced {events} device events {names}, HtoD {htod};"
           f" want 10 {kernel} kernels")
     return ms
+
+
+def trace_attribution(tree: Path) -> dict:
+    """How ``_device_profile`` tells the measured calls' device events
+    from the rest of a trace, tried on the pack kernels of the source
+    tree ``tree``: 60 ``_trace_groups`` traces each of 10 pack and of 10
+    unpack calls at the bulk and the [ln1, ln2] buckets.  For each case
+    the counts of traces by the kernels they hold, by those whose traced
+    start lies in the measured range and by those whose launch does, and
+    the least and greatest traced start of a kernel less its launch's
+    (us, on the trace's clock)."""
+    import torch
+    from repro_torch.kernels import ops
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = torch.device("cuda")
+    out = {"tree": str(tree), "card": _card_name(),
+           "torch": torch.__version__, "cuda": torch.version.cuda}
+    for name, segs in zip(("bulk", "ln1_ln2"), _bulk_bucket(dev, False)):
+        flat = ops.bucket_pack(segs)
+        for what, fn in (
+                ("pack", lambda: ops.bucket_pack(segs)),
+                ("unpack", lambda: ops.bucket_unpack(flat, segs, out=segs))):
+            hist = {"traced": {}, "by_start": {}, "by_launch": {}}
+            offs = []
+            for _ in range(60):
+                events, span, issued = _trace_groups(fn, 10)
+                launch = {e.id: e.time_range.start for e in events
+                          if e.device_type != cuda
+                          and e.name.startswith("cu")}
+                kern = [e for e in events if e.device_type == cuda
+                        and "bucket_kernel" in e.name]
+                for key, k in (
+                        ("traced", len(kern)),
+                        ("by_start", sum(span.start <= e.time_range.start
+                                         <= span.end for e in kern)),
+                        ("by_launch", sum(e.id in issued for e in kern))):
+                    hist[key][k] = hist[key].get(k, 0) + 1
+                offs += [e.time_range.start - launch[e.id] for e in kern
+                         if e.id in launch]
+            out[f"{what} {name}"] = {
+                **{k: dict(sorted(v.items())) for k, v in hist.items()},
+                "start_less_launch_us": [min(offs), max(offs)] if offs
+                else None}
+    return out
 
 
 def quant8_times(tree: Path) -> dict:
@@ -3231,7 +3633,8 @@ def main(argv=None) -> int:
     tree = ROOT
     times = {"--fabric-times": fabric_times, "--quant8-times": quant8_times,
              "--families": families_times,
-             "--train-families": train_families_times}
+             "--train-families": train_families_times,
+             "--trace-attribution": trace_attribution}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

@@ -111,10 +111,17 @@ def latest_step(directory: str | Path) -> Optional[int]:
 
 
 def restore(directory: str | Path, template: Any, *,
-            step: Optional[int] = None, verify: bool = True
-            ) -> Tuple[int, Any]:
+            step: Optional[int] = None, shardings: Any = None,
+            verify: bool = True) -> Tuple[int, Any]:
     """Restore into the structure of ``template`` (a nested dict whose
-    leaves have ``shape``): returns (step, tree of NumPy arrays)."""
+    leaves have ``shape``): returns (step, tree of NumPy arrays).
+
+    ``shardings``: optional matching tree of
+    ``launch.mesh.NamedSharding`` (``None`` leaves stay host arrays, a
+    missing subtree too) -- each leaf is placed on its mesh with
+    ``runtime.elastic.reshard`` as a DTensor, each rank keeping its
+    block (reshard-on-restore for elastic scaling).  A collective call
+    when any leaf is placed: every rank of the meshes restores."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -136,6 +143,11 @@ def restore(directory: str | Path, template: Any, *,
             raise ValueError(f"shape mismatch for {path}: "
                              f"{arr.shape} vs {np.shape(tmpl)}")
         leaves[path] = arr
+    if shardings is not None:
+        from ..runtime.elastic import reshard
+        for path, sh in _flatten(shardings):
+            if sh is not None:
+                leaves[path] = reshard(leaves[path], sh.spec, sh.mesh)
     return meta["step"], _unflatten(template, leaves)
 
 
@@ -145,13 +157,17 @@ class AsyncCheckpointer:
     ``to_tree`` turns what the training loop saves into a nested dict of
     host arrays, synchronously, before the save returns (default: the
     value as it is; ``launch/train.py`` passes
-    ``models.convert.state_to_jax``)."""
+    ``models.convert.state_to_jax``).  On several ranks each one calls
+    :meth:`save_async` (``to_tree`` gathers sharded moments, a
+    collective) and only the one with ``write`` set writes."""
 
     def __init__(self, directory: str | Path, keep_last: int = 3,
-                 to_tree: Callable[[Any], Any] = lambda tree: tree):
+                 to_tree: Callable[[Any], Any] = lambda tree: tree,
+                 write: bool = True):
         self.directory = Path(directory)
         self.keep_last = keep_last
         self.to_tree = to_tree
+        self.write = write
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -168,6 +184,8 @@ class AsyncCheckpointer:
         # copy to the host synchronously, so the training loop can go on
         # updating its tensors in place
         host_tree = self.to_tree(state)
+        if not self.write:
+            return
 
         def run():
             try:

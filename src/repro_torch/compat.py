@@ -19,17 +19,53 @@ hops there).  ``pmax_`` and ``psum_`` are ``all_reduce`` in place.
 (``all_reduce`` and ``ppermute``, a posted permutation counting once),
 as the kernel wrappers count their launches, and the bytes this rank
 contributes to its all-reduces (``all_reduce_bytes``).
+
+This module also owns the precision switch of the torch and cuda fabric
+engines, the counterpart of the JAX package's ``x64_enabled`` /
+``x64_mode``: under float64 the engines are bit for bit equal to
+``ReferenceFabric``; under float32 the same steps run in single
+precision and are only tolerance-close (about 1e-4 relative on arrival
+times), the counters (``n_messages``, ``sent_per_rank``) staying exact.
+One difference from the reference: **the port defaults to float64**
+(JAX defaults to float32 unless ``JAX_ENABLE_X64`` is set), because the
+port's golden records are float64 and the H100 computes float64
+natively.  There is no environment variable and no command-line flag:
+:func:`x64_mode` is the switch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 CALLS: Dict[str, int] = {"all_reduce": 0, "ppermute": 0,
                          "all_reduce_bytes": 0}
+
+_X64 = [True]
+
+
+def x64_enabled() -> bool:
+    """True when the fabric engines compute in float64 (the default):
+    bit-for-bit equality with ``ReferenceFabric``; False: float32,
+    results only tolerance-close."""
+    return _X64[0]
+
+
+@contextlib.contextmanager
+def x64_mode(enable: bool) -> Iterator[None]:
+    """Context manager forcing float64 (``True``) or float32 (``False``)
+    on the fabric engines for a scope; the previous mode comes back on
+    exit.  The engines' operand memos are keyed by the mode, so
+    switching mid-process reuses nothing made under the other mode."""
+    prev = _X64[0]
+    _X64[0] = bool(enable)
+    try:
+        yield
+    finally:
+        _X64[0] = prev
 
 
 def axis_size(group=None) -> int:

@@ -29,9 +29,15 @@ the same record walk as torch tensor steps, is :func:`fabric_scan_ref`.
 The wrapper takes the plain version only for operands on the CPU; for
 CUDA operands it launches the kernel or raises.
 
-Precision contract: float64, bit-for-bit equal to ``ReferenceFabric``
-(host costs in float64 with the reference operation order; adding
-``0.0`` is bitwise identity; ``max`` reductions are order-independent).
+Precision contract (``repro_torch.compat.x64_mode``): under float64,
+the default, bit-for-bit equal to ``ReferenceFabric`` (host costs in
+float64 with the reference operation order; adding ``0.0`` is bitwise
+identity; ``max`` reductions are order-independent).  Under float32 the
+host costs are still computed in float64 and rounded once on upload, the
+kernel's float32 build (``fabric_rank_scan_f32``) walks the same records
+with single-precision adds, and the results are tolerance-close; the
+float32 kernel is bit for bit equal to its plain version, as the
+float64 one is.  The operand memos are keyed by the mode.
 """
 
 from __future__ import annotations
@@ -44,15 +50,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import compat
 from . import fabric as _fb
 from .fabric import NetConfig
-from .fabric_torch import (DTYPE, GridItem, TorchFabric, _raw_layouts,
-                           resolve_device)
+from .fabric_torch import (GridItem, TorchFabric, _raw_layouts, float_dtype,
+                           host64, resolve_device, upload)
 
 # The kernel's launch shape and operand encoding (csrc/fabric_scan.cu):
 THREADS = 128          # rank-records (threads) per block
 WARP = 32
 SMEM_DOUBLES = 6144    # VCI + link carries a block keeps in shared memory
+                       # (slots of the mode's float: 48 KiB in float64,
+                       # 24 KiB in float32, so layouts are mode-free)
 VCI_LIMIT = 1 << 8     # slot word: VCI slot in bits 0-7,
 LINK_LIMIT = 1 << 23   # link slot in bits 8-30,
 RDV_BIT = 1 << 31      # the rendezvous flag in bit 31
@@ -258,9 +267,10 @@ class ScanOps:
     """Everything one super-batch hands the kernel, per layout position
     (:class:`RankLayout`).  Held as NumPy arrays while assembled and as
     tensors on the target device once uploaded (:func:`_upload`)."""
-    t_ready: object             # (n,) float64
-    c1: object                  # (n,) float64 stage-1 costs
-    c3: object                  # (n,) float64 wire service times
+    t_ready: object             # (n,) float64 on the host; on the
+                                #   device in the mode's float
+    c1: object                  # (n,) stage-1 costs
+    c3: object                  # (n,) wire service times
     slot: object                # (n,) int32 VCI | link << 8 | rdv << 31
     out: object                 # (n,) int32 finish: output rank;
                                 #   arrivals: message id
@@ -274,7 +284,7 @@ class ScanOps:
     rdv_add: float = 0.0        # the rendezvous round trip, 2 alpha_wire
     init: Optional[tuple] = None  # warm busy-until clocks per carry
                                 # (stage group order); None: cold
-    foff: object = None         # finish: (n,) float64 offset per message
+    foff: object = None         # finish: (n,) offset per message
     n_out: int = 0              # finish: ranks in the output
     # the wrapper's checked launch arguments, made at the first launch
     # (``dataclasses.replace`` gives a new super-batch without them)
@@ -291,9 +301,12 @@ class ScanOps:
 
 
 def _set_costs(ops: ScanOps, cfg: NetConfig) -> ScanOps:
+    """The scalar costs, rounded to the mode's float (exact in float64),
+    so the kernel and its plain version add the same values."""
+    rnd = float if compat.x64_enabled() else (lambda x: float(np.float32(x)))
     return dataclasses.replace(
-        ops, alpha_wire=float(cfg.alpha_wire), alpha_nic=float(cfg.alpha_nic),
-        alpha_recv=float(cfg.alpha_recv), rdv_add=2.0 * float(cfg.alpha_wire))
+        ops, alpha_wire=rnd(cfg.alpha_wire), alpha_nic=rnd(cfg.alpha_nic),
+        alpha_recv=rnd(cfg.alpha_recv), rdv_add=rnd(2.0 * float(cfg.alpha_wire)))
 
 
 def _slot_words(slot: np.ndarray, rdv: np.ndarray) -> np.ndarray:
@@ -344,13 +357,14 @@ def _check_indices(ops: ScanOps) -> None:
 
 
 def _upload(ops: ScanOps, device) -> ScanOps:
-    """Copy an assembled super-batch's arrays to ``device``."""
+    """Copy an assembled super-batch's arrays to ``device``, the float
+    columns in the mode's dtype."""
     _check_indices(ops)
 
     def t(a):
         if a is None:
             return None
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return upload(a, device)
     return dataclasses.replace(
         ops, t_ready=t(ops.t_ready), c1=t(ops.c1), c3=t(ops.c3),
         slot=t(ops.slot), out=t(ops.out), desc=t(ops.desc), cta=t(ops.cta),
@@ -368,7 +382,7 @@ def rank_max(n_out: int, dst: torch.Tensor, vals: torch.Tensor,
     ``r``, 0.0 where none arrives.  Max is exact and order-free, so any
     order of the messages gives the same bits."""
     if out is None:
-        out = torch.zeros(n_out, dtype=DTYPE, device=vals.device)
+        out = vals.new_zeros(n_out)
     return out.scatter_reduce_(0, dst.long(), vals, "amax")
 
 
@@ -380,15 +394,25 @@ LONE_RECORDS = 32
 def _walk_alone(ops: ScanOps, p: torch.Tensor, vci: list, nic: float,
                 wire: list) -> Tuple[float, list]:
     """One record's steps at positions ``p`` on host floats (Python's
-    float is an IEEE double, its ``max`` and ``+`` those of the kernel),
-    one message at a time.  ``vci`` and ``wire`` are the record's
-    carries, updated in place.  Returns the NIC carry and the arrivals
-    (plus offsets in finish mode)."""
+    float is an IEEE double, its ``max`` and ``+`` those of the float64
+    kernel; in float32, NumPy's ``float32`` scalars, whose ``+`` rounds
+    as the float32 kernel's), one message at a time.  ``vci`` and
+    ``wire`` are the record's carries, updated in place.  Returns the
+    NIC carry and the arrivals (plus offsets in finish mode)."""
     cols = [ops.t_ready[p], ops.c1[p], ops.c3[p], ops.slot[p]]
     if ops.finish:
         cols.append(ops.foff[p])
+    if ops.t_ready.dtype == torch.float32:
+        f = np.float32
+        vci[:], wire[:] = map(f, vci), map(f, wire)
+        nic = f(nic)
+        ops = dataclasses.replace(
+            ops, alpha_nic=f(ops.alpha_nic), rdv_add=f(ops.rdv_add),
+            alpha_wire=f(ops.alpha_wire), alpha_recv=f(ops.alpha_recv))
     out = []
-    for tr, c1, c3, s, *fo in zip(*(c.tolist() for c in cols)):
+    for tr, c1, c3, s, *fo in zip(*(
+            list(c.cpu().numpy()) if c.dtype == torch.float32 else c.tolist()
+            for c in cols)):
         v, li = s & 0xFF, (s >> 8) & (LINK_LIMIT - 1)
         t1 = max(tr, vci[v]) + c1
         vci[v] = t1
@@ -399,7 +423,7 @@ def _walk_alone(ops: ScanOps, p: torch.Tensor, vci: list, nic: float,
         wire[li] = t3
         a = (t3 + ops.alpha_wire) + ops.alpha_recv
         out.append(a + fo[0] if fo else a)
-    return nic, out
+    return float(nic), out
 
 
 def fabric_scan_ref(ops: ScanOps):
@@ -415,7 +439,7 @@ def fabric_scan_ref(ops: ScanOps):
     clocks per group in stage group order, the wire carries without the
     delivery tail.
     """
-    dev = ops.t_ready.device
+    dev, dt = ops.t_ready.device, ops.t_ready.dtype
     R = ops.sizes[1]
     desc = ops.desc.long()
     m0, stride, kw, tail, _, rec, cv0, nv, cl0, nl = \
@@ -425,13 +449,13 @@ def fabric_scan_ref(ops: ScanOps):
                                 side="right")
     vectorized = int(np.count_nonzero(n_act > LONE_RECORDS))
     if ops.init is None:
-        vci, nic, wire = (torch.zeros(s, dtype=DTYPE, device=dev)
+        vci, nic, wire = (torch.zeros(s, dtype=dt, device=dev)
                           for s in ops.sizes)
     else:
         vci, nic, wire = (a.clone() for a in ops.init)
     nic_l = nic[rec]
     slot = ops.slot.long()
-    arr = None if ops.finish else torch.empty(ops.n, dtype=DTYPE, device=dev)
+    arr = None if ops.finish else torch.empty(ops.n, dtype=dt, device=dev)
     rank_out = rank_max(ops.n_out, ops.out[:0], ops.t_ready[:0]) \
         if ops.finish else None
 
@@ -463,9 +487,9 @@ def fabric_scan_ref(ops: ScanOps):
         vl = vci[v0:v0 + int(nv[i])].tolist()
         wl = wire[w0:w0 + int(nl[i])].tolist()
         nic_l[i], vals = _walk_alone(ops, p, vl, float(nic_l[i]), wl)
-        vci[v0:v0 + len(vl)] = torch.tensor(vl, dtype=DTYPE)
-        wire[w0:w0 + len(wl)] = torch.tensor(wl, dtype=DTYPE)
-        emit(p, torch.tensor(vals, dtype=DTYPE, device=dev))
+        vci[v0:v0 + len(vl)] = torch.tensor(vl, dtype=dt)
+        wire[w0:w0 + len(wl)] = torch.tensor(wl, dtype=dt)
+        emit(p, torch.tensor(vals, dtype=dt, device=dev))
     if ops.finish:
         return rank_out
     nic[rec] = nic_l
@@ -477,8 +501,12 @@ def fabric_scan_ref(ops: ScanOps):
 # ---------------------------------------------------------------------------
 
 # Launch count of the hand-written kernel: one per launch the wrapper
-# makes (one per super-batch), and nowhere else.
-LAUNCHES = {"fabric_scan": 0}
+# makes (one per super-batch), and nowhere else; ``fabric_scan`` counts
+# both builds, ``fabric_scan_f64`` and ``fabric_scan_f32`` each one.
+LAUNCHES = {"fabric_scan": 0, "fabric_scan_f64": 0, "fabric_scan_f32": 0}
+# The library's entry point of each build, by the operands' float dtype.
+ENTRY = {torch.float64: "fabric_rank_scan", torch.float32:
+         "fabric_rank_scan_f32"}
 
 _LIB: Dict[str, ctypes.CDLL] = {}
 _VP, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
@@ -491,9 +519,11 @@ def _library() -> ctypes.CDLL:
     if lib is None:
         from ..kernels import build
         lib = build.load("fabric_scan")
-        lib.fabric_rank_scan.argtypes = [
-            _VP, _I, _I, _I, *[_VP] * 11, _D, _D, _D, _D, *[_VP] * 5, _LL]
-        lib.fabric_rank_scan.restype = _I
+        for name in ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                _VP, _I, _I, _I, *[_VP] * 11, _D, _D, _D, _D, *[_VP] * 5, _LL]
+            fn.restype = _I
         lib.fabric_scan_error_string.argtypes = [_I]
         lib.fabric_scan_error_string.restype = ctypes.c_char_p
         _LIB["fabric_scan"] = lib
@@ -511,10 +541,14 @@ def _need(t, dtype, shape, dev, what) -> None:
 
 
 def _check_operands(ops: ScanOps, dev) -> None:
-    """Device, dtype, contiguity and shape of every operand."""
+    """Device, dtype, contiguity and shape of every operand: the float
+    operands all float64 or all float32, the build that runs."""
     n, R = ops.n, ops.sizes[1]
+    dt = getattr(ops.t_ready, "dtype", None)
+    if dt not in ENTRY:
+        raise ValueError(f"t_ready: need float64 or float32, got {dt}")
     for name in ("t_ready", "c1", "c3"):
-        _need(getattr(ops, name), DTYPE, (n,), dev, name)
+        _need(getattr(ops, name), dt, (n,), dev, name)
     _need(ops.slot, torch.int32, (n,), dev, "slot")
     _need(ops.out, torch.int32, (n,), dev, "out")
     _need(ops.desc, torch.int32, (R, DESC_FIELDS), dev, "desc")
@@ -523,9 +557,9 @@ def _check_operands(ops: ScanOps, dev) -> None:
     _need(ops.cta, torch.int32, (ops.cta.numel(),), dev, "cta")
     if ops.init is not None:
         for a, size, what in zip(ops.init, ops.sizes, ("VCI", "NIC", "link")):
-            _need(a, DTYPE, (size,), dev, f"{what} init")
+            _need(a, dt, (size,), dev, f"{what} init")
     if ops.finish:
-        _need(ops.foff, DTYPE, (n,), dev, "foff")
+        _need(ops.foff, dt, (n,), dev, "foff")
     if not 0 <= ops.smem <= SMEM_DOUBLES:
         raise ValueError(f"smem: {ops.smem} doubles, at most {SMEM_DOUBLES}")
 
@@ -541,10 +575,12 @@ def fabric_scan(ops: ScanOps):
     :func:`fabric_scan_ref` for operands on the CPU.
 
     Replaces the Pallas kernel built by the JAX package's
-    ``core/fabric_pallas.py:_build_call``.  On the H100 it is bound by
-    bytes moved (40 bytes per wire message in finish mode: three float64
-    columns, the slot word, the output slot and the finish offset) and
-    by the serial chain of the deepest rank-record.  One thread walks
+    ``core/fabric_pallas.py:_build_call``.  The operands' float dtype
+    picks the build: float64 (``fabric_rank_scan``) or float32
+    (``fabric_rank_scan_f32``).  On the H100 it is bound by bytes moved
+    (40 bytes per wire message in finish mode in float64: three float
+    columns, the slot word, the output slot and the finish offset; 24
+    in float32) and by the serial chain of the deepest rank-record.  One thread walks
     each rank-record through all three queues and the finish, with its
     carries in shared memory, so the whole super-batch is one launch on
     PyTorch's current stream, without synchronisation; the per-rank
@@ -557,6 +593,7 @@ def fabric_scan(ops: ScanOps):
     if dev.type != "cuda":
         raise ValueError(f"fabric_scan: unsupported device {dev}")
     lib = _library()
+    dt = ops.t_ready.dtype
     if ops.launch is None or ops.launch[0] != dev:  # once per super-batch
         _check_operands(ops, dev)
         i1, i2, i3 = (None, None, None) if ops.init is None else ops.init
@@ -569,19 +606,21 @@ def fabric_scan(ops: ScanOps):
     args = ops.launch[1]
 
     def empty(size):
-        return torch.empty(size, dtype=DTYPE, device=dev)
+        return torch.empty(size, dtype=dt, device=dev)
     if ops.finish:
         arr = o1 = o2 = o3 = None
         rank_out = empty(ops.n_out)
     else:
         arr, o1, o2, o3 = empty(ops.n), *(empty(g) for g in ops.sizes)
         rank_out = None
-    rc = lib.fabric_rank_scan(
+    rc = getattr(lib, ENTRY[dt])(
         torch.cuda.current_stream(dev).cuda_stream, *args, _ptr(arr),
         _ptr(o1), _ptr(o2), _ptr(o3), _ptr(rank_out), ops.n_out)
     n_cta = args[1]
     if n_cta:
         LAUNCHES["fabric_scan"] += 1
+        LAUNCHES["fabric_scan_f64" if dt == torch.float64
+                 else "fabric_scan_f32"] += 1
     if rc != 0:
         msg = lib.fabric_scan_error_string(rc).decode()
         raise RuntimeError(f"fabric_scan launch failed: CUDA error {rc}"
@@ -649,11 +688,11 @@ def _assemble(items: List[GridItem],
 
 
 # Whole-super-batch operands (device-resident), keyed by mode, device,
-# dtype and the member items' layout keys: benchmark repeats re-launch
+# precision mode and the member items' layout keys: benchmark repeats re-launch
 # the kernel without re-assembling or re-copying anything.
 _OPS_MEMO = _fb.CappedMemo(8)
 # Single-batch arrivals-mode structure (layout + index operands) for the
-# warm-state driver path, keyed by device, dtype and layout key.
+# warm-state driver path, keyed by device, precision mode and layout key.
 _ARR_MEMO = _fb.CappedMemo(32)
 
 
@@ -677,7 +716,7 @@ def grid_ops(items: List[GridItem], finishes: Optional[List[FinishSpec]],
     mode = "finish" if finishes is not None else "arrivals"
     key = None
     if all(it.key is not None for it in items):
-        key = ("cuda-" + mode, str(dev), str(DTYPE),
+        key = ("cuda-" + mode, str(dev), compat.x64_enabled(),
                tuple(it.key for it in items))
     entry = _OPS_MEMO.get(key)
     if entry is None:
@@ -705,7 +744,7 @@ def transmit_grid(items: List[GridItem], device="cuda") -> List[np.ndarray]:
     out: List[Optional[np.ndarray]] = [None] * len(items)
     for members in _cfg_buckets(items).values():
         ops, aux = grid_ops([items[i] for i in members], None, device)
-        arr = fabric_scan(ops)[0].cpu().numpy()
+        arr = host64(fabric_scan(ops)[0])
         o = 0
         for ln, i in zip(aux["item_lens"], members):
             out[i] = arr[o:o + ln]
@@ -724,7 +763,7 @@ def transmit_grid_finish(items: List[GridItem], finishes: List[FinishSpec],
     for members in _cfg_buckets(items).values():
         ops, aux = grid_ops([items[i] for i in members],
                             [finishes[i] for i in members], device)
-        full = fabric_scan(ops).cpu().numpy()
+        full = host64(fabric_scan(ops))
         for (rb, R), i in zip(aux["item_ranks"], members):
             out[i] = full[rb:rb + R]
     return out  # type: ignore[return-value]
@@ -777,7 +816,8 @@ class CudaFabric(TorchFabric):
                             layout_key)
         skey = None
         if layout_key is not None:
-            skey = ("cuda-arr", str(self.device), str(DTYPE), layout_key)
+            skey = ("cuda-arr", str(self.device), compat.x64_enabled(),
+                    layout_key)
         entry = _ARR_MEMO.get(skey)
         if entry is None:
             entry = _arr_structure(lays, self.n_vcis, self.n_ranks,
@@ -801,12 +841,12 @@ class CudaFabric(TorchFabric):
                  np.array([self.wire_free.get(sd, 0.0) for sd in links]))
 
         def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return upload(a, self.device)
         ops = _set_costs(dataclasses.replace(
             struct, t_ready=t(np.asarray(t_ready, dtype=np.float64)[perm]),
             c1=t(c1[perm]), c3=t(c3[perm]), slot=t(_slot_words(slot, rdv[perm])),
             init=tuple(t(a.astype(np.float64)) for a in state)), self.cfg)
-        arr, cur1, cur2, cur3 = (x.cpu().numpy() for x in fabric_scan(ops))
+        arr, cur1, cur2, cur3 = (host64(x) for x in fabric_scan(ops))
 
         # warm state out, the carries in each stage's group order; a
         # bank's final owner is its last queued message's thread — a

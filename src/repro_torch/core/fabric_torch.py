@@ -21,12 +21,16 @@ layouts**:
     cold-start exchanges (sweep points) on a leading batch axis, one
     pipeline call per ``(n_ranks, n_vcis)`` bucket.
 
-Precision contract: float64 throughout, bit-for-bit equal to
-``ReferenceFabric``.  The per-message divisions (``nbytes / beta_copy``,
-``nbytes / beta``) are computed on the host in NumPy float64: PyTorch's
+Precision contract (``repro_torch.compat.x64_mode``): under float64,
+the default, bit-for-bit equal to ``ReferenceFabric``; under float32 the
+same steps run in single precision, tolerance-close (about 1e-4
+relative), the counters exact.  The per-message divisions (``nbytes /
+beta_copy``, ``nbytes / beta``) are computed on the host in NumPy
+float64 in both modes and cast to the mode's dtype on upload: PyTorch's
 CUDA division by a host scalar multiplies by the reciprocal, which is
 not the scalar engine's operation.  On the device the pipeline only
-selects, takes maxima and adds, in the scalar engine's order.
+selects, takes maxima and adds, in the scalar engine's order.  Results
+come back as float64 NumPy arrays in both modes, as the reference's.
 """
 
 from __future__ import annotations
@@ -37,10 +41,31 @@ from typing import Dict, Hashable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import compat
 from . import fabric as _fb
 from .fabric import Fabric, NetConfig, _group_layout
 
-DTYPE = torch.float64
+
+def float_dtype() -> torch.dtype:
+    """The engines' float dtype in the active precision mode:
+    ``torch.float64`` under ``compat.x64_mode(True)`` (the default),
+    else ``torch.float32``."""
+    return torch.float64 if compat.x64_enabled() else torch.float32
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``; float arrays in the
+    mode's dtype (:func:`float_dtype`), others as they are."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.is_floating_point():
+        t = t.to(float_dtype())
+    return t.to(device)
+
+
+def host64(t: torch.Tensor) -> np.ndarray:
+    """A device result as a host array, floats widened to float64."""
+    t = t.cpu()
+    return (t.double() if t.is_floating_point() else t).numpy()
 
 
 def resolve_device(device) -> torch.device:
@@ -165,16 +190,16 @@ class _Operands:
     """One pipeline call's operands, batched on a leading axis of P
     items.  Message columns carry one trailing dummy row (the gather
     target of padded slots); per-item costs are ``(P, 1)`` columns."""
-    t_ready: torch.Tensor    # (P, n_pad + 1) float64
-    copy_cost: torch.Tensor  # (P, n_pad + 1) float64
-    wire_svc: torch.Tensor   # (P, n_pad + 1) float64
-    rdv: torch.Tensor        # (P, n_pad) float64
+    t_ready: torch.Tensor    # (P, n_pad + 1) float (the mode's dtype)
+    copy_cost: torch.Tensor  # (P, n_pad + 1) float
+    wire_svc: torch.Tensor   # (P, n_pad + 1) float
+    rdv: torch.Tensor        # (P, n_pad) float
     thread: torch.Tensor     # (P, n_pad + 1) int64
     put: torch.Tensor        # (P, n_pad + 1) bool
     stages: Tuple[tuple, ...]  # per stage (gather, mask, pos): (P, K, G)
-    init: Tuple[torch.Tensor, ...]  # per stage busy-until (P, G) float64
+    init: Tuple[torch.Tensor, ...]  # per stage busy-until (P, G) float
     prev1: torch.Tensor      # (P, G1) int64 last VCI owner (-1 = idle)
-    costs: Dict[str, torch.Tensor]  # (P, 1) float64 per cost constant
+    costs: Dict[str, torch.Tensor]  # (P, 1) float per cost constant
 
 
 _COST_NAMES = ("alpha_wire", "alpha_first", "alpha_msg", "chi_switch",
@@ -216,7 +241,7 @@ def _pipeline(ops: _Operands):
         cur = torch.where(mk, t, cur)
         prev = torch.where(mk, tk, prev)
     cur1, prev1 = cur, prev
-    zero = torch.zeros((P, 1), dtype=DTYPE, device=ops.t_ready.device)
+    zero = ops.t_ready.new_zeros((P, 1))
     t1 = torch.cat([ys1.reshape(P, -1).gather(1, pos1), zero], dim=1)
 
     # Stage 2 — per-rank NIC: constant service, then the rendezvous
@@ -273,8 +298,8 @@ def _pad_pos(pos: np.ndarray, n_pad: int) -> np.ndarray:
 
 
 def _cost_table(cfgs: List[NetConfig], device) -> Dict[str, torch.Tensor]:
-    return {name: torch.tensor([[getattr(cfg, name)] for cfg in cfgs],
-                               dtype=DTYPE, device=device)
+    return {name: upload(np.array([[getattr(cfg, name)] for cfg in cfgs],
+                                  dtype=np.float64), device)
             for name in _COST_NAMES}
 
 
@@ -344,7 +369,7 @@ class TorchFabric(Fabric):
         dev = self.device
 
         def t(a):  # one host array -> a (1, ...) device tensor
-            return torch.from_numpy(np.ascontiguousarray(a))[None].to(dev)
+            return upload(a, dev)[None]
         tr, cc, ws, th, pt, rdv = _pad_cols(t_ready, nbytes, thread, put,
                                             am_copy, self.cfg, n_pad)
         ops = _Operands(
@@ -354,8 +379,7 @@ class TorchFabric(Fabric):
                          for g, m, pos in pads),
             init=(t(cur1), t(cur2), t(cur3)), prev1=t(prev1),
             costs=_cost_table([self.cfg], dev))
-        arr, c1, p1, c2, c3 = (x[0].cpu().numpy()
-                               for x in _pipeline(ops))
+        arr, c1, p1, c2, c3 = (host64(x[0]) for x in _pipeline(ops))
 
         # warm state out
         for (r, v), busy, owner in zip(banks, c1.tolist(), p1.tolist()):
@@ -412,14 +436,14 @@ def transmit_grid(items: List[GridItem], device="cuda") -> List[np.ndarray]:
         buckets.setdefault((it.n_ranks, it.n_vcis), []).append(i)
     for members in buckets.values():
         ops = _bucket_operands([items[i] for i in members], dev)
-        arrivals = _pipeline(ops)[0].cpu().numpy()
+        arrivals = host64(_pipeline(ops)[0])
         for p, i in enumerate(members):
             out[i] = arrivals[p, :len(items[i])]
     return out  # type: ignore[return-value]
 
 
-# Stacked padded operands of a whole bucket, keyed by the device, dtype
-# and the members' layout keys: a repeated grid evaluation re-runs the
+# Stacked padded operands of a whole bucket, keyed by the device, the
+# precision mode and the members' layout keys: a repeated grid evaluation re-runs the
 # pipeline on the resident tensors without re-padding anything.
 _BUCKET_MEMO = _fb.CappedMemo(8)
 
@@ -455,12 +479,12 @@ def _stack_bucket(items: List[GridItem], device) -> _Operands:
             stage[s][2][p, :n] = pos
 
     def t(a):
-        return torch.from_numpy(a).to(device)
+        return upload(a, device)
     return _Operands(
         t_ready=t(cols[0]), copy_cost=t(cols[1]), wire_svc=t(cols[2]),
         rdv=t(rdv), thread=t(cols[3]), put=t(cols[4]),
         stages=tuple((t(g), t(m), t(pos)) for g, m, pos in stage),
-        init=tuple(torch.zeros((P, G), dtype=DTYPE, device=device)
+        init=tuple(torch.zeros((P, G), dtype=float_dtype(), device=device)
                    for G, _ in dims),
         prev1=torch.full((P, dims[0][0]), -1, dtype=torch.int64,
                          device=device),
@@ -471,7 +495,7 @@ def _bucket_operands(items: List[GridItem], device) -> _Operands:
     """Stack (or reuse) one bucket's device-resident operands."""
     key = None
     if all(it.key is not None for it in items):
-        key = ("torch-grid", str(device), str(DTYPE),
+        key = ("torch-grid", str(device), compat.x64_enabled(),
                tuple(it.key for it in items))
     ops = _BUCKET_MEMO.get(key)
     if ops is None:

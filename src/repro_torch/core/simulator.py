@@ -32,7 +32,11 @@ and per-link wires.  Every driver takes an ``engine`` argument:
 
 and a ``device`` argument, ``"cuda"`` unless the caller passes
 ``"cpu"``; asking for the card where none is present raises.  The four
-engines agree bit-for-bit in float64.
+engines agree bit-for-bit in float64, the default; under
+``repro_torch.compat.x64_mode(False)`` the torch and cuda engines run
+in float32 and are tolerance-close (about 1e-4 relative), the counters
+exact, as the reference's compiled engines are without x64.  Every
+driver passes the mode through unchanged.
 
 Calibration targets (the paper's Figs 4-8):
   fig 4: single-message small latency ~1.2 us; part==single; old-AM worse.
@@ -1247,7 +1251,8 @@ def simulate_stencil_grid(points: Sequence[Mapping], engine: str = "cuda",
     per-rank times directly.  Returns one :class:`StencilResult` per
     point, with None for points the batched path cannot evaluate (the
     caller falls back to :func:`simulate_stencil`).  Both engines are
-    bit-for-bit identical to the per-point engines.
+    bit-for-bit identical to the per-point engines under float64 (the
+    default), tolerance-close under float32 (``compat.x64_mode``).
     """
     if engine not in GRID_ENGINES:
         raise ValueError(

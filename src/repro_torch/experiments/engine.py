@@ -32,6 +32,7 @@ import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+from .. import compat
 from ..core import commplan as cp
 from ..core import faults as flt
 from ..core import perfmodel as pm
@@ -619,6 +620,20 @@ def _run_point(arg: Tuple[str, Mapping[str, Any], str, str]
     return RUNNERS[runner](params, engine=engine, device=device)
 
 
+def _run_point_in_mode(arg: Tuple[bool, tuple]) -> Dict[str, float]:
+    """:func:`_run_point` in a worker, under the parent's precision mode
+    (``(x64, point)``): a spawned worker starts in the default mode."""
+    x64, point = arg
+    with compat.x64_mode(x64):
+        return _run_point(point)
+
+
+def _cache_device(dev: str) -> str:
+    """The run cache's device entry: the device, marked ``/float32`` in
+    the engines' float32 mode, whose records are not float64's."""
+    return dev if compat.x64_enabled() else f"{dev}/float32"
+
+
 # ---------------------------------------------------------------------------
 # Specs and the engine
 # ---------------------------------------------------------------------------
@@ -663,8 +678,9 @@ class SweepSpec:
 
 # Process-wide run cache: (runner, record_key, engine, device) ->
 # metrics.  Scenario runs are pure functions of their params, so specs
-# and modes share results; engine and device key it so different
-# engines' results never alias.
+# and modes share results; engine and device (with the precision mode:
+# :func:`_cache_device`) key it so different engines' results never
+# alias.
 _CACHE: Dict[Tuple[str, str, str, str], Dict[str, float]] = {}
 
 
@@ -714,7 +730,9 @@ class WorkerPool:
             self._ex = ProcessPoolExecutor(
                 max_workers=self.jobs,
                 mp_context=multiprocessing.get_context("spawn"))
-        return list(self._ex.map(_run_point, args))
+        x64 = compat.x64_enabled()
+        return list(self._ex.map(_run_point_in_mode,
+                                 [(x64, a) for a in args]))
 
     def __enter__(self) -> "WorkerPool":
         return self
@@ -735,11 +753,12 @@ def run_records(runner: str, points: Sequence[Mapping[str, Any]],
     ``jobs`` > 1 the remaining points run in ``pool`` (a
     :class:`WorkerPool` of its own when none is given)."""
     dev = str(sim.resolve_device(device))
+    cdev = _cache_device(dev)
     keyed: Dict[str, Dict[str, Any]] = {}
     for p in points:
         keyed.setdefault(record_key(p), dict(p))
     missing = [(k, p) for k, p in keyed.items()
-               if (runner, k, engine, dev) not in _CACHE]
+               if (runner, k, engine, cdev) not in _CACHE]
     if missing:
         batched = run_records_batched(runner, [p for _, p in missing],
                                       engine=engine, device=dev)
@@ -749,7 +768,7 @@ def run_records(runner: str, points: Sequence[Mapping[str, Any]],
                 if metrics is None:
                     left.append((k, p))
                 else:
-                    _CACHE[(runner, k, engine, dev)] = metrics
+                    _CACHE[(runner, k, engine, cdev)] = metrics
             missing = left
     args = [(runner, p, engine, dev) for _, p in missing]
     if jobs > 1 and len(missing) > 1:
@@ -761,8 +780,8 @@ def run_records(runner: str, points: Sequence[Mapping[str, Any]],
     else:
         done = [_run_point(a) for a in args]
     for (k, _), metrics in zip(missing, done):
-        _CACHE[(runner, k, engine, dev)] = metrics
-    return {k: dict(_CACHE[(runner, k, engine, dev)]) for k in keyed}
+        _CACHE[(runner, k, engine, cdev)] = metrics
+    return {k: dict(_CACHE[(runner, k, engine, cdev)]) for k in keyed}
 
 
 # ---------------------------------------------------------------------------

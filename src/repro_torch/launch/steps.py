@@ -10,9 +10,19 @@ inputs and run ``lm.prefill`` / ``lm.decode_step``; with
 ``StepConfig.flash_decode`` the decode step's attention is the
 partitioned-KV flash decode over a process group
 (``core.flash_decode``), each rank attending to its slice of the
-sequence.  Every rank still holds the whole cache: the mesh, tensor-
-and sequence-parallel sharding (the cache's among them) and ZeRO-1 are
-not ported yet (ROADMAP queue 1, item 9).
+sequence.
+
+On a mesh (``launch.mesh``, ``mesh=``), as the JAX package lays out its
+steps: the early-bird sync runs over the data axes, each rank takes its
+data index's rows of the global batch, and the AdamW moments are ZeRO-1
+(``optim.adamw.zero1_update``); the decode cache is placed by
+:func:`_cache_shardings` (batch over the data axes and sequence over
+``model``, or every axis given to the sequence when the batch does not
+split), so with ``flash_decode`` each rank holds only its sequence
+slice.  Parameters stay replicated: a mesh whose ``model`` axis is
+larger than 1 needs the tensor-parallel forward, not ported yet (ROADMAP
+queue 1, item 9), and the steps refuse it.  ``group=`` (the replicated
+cache of a plain process group) stays.
 """
 
 from __future__ import annotations
@@ -27,9 +37,12 @@ from ..compat import axis_index, axis_size
 from ..core.earlybird import SyncConfig, value_and_synced_grad
 from ..core.fabric_torch import resolve_device
 from ..core.flash_decode import flash_decode_shard
-from ..models import lm
-from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from ..models import convert, lm
+from ..optim.adamw import (AdamWConfig, adamw_update, init_opt_state,
+                           init_zero1_state, opt_state_specs, zero1_update)
 from ..optim.schedule import warmup_cosine
+from . import mesh as _mesh
+from .mesh import NamedSharding, PartitionSpec as P
 
 
 @dataclass(frozen=True)
@@ -49,16 +62,62 @@ class StepConfig:
 
 
 def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
-                adam: AdamWConfig = AdamWConfig()) -> Dict[str, Any]:
+                adam: AdamWConfig = AdamWConfig(), mesh=None
+                ) -> Dict[str, Any]:
     """A fresh training state ``{"params", "opt"}``: the model of
     ``cfg`` with weights drawn from a generator on ``device`` seeded
-    with ``seed``, requiring gradients, and zero AdamW moments."""
+    with ``seed``, requiring gradients, and zero AdamW moments, on a
+    ``mesh`` the ZeRO-1 moments of :func:`opt_specs` (each rank
+    allocating its block only)."""
     dev = resolve_device(device)
     model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
     model.requires_grad_(True)
-    return {"params": model,
-            "opt": init_opt_state(dict(model.named_parameters()), adam)}
+    named = dict(model.named_parameters())
+    opt = init_opt_state(named, adam) if mesh is None else \
+        init_zero1_state(named, adam, mesh, opt_specs(cfg, mesh)["m"])
+    return {"params": model, "opt": opt}
+
+
+def _require_data_parallel(what: str, mesh) -> None:
+    """Refuse what the mesh path cannot run yet: a ``model`` axis larger
+    than 1 (the tensor-parallel forward), or this rank outside the
+    mesh."""
+    if not _mesh.in_mesh(mesh):
+        raise ValueError(f"{what}: this rank is not in the mesh {mesh}")
+    tp = _mesh.model_size(mesh)
+    if tp > 1:
+        raise NotImplementedError(
+            f"{what}: a mesh whose model axis has {tp} ranks needs the"
+            f" tensor-parallel forward, not ported yet (ROADMAP queue 1,"
+            f" item 9)")
+
+
+def param_shardings(cfg: lm.ModelConfig, mesh) -> Dict[str, Any]:
+    """Each parameter leaf's sharding (``lm.param_specs`` on ``mesh``),
+    in the JAX package's parameter tree (the layout of a checkpoint's
+    ``params``)."""
+    return convert.leaves_to_jax({k: NamedSharding(mesh, s) for k, s in
+                                  lm.param_specs(cfg).items()})
+
+
+def opt_specs(cfg: lm.ModelConfig, mesh) -> Dict[str, Any]:
+    """The optimizer state's specs on ``mesh``: ZeRO-1 over its data
+    axes (``optim.adamw.opt_state_specs``)."""
+    return opt_state_specs(lm.param_specs(cfg), lm.param_shapes(cfg),
+                           dp_axes=_mesh.dp_axes(mesh),
+                           dp_total=_mesh.dp_size(mesh))
+
+
+def opt_shardings(cfg: lm.ModelConfig, mesh) -> Dict[str, Any]:
+    """The optimizer state's shardings (:func:`opt_specs` on ``mesh``)
+    in the JAX package's tree, the one ``ckpt.checkpoint.restore`` takes
+    for a checkpoint's ``opt``."""
+    specs = opt_specs(cfg, mesh)
+    return {"step": NamedSharding(mesh, specs["step"]),
+            **{k: convert.leaves_to_jax({n: NamedSharding(mesh, s) for n, s
+                                         in specs[k].items()})
+               for k in ("m", "v")}}
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device
@@ -104,15 +163,34 @@ def _check_batch(what: str, cfg: lm.ModelConfig, b: Dict[str, Any],
 
 
 def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
-                    batch: int, group=None, device="cuda") -> Callable:
+                    batch: int, group=None, device="cuda",
+                    mesh=None) -> Callable:
     """``step_fn(state, batch) -> (state, loss)``: one training step on
     this rank's ``batch`` rows of ``seq_len`` tokens; ``state`` =
     ``{"params": LM, "opt": ...}`` is updated in place and returned.
     ``group`` is the data-parallel process group (None: the default
     group, which must be initialised).  ``step_fn.log`` is the
-    :class:`~repro_torch.core.earlybird.SyncLog` of the last step."""
+    :class:`~repro_torch.core.earlybird.SyncLog` of the last step.
+
+    With a ``mesh`` (``group`` then unused), ``batch`` is the global
+    batch: each rank passes the rows of its index over the data axes
+    (``batch / dp`` of them, as ``data.pipeline.for_model(...,
+    host_index=mesh.axis_index(mesh, dp_axes(mesh)),
+    host_count=dp_size(mesh))`` gives them), the sync runs over the data
+    axes and the state's moments are ZeRO-1 (``build_state(...,
+    mesh=mesh)``, :func:`opt_specs`)."""
     cfg = cfg.replace(param_dtype=scfg.param_dtype)
     dev = resolve_device(device)
+    ospecs = None
+    if mesh is not None:
+        _require_data_parallel("train_step", mesh)
+        dp = _mesh.dp_size(mesh)
+        if batch % dp:
+            raise ValueError(f"train_step: a global batch of {batch} does"
+                             f" not split over {dp} data-parallel ranks")
+        batch //= dp
+        group = _mesh.axis_group(mesh, _mesh.dp_axes(mesh))
+        ospecs = opt_specs(cfg, mesh)["m"]
     sync = SyncConfig(mode=scfg.sync_mode, group=group,
                       aggr_bytes=scfg.aggr_bytes, comm_dtype=scfg.comm_dtype)
 
@@ -133,8 +211,12 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
         lr = warmup_cosine(state["opt"]["step"], peak_lr=scfg.peak_lr,
                            warmup_steps=scfg.warmup_steps,
                            total_steps=scfg.total_steps)
-        adamw_update(dict(model.named_parameters()), grads, state["opt"],
-                     lr, scfg.adam)
+        named = dict(model.named_parameters())
+        if mesh is None:
+            adamw_update(named, grads, state["opt"], lr, scfg.adam)
+        else:
+            zero1_update(named, grads, state["opt"], lr, scfg.adam, mesh,
+                         ospecs)
         return state, loss
 
     step_fn.log = vg.log
@@ -142,10 +224,38 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
 
 
 def make_cache(cfg: lm.ModelConfig, scfg: StepConfig, *, batch: int,
-               max_len: int, device="cuda") -> Dict[str, torch.Tensor]:
-    """A zeroed cache of ``max_len`` positions in the step's cache dtype."""
-    return lm.init_cache(cfg, batch, max_len,
-                         getattr(torch, scfg.cache_dtype), device=device)
+               max_len: int, device="cuda", mesh=None
+               ) -> Dict[str, torch.Tensor]:
+    """A zeroed cache of ``max_len`` positions in the step's cache dtype;
+    on a ``mesh``, DTensors placed by :func:`_cache_shardings`, each rank
+    allocating its block only."""
+    dt = getattr(torch, scfg.cache_dtype)
+    if mesh is None:
+        return lm.init_cache(cfg, batch, max_len, dt, device=device)
+    dev = resolve_device(device)
+    shapes = lm.cache_shapes(cfg, batch, max_len)
+    return {k: _mesh.zeros(shapes[k], sh.spec, mesh, dt, dev)
+            for k, sh in _cache_shardings(cfg, mesh, batch).items()}
+
+
+def _cache_axes(mesh, batch: int) -> Tuple[Optional[tuple], tuple]:
+    """The JAX package's cache rule: (batch axes, sequence axes) --
+    batch over the data axes and sequence over ``model``, or, when the
+    batch does not split over the data axes (``long_500k``'s batch 1),
+    no batch axes and every axis to the sequence."""
+    dp, n = _mesh.dp_axes(mesh), _mesh.dp_size(mesh)
+    if batch >= n and batch % n == 0:
+        return dp, ("model",)
+    return None, _mesh.all_axes(mesh)
+
+
+def _cache_shardings(cfg: lm.ModelConfig, mesh, batch: int
+                     ) -> Dict[str, NamedSharding]:
+    """Each cache entry's sharding under the JAX package's rule
+    (:func:`_cache_axes`, ``lm.cache_specs``)."""
+    b_ax, s_ax = _cache_axes(mesh, batch)
+    return {k: NamedSharding(mesh, s) for k, s in
+            lm.cache_specs(cfg, data_axis=b_ax, seq_axis=s_ax).items()}
 
 
 # Cache entries with a sequence axis (axis 2 of the stacked layout); the
@@ -164,49 +274,156 @@ def _check_cache(cache, scfg: StepConfig, batch: int, need: int) -> None:
                 f" {scfg.cache_dtype}")
 
 
+class _CacheLayout:
+    """Where a serving step on a mesh works: this rank's batch rows
+    (None: all of them), its slice of the cache's sequence and the
+    group over the sequence axes (the flash decode's)."""
+
+    def __init__(self, what: str, cfg: lm.ModelConfig, scfg: StepConfig,
+                 mesh, batch: int):
+        _require_data_parallel(what, mesh)
+        if cfg.mixer != "attn" or cfg.mla is not None:
+            raise NotImplementedError(
+                f"{what}: {cfg.name} keeps an MLA latent or a Mamba state"
+                f" in its cache; a sharded cache covers GQA attention"
+                f" only: the rest needs the tensor-parallel layout, not"
+                f" ported yet (ROADMAP queue 1, item 9)")
+        self.what, self.mesh, self.batch = what, mesh, batch
+        self.b_ax, s_ax = _cache_axes(mesh, batch)
+        self.n_seq = _mesh.size(mesh, s_ax)
+        if self.n_seq > 1 and not scfg.flash_decode:
+            raise ValueError(
+                f"{what}: the cache's sequence splits over {self.n_seq}"
+                f" ranks, which only StepConfig(flash_decode=True) decodes")
+        self.seq_index = _mesh.axis_index(mesh, s_ax)
+        self.group = _mesh.axis_group(mesh, s_ax)
+        self.rows = None
+        if self.b_ax is not None:
+            n = _mesh.dp_size(mesh)
+            i = _mesh.axis_index(mesh, self.b_ax)
+            self.rows = slice(i * (batch // n), (i + 1) * (batch // n))
+        self.shardings = _cache_shardings(cfg, mesh, batch)
+
+    def seq_slice(self, cache_len: int) -> Tuple[int, Optional[int]]:
+        """(positions a rank holds, the first of this rank's or None when
+        the sequence is not split) of a cache of ``cache_len``."""
+        if cache_len % self.n_seq:
+            raise ValueError(f"{self.what}: a cache of {cache_len} positions"
+                             f" does not split over {self.n_seq} ranks")
+        s_local = cache_len // self.n_seq
+        return s_local, (self.seq_index * s_local if self.n_seq > 1
+                         else None)
+
+    def local_cache(self, cache: Dict) -> Dict[str, torch.Tensor]:
+        """Each entry's block on this rank; the entries must be DTensors
+        placed by :func:`_cache_shardings`."""
+        from torch.distributed.tensor import DTensor
+        out = {}
+        for k, sh in self.shardings.items():
+            t = cache.get(k)
+            if not isinstance(t, DTensor) or t.device_mesh != self.mesh \
+                    or list(t.placements) != _mesh.to_placements(
+                        sh.spec, self.mesh, t.dim()):
+                raise ValueError(f"cache {k} is not a DTensor placed by"
+                                 f" {sh}")
+            out[k] = t.to_local()
+        return out
+
+    def local_rows(self, x: Optional[torch.Tensor], dim: int = 0):
+        if x is None or self.rows is None:
+            return x
+        return x.narrow(dim, self.rows.start, self.rows.stop - self.rows.start)
+
+    def local_batch(self, b: Dict[str, torch.Tensor]) -> Dict:
+        """This rank's rows of a prefill batch (``_check_batch``'s
+        shapes): the batch axis is dim 0, but dim 1 of M-RoPE
+        ``positions`` (3, B, S); 1-D ``positions`` (S,) are shared."""
+        def dim(k, t):
+            return {3: 1, 2: 0}.get(t.dim()) if k == "positions" else 0
+        return {k: t if dim(k, t) is None else self.local_rows(t, dim(k, t))
+                for k, t in b.items()}
+
+    @property
+    def n_rows(self) -> int:
+        return self.batch if self.rows is None else \
+            self.rows.stop - self.rows.start
+
+    def gather_rows(self, logits: torch.Tensor) -> torch.Tensor:
+        """The (batch, V) logits on every rank from each rank's rows."""
+        if self.rows is None or _mesh.dp_size(self.mesh) == 1:
+            return logits
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(
+            logits, self.mesh, _mesh.to_placements(P(self.b_ax), self.mesh, 2),
+            run_check=False, shape=torch.Size((self.batch, logits.shape[1])),
+            stride=(logits.shape[1], 1)).full_tensor()
+
+
 def make_prefill_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
-                      seq_len: int, batch: int, device="cuda") -> Callable:
+                      seq_len: int, batch: int, device="cuda",
+                      mesh=None) -> Callable:
     """``prefill_step(params, batch, cache) -> (logits (batch, V) f32,
     cache)``, the cache written in place.  ``batch`` is the JAX step's
     dict: ``tokens`` (batch, seq_len), or ``embeds`` (batch, seq_len, d)
     for the audio stub; optionally ``patch_embeds`` and ``positions``.
-    A tensor is taken as the model input (:func:`lm.input_batch`)."""
+    A tensor is taken as the model input (:func:`lm.input_batch`).
+
+    On a ``mesh`` the cache is ``make_cache(..., mesh=mesh)``'s (placed
+    by :func:`_cache_shardings`); every rank passes the whole batch and
+    the same parameters, runs its batch rows and writes its block of
+    the cache, and every rank gets all the logits."""
     cfg = cfg.replace(param_dtype=scfg.param_dtype)
     dev = resolve_device(device)
+    lay = None if mesh is None else \
+        _CacheLayout("prefill_step", cfg, scfg, mesh, batch)
 
     def prefill_step(params: lm.LM, b, cache) -> Tuple[torch.Tensor, Dict]:
         if isinstance(b, torch.Tensor):
             b = lm.input_batch(cfg, b)
         _check_batch("prefill_step", cfg, b, batch, seq_len, dev)
-        _check_cache(cache, scfg, batch, seq_len)
-        return lm.prefill(cfg, params, b, cache=cache)
+        if lay is None:
+            _check_cache(cache, scfg, batch, seq_len)
+            return lm.prefill(cfg, params, b, cache=cache)
+        local = lay.local_cache(cache)
+        s_local, offset = lay.seq_slice(cache["k"].shape[2])
+        if s_local * lay.n_seq < seq_len:
+            raise ValueError(f"prefill_step: a cache of {s_local * lay.n_seq}"
+                             f" positions does not hold {seq_len}")
+        _check_cache(local, scfg, lay.n_rows, s_local)
+        logits, _ = lm.prefill(cfg, params, lay.local_batch(b), cache=local,
+                               cache_offset=offset)
+        return lay.gather_rows(logits), cache
 
     return prefill_step
 
 
-def _flash_decode_fn(group) -> Callable:
+def _flash_decode_fn(group, split: bool = True) -> Callable:
     """The partitioned-KV decode hook (``attention_fwd``'s
     ``decode_attn``): rank r of ``group``'s N takes the sequence slice
     [r S/N, (r+1) S/N) of the cache, and ``flash_decode_shard`` combines
     the partitions -- the paper's partition-consume pattern on the
-    inference side.  The compute is split as in the JAX package's
-    shard_map; the cache itself is not (every rank holds all of it)."""
+    inference side.  With ``split`` every rank holds the whole cache and
+    the hook takes its slice (a plain process group); without, the
+    cache given is already this rank's slice (the mesh's
+    sequence-sharded cache)."""
     def hook(q, k, v, *, pos, window, attn_softcap, scale):
-        n, r = axis_size(group), axis_index(group)
-        s = k.shape[1]
-        if s % n:
-            raise ValueError(f"flash_decode: a cache of {s} positions does"
-                             f" not split over {n} ranks")
-        sl = slice(r * (s // n), (r + 1) * (s // n))
-        return flash_decode_shard(q, k[:, sl], v[:, sl], group=group,
-                                  pos=pos, window=window,
-                                  attn_softcap=attn_softcap, scale=scale)
+        if split:
+            n, r = axis_size(group), axis_index(group)
+            s = k.shape[1]
+            if s % n:
+                raise ValueError(f"flash_decode: a cache of {s} positions"
+                                 f" does not split over {n} ranks")
+            sl = slice(r * (s // n), (r + 1) * (s // n))
+            k, v = k[:, sl], v[:, sl]
+        return flash_decode_shard(q, k, v, group=group, pos=pos,
+                                  window=window, attn_softcap=attn_softcap,
+                                  scale=scale)
     return hook
 
 
 def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
                      seq_len: int, batch: int, device="cuda",
-                     group=None) -> Callable:
+                     group=None, mesh=None) -> Callable:
     """``decode_step(params, cache, tokens (batch,), pos, embeds=None)
     -> (logits (batch, V) f32, cache)``; ``seq_len`` is the cache
     length, one new token is decoded at write offset ``pos``.  The
@@ -215,12 +432,23 @@ def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
     through the partitioned-KV flash decode over the process group
     ``group`` (None: the default group, which must be initialised; every
     rank calls the step with the same inputs); ``seq_len`` must split
-    evenly over its ranks."""
+    evenly over its ranks.
+
+    On a ``mesh`` (``group`` then unused) the cache is placed as
+    :func:`make_prefill_step` takes it: each rank decodes its batch
+    rows, writes the new K/V only where ``pos`` falls in its sequence
+    slice, and with ``flash_decode`` attends to that slice alone, the
+    partitions combined over the sequence axes."""
     cfg = cfg.replace(param_dtype=scfg.param_dtype)
     dev = resolve_device(device)
     key = lm.input_key(cfg)
-    decode_attn = None
-    if scfg.flash_decode:
+    decode_attn, lay = None, None
+    if mesh is not None:
+        lay = _CacheLayout("decode_step", cfg, scfg, mesh, batch)
+        s_local, offset = lay.seq_slice(seq_len)
+        if scfg.flash_decode:
+            decode_attn = _flash_decode_fn(lay.group, split=False)
+    elif scfg.flash_decode:
         n = axis_size(group)
         if seq_len % n:
             raise ValueError(f"flash_decode: a cache of {seq_len} positions"
@@ -240,8 +468,16 @@ def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
         if not 0 <= pos < seq_len:
             raise ValueError(f"decode_step: position {pos} outside the"
                              f" cache of {seq_len}")
-        _check_cache(cache, scfg, batch, seq_len)
-        return lm.decode_step(cfg, params, cache, tokens, pos, embeds=embeds,
-                              decode_attn=decode_attn)
+        if lay is None:
+            _check_cache(cache, scfg, batch, seq_len)
+            return lm.decode_step(cfg, params, cache, tokens, pos,
+                                  embeds=embeds, decode_attn=decode_attn)
+        local = lay.local_cache(cache)
+        tokens, embeds = lay.local_rows(tokens), lay.local_rows(embeds)
+        _check_cache(local, scfg, lay.n_rows, s_local)
+        logits, _ = lm.decode_step(cfg, params, local, tokens, pos,
+                                   embeds=embeds, decode_attn=decode_attn,
+                                   cache_offset=offset)
+        return lay.gather_rows(logits), cache
 
     return decode_step

@@ -9,13 +9,19 @@
 The port's counterpart of the JAX package's ``launch/train.py``, with the
 same flags plus ``--device`` (default ``cuda``).  It wires the synthetic
 data stream, the early-bird gradient sync, AdamW, async checkpointing,
-the preemption-safe loop and the straggler monitor together.  Each rank
-holds one device and ``global_batch / world`` rows of every batch.
-Under ``torchrun`` the process group comes from the environment;
-otherwise a one-rank group is started through a ``FileStore`` in a
-temporary directory (``nccl`` on the card, ``gloo`` on the CPU), so the
-gradient all-reduce is always issued.  Tensor parallelism (``--tp``)
-waits for sharding (ROADMAP queue 1, item 9).  Every architecture
+the preemption-safe loop and the straggler monitor together.  As the
+JAX package's, it plans the mesh for the world
+(``runtime.elastic.plan_mesh``, ``build_mesh``) and prints it; each
+rank holds one device and ``global_batch / data`` rows of every batch,
+and the AdamW moments are ZeRO-1 over the data axis (each rank keeps
+its block; a checkpoint holds them whole, gathered when it is saved,
+written by rank 0, and placed again on restore with the mesh's
+shardings).  Under ``torchrun`` the process group comes from the
+environment; otherwise a one-rank group is started through a
+``FileStore`` in a temporary directory (``nccl`` on the card, ``gloo``
+on the CPU), so the gradient all-reduce is always issued.  Tensor
+parallelism (``--tp`` > 1) needs the tensor-parallel forward, not
+ported yet (ROADMAP queue 1, item 9).  Every architecture
 trains but qwen2-vl-7b, which is refused (exit 2) as the JAX package's
 training CLI fails on it: the synthetic stream makes no M-RoPE
 ``positions``, which its train step needs (``make_train_step`` trains
@@ -44,9 +50,12 @@ from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..core.fabric_torch import resolve_device
 from ..data import pipeline
 from ..models import convert
+from ..runtime import elastic
 from ..runtime.fault_tolerance import (Heartbeat, StragglerMonitor,
                                        run_training_loop)
-from .steps import StepConfig, batch_to_device, build_state, make_train_step
+from .mesh import axis_index, dp_axes
+from .steps import (StepConfig, batch_to_device, build_state,
+                    make_train_step, opt_shardings)
 
 
 def init_group(device: torch.device, tmpdir: str) -> bool:
@@ -94,7 +103,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.tp != 1:
-        print("--tp > 1 needs tensor-parallel sharding, not ported yet"
+        print("--tp > 1 needs the tensor-parallel forward (train, prefill"
+              " and decode split over the model axis), not ported yet"
               " (ROADMAP queue 1, item 9)", file=sys.stderr)
         return 2
 
@@ -134,29 +144,33 @@ def _train(args, cfg, dev: torch.device) -> int:
     if dev.type == "cuda" and world > 1:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
         torch.cuda.set_device(dev)
-    if args.global_batch % world:
+    plan = elastic.plan_mesh(world, args.tp)
+    if args.global_batch % plan.data:
         raise ValueError(f"--global-batch {args.global_batch} is not a"
-                         f" multiple of the {world} ranks")
-    local = args.global_batch // world
-    print(f"group: data={world} model=1 (backend {dist.get_backend()},"
+                         f" multiple of the {plan.data} data-parallel ranks")
+    mesh = elastic.build_mesh(plan, device=dev)
+    print(f"mesh: data={plan.data} model={plan.model} "
+          f"(devices={plan.n_devices}, backend {dist.get_backend()},"
           f" device {dev})")
     scfg = StepConfig(sync_mode=args.sync, aggr_bytes=args.aggr_bytes,
                       param_dtype=args.param_dtype, peak_lr=args.peak_lr,
                       warmup_steps=max(args.steps // 10, 1),
                       total_steps=args.steps)
-    step_fn = make_train_step(cfg, scfg, seq_len=args.seq_len, batch=local,
-                              device=dev)
-    state = build_state(cfg, 0, dev, scfg.adam)
+    step_fn = make_train_step(cfg, scfg, seq_len=args.seq_len,
+                              batch=args.global_batch, device=dev, mesh=mesh)
+    state = build_state(cfg, 0, dev, scfg.adam, mesh=mesh)
     start = 0
     ckpt_dir = Path(args.ckpt_dir) / cfg.name.replace("/", "_")
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     if args.resume and latest_step(ckpt_dir) is not None:
-        start, tree = restore(ckpt_dir, convert.state_to_jax(state))
+        start, tree = restore(ckpt_dir, convert.state_to_jax(state),
+                              shardings={"opt": opt_shardings(cfg, mesh)})
         state = convert.state_from_jax(tree, cfg, device=dev)
         print(f"resumed from step {start}")
 
     stream = pipeline.for_model(cfg, args.seq_len, args.global_batch,
-                                host_index=rank, host_count=world)
+                                host_index=axis_index(mesh, dp_axes(mesh)),
+                                host_count=plan.data)
     print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
           f"tokens/step={args.global_batch * args.seq_len}")
     losses = []
@@ -169,7 +183,8 @@ def _train(args, cfg, dev: torch.device) -> int:
     def get_batch(step):
         return batch_to_device(stream.batch(step), dev)
 
-    checkpointer = AsyncCheckpointer(ckpt_dir, to_tree=convert.state_to_jax)
+    checkpointer = AsyncCheckpointer(ckpt_dir, to_tree=convert.state_to_jax,
+                                     write=rank == 0)
     t0 = time.time()
     with Heartbeat(ckpt_dir / f"heartbeat{rank}.json") as hb:
         report = run_training_loop(

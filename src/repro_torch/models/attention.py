@@ -147,7 +147,8 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                   q_scale: Optional[float] = None,
                   cache: Optional[Dict[str, torch.Tensor]] = None,
                   cache_pos: Optional[int] = None, q_chunk: int = 512,
-                  flash: bool = True, decode_attn=None
+                  flash: bool = True, decode_attn=None,
+                  cache_offset: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.
 
@@ -166,6 +167,15 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     -> (B, H, D)`` when one is given (the partitioned-KV flash decode of
     ``launch.steps.make_decode_step``); every other shape uses
     ``masked_attention``.
+
+    ``cache_offset`` marks a cache split along the sequence (the
+    sequence-sharded cache of ``launch.steps``): the tensors hold only
+    positions [cache_offset, cache_offset + their length).  The new
+    tokens are written where they fall in that slice; a prefill attends
+    over the new tokens as the cache would hold them (in its dtype), and
+    a decode step attends through ``decode_attn`` to the local slice
+    (the partitioned flash decode).  Every other path needs the whole
+    cache and raises.
     """
     head_dim = p.wq.shape[-1]
     scale = q_scale if q_scale is not None else head_dim ** -0.5
@@ -184,9 +194,12 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     if cache is not None:
         if cache_pos is None:
             raise ValueError("attention_fwd: a cache needs cache_pos")
-        cache["k"][:, cache_pos:cache_pos + sq] = k
-        cache["v"][:, cache_pos:cache_pos + sq] = v
-        k, v = cache["k"], cache["v"]
+        if cache_offset is None:
+            cache["k"][:, cache_pos:cache_pos + sq] = k
+            cache["v"][:, cache_pos:cache_pos + sq] = v
+            k, v = cache["k"], cache["v"]
+        else:
+            k, v = _write_slice(cache, k, v, cache_pos, cache_offset)
         q_pos = tpos if tpos.dim() >= 1 else tpos[None]
     else:
         q_pos = torch.arange(sq, device=x.device)
@@ -197,6 +210,13 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     uniform = (h_padded % n_kv == 0 and
                tuple(head_map) == tuple(i // (h_padded // n_kv)
                                         for i in range(h_padded)))
+    if cache_offset is not None and not (
+            uniform and ((sq == 1 and decode_attn is not None) or (
+                flash and cache_pos == 0 and sq > 1 and tpos.dim() == 1))):
+        raise ValueError(
+            "attention_fwd: a sequence-split cache takes a flash prefill"
+            " from position 0 or a decode step through decode_attn, under"
+            " the uniform head map; other paths need the whole cache")
     if decode_attn is not None and cache is not None and sq == 1 \
             and uniform:
         out = decode_attn(q[:, 0], k, v, pos=cache_pos, window=window,
@@ -225,6 +245,23 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     dt = torch.promote_types(out.dtype, p.wo.dtype)
     out = torch.einsum("bqhk,hkd->bqd", out.to(dt), p.wo.to(dt))
     return out, cache
+
+
+def _write_slice(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                 v: torch.Tensor, pos: int, off: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write the new tokens at positions [pos, pos + S) into a cache
+    slice holding positions [off, off + its length), where they fall in
+    it.  Returns the keys and values to attend to: the local slice for a
+    decode step, the new tokens in the cache's dtype for a prefill."""
+    sq, n = k.shape[1], cache["k"].shape[1]
+    lo, hi = max(pos, off), min(pos + sq, off + n)
+    if lo < hi:
+        cache["k"][:, lo - off:hi - off] = k[:, lo - pos:hi - pos]
+        cache["v"][:, lo - off:hi - off] = v[:, lo - pos:hi - pos]
+    if sq == 1:
+        return cache["k"], cache["v"]
+    return k.to(cache["k"].dtype), v.to(cache["v"].dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -98,12 +98,14 @@ def _sub(cache: Optional[Dict[str, torch.Tensor]], names):
 def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_pos: Optional[int] = None, flash: bool = True,
-              decode_attn=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+              decode_attn=None, cache_offset: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One decoder layer.  ``cache``: this layer's views of the stacked
     cache ({'k', 'v'}, {'ckv', 'kr'} and/or the Mamba state), written in
     place.  ``decode_attn``: the GQA mixer's decode hook
-    (``attention_fwd``); MLA and Mamba never take it.  Returns (h', the
-    layer's cache or None)."""
+    (``attention_fwd``); MLA and Mamba never take it.  ``cache_offset``:
+    the first position a sequence-split cache holds (``attention_fwd``;
+    GQA only).  Returns (h', the layer's cache or None)."""
     zc = cfg.zero_centered_norm
     hin = rms_norm(h, lp.ln1, zero_centered=zc)
     outs = []
@@ -121,7 +123,8 @@ def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
                 rope_theta=cfg.rope_theta,
                 mrope_sections=cfg.mrope_sections, q_scale=cfg.q_scale,
                 cache=_sub(cache, ATTN_CACHE), cache_pos=cache_pos,
-                q_chunk=cfg.q_chunk, flash=flash, decode_attn=decode_attn)
+                q_chunk=cfg.q_chunk, flash=flash, decode_attn=decode_attn,
+                cache_offset=cache_offset)
         outs.append(a_out)
     if cfg.mixer in ("mamba", "hybrid"):
         m_out, _ = mamba_fwd(lp.mamba, hin, mc=cfg.mamba,

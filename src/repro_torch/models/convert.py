@@ -9,8 +9,10 @@ becomes ``layers.{i}.moe.w_gate`` (E, D, F).
 The functions take and give NumPy arrays (``jax.tree.map(np.asarray,
 params)``), so this module imports nothing of JAX.  The training state
 is ``{"params": LM, "opt": {"step", "m", "v"}}`` with the moments keyed
-by parameter name; in the JAX layout it is ``{"params": tree, "opt":
-{"step", "m": tree, "v": tree}}``, the tree the checkpoints hold.
+by parameter name, or under ZeRO-1 (``optim.adamw.init_zero1_state``)
+by leaf name as DTensors of the stacked leaves; in the JAX layout it is
+``{"params": tree, "opt": {"step", "m": tree, "v": tree}}``, the tree
+the checkpoints hold.
 """
 
 from __future__ import annotations
@@ -95,19 +97,52 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().copy()
 
 
-def named_to_jax(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Port tensors by parameter name (parameters, gradients or moments)
-    -> the JAX package's nested tree of NumPy arrays, the layers stacked
-    on a leading L axis."""
+def leaves_to_jax(leaves: Mapping[str, Any]) -> Dict[str, Any]:
+    """Values by the port's leaf name (``embed``, ``layers.attn.wq``:
+    :func:`~repro_torch.models.lm.param_leaves`' names, whose layers are
+    already stacked) -> the JAX package's nested tree, leaf for leaf:
+    ``layers.attn.wq`` lands at ``tree["layers"]["attn"]["wq"]``.  Takes
+    anything as the values: the spec trees of ``lm.param_specs``,
+    ``lm.param_shapes`` and ``optim.adamw.opt_state_specs``, or arrays."""
     tree: Dict[str, Any] = {}
-    for name, segs in param_leaves(named.items()):
-        arrs = [_to_numpy(t) for t in segs]
+    for name, val in leaves.items():
         parts = name.split(".")
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
-        node[parts[-1]] = np.stack(arrs) if parts[0] == "layers" else arrs[0]
+        node[parts[-1]] = val
     return tree
+
+
+def named_to_jax(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Port tensors by parameter name (parameters, gradients or moments)
+    -> the JAX package's nested tree of NumPy arrays, the layers stacked
+    on a leading L axis."""
+    return leaves_to_jax({
+        name: np.stack([_to_numpy(t) for t in segs])
+        if name.startswith("layers.") else _to_numpy(segs[0])
+        for name, segs in param_leaves(named.items())})
+
+
+def _is_sharded(moments: Mapping[str, Any]) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in moments.values())
+
+
+def jax_to_leaves(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`leaves_to_jax`: a nested tree -> values by
+    dotted leaf name."""
+    return dict(_flatten(tree))
+
+
+def moments_to_jax(moments: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """AdamW moments as a JAX tree of NumPy arrays: by parameter name
+    (stacked here), or ZeRO-1 DTensors by leaf name (gathered whole: a
+    collective over their mesh, every rank of it calls)."""
+    if _is_sharded(moments):
+        return leaves_to_jax({k: _to_numpy(t.full_tensor())
+                              for k, t in moments.items()})
+    return named_to_jax(moments)
 
 
 def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -115,20 +150,49 @@ def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     opt = state["opt"]
     return {"params": named_to_jax(dict(state["params"].named_parameters())),
             "opt": {"step": np.asarray(int(opt["step"]), np.int32),
-                    "m": named_to_jax(opt["m"]), "v": named_to_jax(opt["v"])}}
+                    "m": moments_to_jax(opt["m"]),
+                    "v": moments_to_jax(opt["v"])}}
+
+
+def _host(x) -> np.ndarray:
+    """A restored leaf as a host array (a DTensor's whole value)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    if isinstance(x, torch.Tensor):
+        return _to_numpy(x)
+    return np.asarray(x)
 
 
 @torch.no_grad()
 def opt_state_from_jax(opt: Dict, model: LM) -> Dict[str, Any]:
     """The JAX package's AdamW state ``{"step", "m", "v"}`` (NumPy
-    trees) as the port's, the moments in f32 on ``model``'s device."""
+    trees) as the port's, the moments in f32 on ``model``'s device.
+    Moments restored as DTensors (``ckpt.checkpoint.restore`` with
+    shardings: ZeRO-1) stay so, keyed by leaf name."""
     params = dict(model.named_parameters())
     dev = model.embed.device
-    out: Dict[str, Any] = {"step": torch.tensor(int(np.asarray(opt["step"])),
+    out: Dict[str, Any] = {"step": torch.tensor(int(_host(opt["step"])),
                                                 dtype=torch.int32,
                                                 device=dev)}
+    leaves = dict(param_leaves(params.items()))
     for key in ("m", "v"):
-        arrays = _state_dict(opt[key], model.cfg.n_layers)
+        flat = jax_to_leaves(opt[key])
+        if _is_sharded(flat):
+            if set(flat) != set(leaves):
+                raise ValueError(f"opt {key}: leaves differ from the"
+                                 f" model's")
+            for name, segs in leaves.items():
+                want = ((len(segs), *segs[0].shape) if name.startswith(
+                    "layers.") else tuple(segs[0].shape))
+                if tuple(flat[name].shape) != want:
+                    raise ValueError(f"opt {key} {name}: shape"
+                                     f" {tuple(flat[name].shape)}, the"
+                                     f" model's {want}")
+            out[key] = {k: flat[k].to(torch.float32) for k in leaves}
+            continue
+        arrays = _state_dict({k: _host(v) for k, v in flat.items()},
+                             model.cfg.n_layers)
         if set(arrays) != set(params):
             raise ValueError(f"opt {key}: names differ from the model's")
         out[key] = {}
@@ -147,6 +211,8 @@ def state_from_jax(tree: Dict, cfg: ModelConfig, device="cuda",
     """The JAX package's state tree (NumPy) as the port's training
     state, the parameters in ``dtype`` (default: the config's) and
     requiring gradients."""
-    model = params_from_jax(tree["params"], cfg, device=device, dtype=dtype)
+    params = {k: _host(v) for k, v in jax_to_leaves(tree["params"]).items()}
+    model = params_from_jax(leaves_to_jax(params), cfg, device=device,
+                            dtype=dtype)
     model.requires_grad_(True)
     return {"params": model, "opt": opt_state_from_jax(tree["opt"], model)}

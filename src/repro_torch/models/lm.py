@@ -30,6 +30,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..core.fabric_torch import resolve_device
+from ..launch.mesh import PartitionSpec as P
 from .attention import MLA, head_to_kv_map, init_attention, init_mla
 from .blocks import Block, block_fwd
 from .layers import chunked_cross_entropy, dense_init, embed_init, rms_norm, \
@@ -291,6 +292,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     if isinstance(dt, str):
         dt = getattr(torch, dt)
     dev = resolve_device(device)
+    return {k: torch.zeros(s, dtype=dt, device=dev)
+            for k, s in cache_shapes(cfg, batch, max_len).items()}
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """The shape of each entry of :func:`init_cache`."""
     L = cfg.n_layers
     shapes: Dict[str, Tuple[int, ...]] = {}
     if cfg.mixer in ("attn", "hybrid"):
@@ -304,8 +312,135 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
         for k, v in mamba_cache_shapes(batch, cfg.d_model,
                                        cfg.mamba).items():
             shapes[k] = (L, *v)
-    return {k: torch.zeros(s, dtype=dt, device=dev)
-            for k, s in shapes.items()}
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs (model/TP axis only; DP handled by the caller)
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS = "model"
+
+
+def _dotted(tree: Dict, prefix: str = "") -> Dict[str, object]:
+    """A nested dict flattened to dotted names (``layers.attn.wq``)."""
+    out: Dict[str, object] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_dotted(val, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The shape of every leaf of the JAX package's parameter tree, by
+    the port's leaf name (:func:`param_leaves`: ``layers.<rest>`` for the
+    per-layer parameters stacked on a leading L axis), in its order.
+    Nothing is allocated (the model is built on the meta device)."""
+    model = LM(cfg, device=torch.device("meta"))
+    return {name: ((len(segs), *segs[0].shape) if name.startswith("layers.")
+                   else tuple(segs[0].shape))
+            for name, segs in param_leaves(model.named_parameters())}
+
+
+def param_specs(cfg: ModelConfig, axis: str = MODEL_AXIS) -> Dict[str, P]:
+    """The JAX package's ``PartitionSpec`` of every parameter leaf (the
+    tensor-parallel split over ``axis``), by the port's leaf name, as
+    :func:`param_shapes`; the stacked layer axis is never split."""
+    A = axis
+
+    def attn_specs():
+        if cfg.mla is not None:
+            return {
+                "w_dq": P(None, None, None), "norm_q": P(None, None),
+                "w_uq": P(None, None, A, None),
+                "w_dkv": P(None, None, None), "norm_kv": P(None, None),
+                "w_uk": P(None, None, A, None),
+                "w_uv": P(None, None, A, None),
+                "w_kr": P(None, None, None),
+                "wo": P(None, A, None, None),
+            }
+        s = {
+            "wq": P(None, None, A, None),
+            "wk": P(None, None, None, None),
+            "wv": P(None, None, None, None),
+            "wo": P(None, A, None, None),
+        }
+        if cfg.qkv_bias:
+            s.update({"bq": P(None, A, None), "bk": P(None, None, None),
+                      "bv": P(None, None, None)})
+        return s
+
+    def mamba_specs():
+        return {
+            "w_z": P(None, None, A), "w_x": P(None, None, A),
+            "w_B": P(None, None, None), "w_C": P(None, None, None),
+            "w_dt": P(None, None, None),
+            "conv_x": P(None, None, A), "conv_B": P(None, None, None),
+            "conv_C": P(None, None, None),
+            "conv_bx": P(None, A), "conv_bB": P(None, None),
+            "conv_bC": P(None, None),
+            "A_log": P(None, None), "D": P(None, None),
+            "dt_bias": P(None, None),
+            "norm": P(None, A), "out_proj": P(None, A, None),
+        }
+
+    lp: Dict[str, object] = {"ln1": P(None, None)}
+    if cfg.mixer in ("attn", "hybrid"):
+        lp["attn"] = attn_specs()
+    if cfg.mixer in ("mamba", "hybrid"):
+        lp["mamba"] = mamba_specs()
+    if cfg.mixer == "hybrid":
+        lp["norm_attn"] = P(None, None)
+        lp["norm_mamba"] = P(None, None)
+    if cfg.post_norm:
+        lp["ln1_post"] = P(None, None)
+    if cfg.moe is not None or cfg.d_ff > 0:
+        lp["ln2"] = P(None, None)
+        if cfg.moe is not None:
+            lp["moe"] = {
+                "router": P(None, None, None),
+                "w_gate": P(None, A, None, None),
+                "w_up": P(None, A, None, None),
+                "w_down": P(None, A, None, None),
+            }
+        else:
+            lp["mlp"] = {"w_gate": P(None, None, A), "w_up": P(None, None, A),
+                         "w_down": P(None, A, None)}
+        if cfg.post_norm:
+            lp["ln2_post"] = P(None, None)
+
+    specs: Dict[str, object] = {
+        "embed": P(A, None),
+        "final_norm": P(None),
+        "layers": lp,
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = P(None, A)
+    flat = _dotted(specs)
+    return {name: flat[name] for name in param_shapes(cfg)}
+
+
+def cache_specs(cfg: ModelConfig, axis: str = MODEL_AXIS,
+                data_axis=None, seq_axis=None) -> Dict[str, P]:
+    """Sharding specs of the decode cache (:func:`init_cache`'s entries):
+    batch over ``data_axis``, sequence over ``seq_axis``; the Mamba
+    state's heads and the convolution tail's channels over ``axis``."""
+    c: Dict[str, P] = {}
+    if cfg.mixer in ("attn", "hybrid"):
+        if cfg.mla is not None:
+            c["ckv"] = P(None, data_axis, seq_axis, None)
+            c["kr"] = P(None, data_axis, seq_axis, None)
+        else:
+            c["k"] = P(None, data_axis, seq_axis, None, None)
+            c["v"] = P(None, data_axis, seq_axis, None, None)
+    if cfg.mixer in ("mamba", "hybrid"):
+        c["state"] = P(None, data_axis, axis, None, None)
+        c["conv_x"] = P(None, data_axis, None, axis)
+        c["conv_B"] = P(None, data_axis, None, None)
+        c["conv_C"] = P(None, data_axis, None, None)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +540,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             cache_pos: Optional[int] = None, flash: bool = True,
             remat: bool = False,
             param_hook: Callable[[Block], Block] = lambda lp: lp,
-            decode_attn=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+            decode_attn=None, cache_offset: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Run the decoder stack: returns (hidden (B, S, D) after the final
     norm, the cache written in place or None).  ``flash=False``, or
     explicit ``batch['positions']`` (whose causal mask is theirs, not
@@ -418,7 +554,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     (``torch.utils.checkpoint``) instead of keeping its activations; the
     hook is called outside the checkpointed region, so a recomputation
     does not call it again.  ``decode_attn`` is the attention layers'
-    decode hook (``attention.attention_fwd``)."""
+    decode hook and ``cache_offset`` the first position a
+    sequence-split cache holds (``attention.attention_fwd``)."""
     h = _embed_inputs(cfg, params, batch)
     b, s = h.shape[0], h.shape[1]
     positions = _positions(cfg, batch, b, s, cache_pos, h.device)
@@ -428,7 +565,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
         layer_cache = None if cache is None else \
             {k: t[i] for k, t in cache.items()}
         kw = dict(positions=positions, window=window, cache=layer_cache,
-                  cache_pos=cache_pos, flash=flash, decode_attn=decode_attn)
+                  cache_pos=cache_pos, flash=flash, decode_attn=decode_attn,
+                  cache_offset=cache_offset)
         if remat and cache is None:
             h, _ = torch.utils.checkpoint.checkpoint(
                 block_fwd, cfg, lp, h, use_reentrant=False, **kw)
@@ -470,30 +608,34 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *,
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, batch: Dict, *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            flash: bool = True) -> Tuple[torch.Tensor, Dict]:
+            flash: bool = True, cache_offset: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Forward pass that fills a KV cache from position 0; returns
     (last-token logits (B, V) f32, the cache).  ``batch`` holds
     ``tokens`` (B, S), or ``embeds`` (B, S, d) for the audio stub, and
-    optionally ``patch_embeds`` and ``positions``."""
+    optionally ``patch_embeds`` and ``positions``.  ``cache_offset``: the
+    cache holds only its sequence slice from there (``forward``)."""
     x = _model_input(cfg, batch)
     b, s = x.shape[:2]
     if cache is None:
         cache = init_cache(cfg, b, s, device=x.device)
     h, cache = forward(cfg, params, batch, cache=cache, cache_pos=0,
-                       flash=flash)
+                       flash=flash, cache_offset=cache_offset)
     return _final_logits(cfg, h[:, -1, :], params), cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, cache: Dict[str, torch.Tensor],
                 tokens: Optional[torch.Tensor], pos: int, *,
-                embeds: Optional[torch.Tensor] = None, decode_attn=None
+                embeds: Optional[torch.Tensor] = None, decode_attn=None,
+                cache_offset: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step: tokens (B,) int, ``pos`` the write offset; the
     audio stub takes ``embeds`` (B, 1, d) instead.  ``decode_attn``: the
-    attention layers' decode hook (``attention.attention_fwd``).
+    attention layers' decode hook and ``cache_offset`` the first position
+    a sequence-split cache holds (``attention.attention_fwd``).
     Returns (logits (B, V) f32, the cache written in place)."""
     batch = _decode_batch(cfg, tokens, embeds)
     h, cache = forward(cfg, params, batch, cache=cache, cache_pos=int(pos),
-                       decode_attn=decode_attn)
+                       decode_attn=decode_attn, cache_offset=cache_offset)
     return _final_logits(cfg, h[:, -1, :], params), cache

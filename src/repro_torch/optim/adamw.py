@@ -6,16 +6,29 @@ decay and epsilon sit elsewhere): the gradient is scaled by the global
 clip factor, ``u = (m / c1) / (sqrt(v / c2) + eps)`` and ``p <- p - lr *
 (u + wd * p)``, in f32.  Parameters, moments and the step counter are
 updated in place (the JAX package returns new arrays), which keeps one
-copy of each on the card.  The ZeRO-1 sharding of the moments waits for
-sharding (ROADMAP queue 1, item 9).
+copy of each on the card.
+
+ZeRO-1, as the JAX package shards it: :func:`zero1_spec` adds the
+data-parallel axes to a parameter's spec on its first free dim that the
+data-parallel degree divides, and :func:`opt_state_specs` gives the
+moments' specs for every leaf of the JAX parameter tree (by the port's
+leaf name, the layers stacked).  On a mesh, :func:`init_zero1_state`
+keeps each moment as a DTensor of which a rank holds only its block,
+and :func:`zero1_update` updates that block of the (synchronized,
+replicated) parameter with the same f32 operations in the same order as
+:func:`adamw_update`, then all-gathers the updated blocks over the data
+axes: the result is bit for bit the unsharded update's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import torch
+
+from ..launch import mesh as _mesh
+from ..launch.mesh import PartitionSpec as P
 
 
 @dataclass(frozen=True)
@@ -43,6 +56,54 @@ def init_opt_state(params: Mapping[str, torch.Tensor], cfg: AdamWConfig
     }
 
 
+def zero1_spec(param_spec: Sequence, shape: Sequence[int],
+               dp_axes: Tuple[str, ...], dp_total: int) -> P:
+    """Moment spec: the param spec + DP sharding on the first free dim
+    divisible by the DP degree."""
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    for i, (e, dim) in enumerate(zip(entries, shape)):
+        if e is None and dp_total > 0 and dim % dp_total == 0 and dim > 0:
+            entries[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            break
+    return P(*entries)
+
+
+def opt_state_specs(param_specs: Mapping[str, Sequence],
+                    param_shapes: Mapping[str, Sequence[int]],
+                    dp_axes: Tuple[str, ...] = ("data",),
+                    dp_total: int = 1) -> Dict[str, Any]:
+    """Sharding specs for the optimizer state (ZeRO-1), the moments by
+    leaf name as ``lm.param_specs`` / ``lm.param_shapes`` give them."""
+    m_specs = {k: zero1_spec(s, param_shapes[k], dp_axes, dp_total)
+               for k, s in param_specs.items()}
+    return {"step": P(), "m": m_specs, "v": dict(m_specs)}
+
+
+def init_zero1_state(params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
+                     mesh, specs: Mapping[str, Sequence]) -> Dict[str, Any]:
+    """Zero moments for ZeRO-1 on ``mesh``: per leaf of the JAX
+    parameter tree (``specs``: ``opt_state_specs(...)["m"]``, by leaf
+    name) a DTensor of the stacked leaf's shape, of which this rank
+    allocates only its block; the step counter as in
+    :func:`init_opt_state`."""
+    from ..models.lm import param_leaves
+    dt = getattr(torch, cfg.moment_dtype)
+    dev = next(iter(params.values())).device
+    shapes = {name: ((len(segs), *segs[0].shape)
+                     if name.startswith("layers.") else tuple(segs[0].shape))
+              for name, segs in param_leaves(params.items())}
+    if set(shapes) != set(specs):
+        raise ValueError(f"init_zero1_state: spec leaves {sorted(specs)}"
+                         f" differ from the parameters' {sorted(shapes)}")
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "m": {k: _mesh.zeros(shapes[k], specs[k], mesh, dt, dev)
+              for k in shapes},
+        "v": {k: _mesh.zeros(shapes[k], specs[k], mesh, dt, dev)
+              for k in shapes},
+    }
+
+
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in f32."""
     sums = [x.float().square().sum() for x in tree.values()]
@@ -55,6 +116,17 @@ def adamw_update(params: Mapping[str, torch.Tensor],
                  lr, cfg: AdamWConfig) -> Tuple[Mapping, Dict[str, Any]]:
     """One AdamW step, in place.  ``grads`` must already be synchronized
     (equal on every rank); returns ``(params, state)``."""
+    coef = _step_coefficients(grads, state, lr, cfg)
+    for k, p in params.items():
+        _update_block(p, grads[k], state["m"][k], state["v"][k], coef, cfg)
+    return params, state
+
+
+def _step_coefficients(grads: Mapping[str, torch.Tensor],
+                       state: Dict[str, Any], lr, cfg: AdamWConfig):
+    """Advance the step counter; the clip factor (from the full
+    gradients), the bias corrections and the learning rate as f32
+    scalars on the device."""
     state["step"] += 1
     step = state["step"].to(torch.float32)
     if cfg.clip_norm > 0:
@@ -62,19 +134,68 @@ def adamw_update(params: Mapping[str, torch.Tensor],
         scale = torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-12), max=1.0)
     else:
         scale = torch.ones((), dtype=torch.float32, device=step.device)
+
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=step.device)
     c1 = 1.0 - f32(cfg.b1) ** step
     c2 = 1.0 - f32(cfg.b2) ** step
-    lr = f32(lr)
-    for k, p in params.items():
-        m, v = state["m"][k], state["v"][k]
-        gf = grads[k].float() * scale
-        m_new = cfg.b1 * m.float() + (1.0 - cfg.b1) * gf
-        v_new = cfg.b2 * v.float() + (1.0 - cfg.b2) * gf.square()
-        u = (m_new / c1) / ((v_new / c2).sqrt() + cfg.eps)
-        pf = p.float()
-        p.copy_(pf - lr * (u + cfg.weight_decay * pf))
-        m.copy_(m_new)
-        v.copy_(v_new)
+    return scale, c1, c2, f32(lr)
+
+
+def _update_block(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                  v: torch.Tensor, coef, cfg: AdamWConfig) -> None:
+    """The elementwise update of one block, in place: every f32
+    operation in one order, whatever the block, so a block of a
+    parameter gets the bits of the whole parameter's update."""
+    scale, c1, c2, lr = coef
+    gf = g.float() * scale
+    m_new = cfg.b1 * m.float() + (1.0 - cfg.b1) * gf
+    v_new = cfg.b2 * v.float() + (1.0 - cfg.b2) * gf.square()
+    u = (m_new / c1) / ((v_new / c2).sqrt() + cfg.eps)
+    pf = p.float()
+    p.copy_(pf - lr * (u + cfg.weight_decay * pf))
+    m.copy_(m_new)
+    v.copy_(v_new)
+
+
+@torch.no_grad()
+def zero1_update(params: Mapping[str, torch.Tensor],
+                 grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
+                 lr, cfg: AdamWConfig, mesh, specs: Mapping[str, Sequence]
+                 ) -> Tuple[Mapping, Dict[str, Any]]:
+    """One ZeRO-1 AdamW step on ``mesh``, in place: ``params`` by port
+    name (replicated, every rank equal), ``grads`` synchronized,
+    ``state`` from :func:`init_zero1_state` with its moment ``specs``.
+    Per leaf of the JAX tree, this rank updates its block of the
+    stacked parameter and of the moments (:func:`_update_block`), and
+    the updated blocks are all-gathered over the data axes into every
+    rank's parameters.  The clip factor comes from the full gradients,
+    as in :func:`adamw_update`, whose result this equals bit for bit."""
+    from torch.distributed.tensor import DTensor
+    from ..models.lm import param_leaves
+    coef = _step_coefficients(grads, state, lr, cfg)
+    names = {id(t): k for k, t in params.items()}
+    for leaf, segs in param_leaves(params.items()):
+        stacked = leaf.startswith("layers.")
+        shape = (len(segs), *segs[0].shape) if stacked \
+            else tuple(segs[0].shape)
+        sl = _mesh.local_slices(shape, specs[leaf], mesh)
+        gsegs = [grads[names[id(t)]] for t in segs]
+
+        def block(ts):
+            if stacked:
+                return torch.stack([t[sl[1:]] for t in ts[sl[0]]])
+            return ts[0][sl]
+        p_blk, g_blk = block(segs), block(gsegs)
+        _update_block(p_blk, g_blk, state["m"][leaf].to_local(),
+                      state["v"][leaf].to_local(), coef, cfg)
+        full = DTensor.from_local(
+            p_blk.detach(), mesh, _mesh.to_placements(specs[leaf], mesh, len(shape)),
+            run_check=False, shape=torch.Size(shape),
+            stride=_mesh.contiguous_stride(shape)).full_tensor()
+        if stacked:
+            for t, f in zip(segs, full.unbind(0)):
+                t.copy_(f)
+        else:
+            segs[0].copy_(full)
     return params, state

@@ -7,15 +7,20 @@ degree absorbs node loss or gain, and gradient accumulation keeps the
 global batch.  ``plan_mesh`` is pure arithmetic: the simulator's
 membership driver
 (:func:`repro_torch.core.simulator.simulate_membership`) consumes it to
-price CommPlan re-agreement.  Building a device mesh from a plan and
-resharding onto it wait for the port's sharding layer (ROADMAP queue 1,
-item 9).
+price CommPlan re-agreement.  :func:`build_mesh` materialises a plan
+as a ``DeviceMesh`` over the first ranks of the world, and
+:func:`reshard` places a tree of tensors on a (possibly new) mesh as
+DTensors, the restore-time path of elastic scaling.  Both are
+collective calls: every rank of the world makes them, in the same
+order, members of the mesh or not.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional, Sequence
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -47,3 +52,97 @@ def plan_mesh(n_devices: int, model_parallel: int,
     return ElasticPlan(data=data, model=model_parallel,
                        dropped_devices=n_devices - used,
                        grad_accum_factor=accum)
+
+
+def build_mesh(plan: ElasticPlan, ranks: Optional[Sequence[int]] = None,
+               device="cuda"):
+    """Materialise the plan as a ``(data, model)`` mesh over the first
+    ``plan.n_devices`` of ``ranks`` (default: every rank of the world),
+    on ``device``'s type.  Every rank of the world calls it."""
+    import torch.distributed as dist
+    from ..launch.mesh import make_mesh
+    ranks = list(range(dist.get_world_size())) if ranks is None \
+        else list(ranks)
+    if plan.n_devices > len(ranks):
+        raise ValueError(
+            f"plan needs {plan.n_devices} devices "
+            f"(data={plan.data} x model={plan.model}) but only "
+            f"{len(ranks)} are available — re-plan with "
+            f"plan_mesh({len(ranks)}, {plan.model})")
+    return make_mesh((plan.data, plan.model), ("data", "model"), device,
+                     ranks=ranks[:plan.n_devices])
+
+
+def _is_leaf(x) -> bool:
+    """A tensor, an array or an explicit ``None`` hole."""
+    import torch
+    return x is None or isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _check_structure(tree, specs, path: str = "") -> None:
+    if _is_leaf(tree):
+        if not isinstance(specs, tuple):
+            raise ValueError(f"{path or 'the root'} is a leaf, its spec"
+                             f" {specs!r} is not a PartitionSpec")
+        return
+    if isinstance(tree, dict):
+        if not isinstance(specs, dict) or set(tree) != set(specs):
+            raise ValueError(
+                f"{path or 'the root'}: keys {sorted(tree)} against"
+                f" {sorted(specs) if isinstance(specs, dict) else specs!r}")
+        for k in tree:
+            _check_structure(tree[k], specs[k], f"{path}[{k!r}]")
+        return
+    if isinstance(tree, (list, tuple)):
+        if type(specs) is not type(tree) or len(specs) != len(tree):
+            raise ValueError(f"{path or 'the root'}: {len(tree)} entries"
+                             f" against {specs!r}")
+        for i, (t, s) in enumerate(zip(tree, specs)):
+            _check_structure(t, s, f"{path}[{i}]")
+        return
+    raise ValueError(f"{path or 'the root'}: {type(tree).__name__} is"
+                     f" neither a container nor an array")
+
+
+def reshard(tree: Any, specs: Any, mesh) -> Any:
+    """Place a tree onto a (possibly new) mesh — the restore-time path.
+
+    ``None`` leaves pass through untouched (optimizer slots absent from
+    a checkpoint); every other leaf (a tensor, a NumPy array or a
+    DTensor of another mesh, gathered first) becomes a DTensor on
+    ``mesh`` with the placements of its ``PartitionSpec``, each rank
+    keeping its block.  A split dim that does not divide evenly raises,
+    as ``jax.device_put`` does; a parameter/spec structure mismatch
+    raises a ``ValueError`` naming both structures.
+    """
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from ..launch.mesh import check_divisible, to_placements
+    try:
+        _check_structure(tree, specs)
+    except ValueError as e:
+        raise ValueError(
+            f"reshard: parameter tree and sharding-spec tree have "
+            f"mismatched structure — every array (or None) leaf of the "
+            f"parameters needs exactly one PartitionSpec ({e})") from e
+    dev = torch.device(mesh.device_type)
+
+    def put(x, spec):
+        if x is None:
+            return None
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        elif isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        check_divisible(x.shape, spec, mesh)
+        return distribute_tensor(x.detach().to(dev), mesh,
+                                 to_placements(spec, mesh, x.dim()),
+                                 src_data_rank=None)
+
+    def walk(t, s):
+        if _is_leaf(t):
+            return put(t, s)
+        if isinstance(t, dict):
+            return {k: walk(t[k], s[k]) for k in t}
+        return type(t)(walk(a, b) for a, b in zip(t, s))
+    return walk(tree, specs)

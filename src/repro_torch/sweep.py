@@ -46,9 +46,12 @@ restricts the set) the best wall time of three cold runs, the events a
 second (wire messages simulated a second of wall time) and the fabric
 kernel's launches, written to ``--bench-out`` when given.  The
 document names the device it was measured on (the card's
-``nvidia-smi`` name and power limit, or ``cpu``).  ``--bench-check``
-gates against a committed document of the same device (exit 2 if the
-devices differ): the per-spec speedups of each ``BENCH_PAIRS`` pair
+``nvidia-smi`` name and power limit, or ``cpu``) and the engines'
+precision mode (``"x64"``: ``repro_torch.compat.x64_enabled()``, as
+the reference records ``jax_enable_x64``; a document without the key
+predates the float32 mode and was measured in float64).
+``--bench-check`` gates against a committed document of the same device
+and mode (exit 2 if either differs): the per-spec speedups of each ``BENCH_PAIRS`` pair
 measured in both, and a >2x relative slowdown fails (exit 1).
 ``BENCH_SPEC_ENGINES`` restricts the 32768-rank XXL tier to the torch
 and cuda engines.
@@ -68,6 +71,7 @@ import sys
 import time
 from pathlib import Path
 
+from . import compat
 from .core import fabric_cuda, fabric_torch
 from .core import simulator as sim
 from .core.simulator import ENGINES
@@ -276,7 +280,8 @@ def run_bench_engine(specs, mode: str, engines=BENCH_ENGINES,
               f" ({speedup:.1f}x)  [{name}]")
     _cold()  # leave no half-measured state behind
     return {"version": BENCH_VERSION, "mode": mode, "device": name,
-            "entries": entries, "totals": totals}
+            "x64": compat.x64_enabled(), "entries": entries,
+            "totals": totals}
 
 
 def _speedup_by_spec(doc: dict, mode: str, num: str, den: str) -> dict:
@@ -302,13 +307,18 @@ def check_bench_regression(doc: dict, ref: dict) -> list:
     ratio) holds like against like; a pair is gated only where the fresh
     document measured both of its engines, and specs under
     ``BENCH_MIN_EVENTS`` events are exempt.  A host engine against a
-    card engine is not like against like across devices, so documents
-    of different devices raise ``ValueError``.
+    card engine is not like against like across devices, nor float32
+    against float64, so documents of different devices or precision
+    modes raise ``ValueError``.
     """
     if doc.get("device") != ref.get("device"):
         raise ValueError(f"throughput measured on {doc.get('device')!r},"
                          f" the committed document on"
                          f" {ref.get('device')!r}")
+    if doc.get("x64", True) != ref.get("x64", True):
+        raise ValueError(f"throughput measured with x64="
+                         f"{doc.get('x64', True)}, the committed document"
+                         f" with x64={ref.get('x64', True)}")
     violations = []
     for num, den in BENCH_PAIRS:
         for mode in ("smoke", "full"):
