@@ -194,8 +194,22 @@ phase prints one line and any failure exits non-zero without a result:
      seed and to phase 13's partitioned losses, and the decode cell of
      phase 19 (4 prompts of 1024 tokens, 32 steps through flash decode,
      bf16) with the cache placed by ``_cache_shardings``, its logits
-     bitwise equal to the replicated-cache path's.  Then the kernel
-     table as one JSON line, the float32 fabric kernel a row of its own.
+     bitwise equal to the replicated-cache path's;
+ 22. the tensor- and expert-parallel serving forward: (a) a (1, 1) mesh
+     over the one-rank ``nccl`` group, llama3.2-1b, granite-moe,
+     mamba2, minicpm3 and hymba at full width in bf16 (depth cut by
+     ``TP_LAYERS``), a 4 x 1024 prefill and 8 decode steps through the
+     TP code path with the blocks of ``convert.tp_shard_model``, logits
+     bitwise equal to the unsharded steps', flash launches a prefill =
+     GQA layers; (b) two ``gloo`` ranks in processes of their own
+     sharing the card (NCCL takes one rank a device), a (1, 2) mesh:
+     llama3.2-1b and granite-moe at ``cfg.with_tp(2)``, greedy, flash
+     decode off and on, every rank's logits within 5 bf16 ulps of the
+     unsharded path's (granite's reference on the ranks' MoE routes),
+     per-rank prefill and decode ms and their collectives' ms (gloo's,
+     staged through the host), and the flash kernel at the rank-local
+     shape against its plain version and SDPA.  Then the kernel table as
+     one JSON line, the float32 fabric kernel a row of its own.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -226,6 +240,11 @@ to hold two versions of the model code against each other in one call.
 
 does the same for phase 18: each family's layers, step ms, tokens/s,
 peak memory, idle share and pack/unpack device ms, and the depth cuts.
+
+    python3 chip_smoke.py --tp
+
+runs phase 22 alone (its kernels built first) and prints its numbers as
+one JSON line.
 
     python3 chip_smoke.py --trace-attribution [TREE]
 
@@ -3107,7 +3126,10 @@ def mesh_phase(dev, train_losses, small: bool = False) -> None:
     flash = fa.LAUNCHES["flash_attention"]
     check(not on_card or flash > 0, "the mesh decode cell launched no"
           " flash kernel in its prefill")
-    check(calls == [3 * cfg.n_layers] * gen,
+    # the flash decode's 3 a layer, and the tensor-parallel forward's on
+    # the one-rank model group: the mixer's and the FFN's a layer and the
+    # embedding's
+    check(calls == [3 * cfg.n_layers + 2 * cfg.n_layers + 1] * gen,
           f"mesh flash decode issued {calls} all-reduces")
     check(all(_same_bits(a, b) for a, b in zip(got, want)),
           "mesh-placed cache logits differ from the replicated cache's")
@@ -3117,6 +3139,529 @@ def mesh_phase(dev, train_losses, small: bool = False) -> None:
           f" all_reduce a step {calls[0]}; flash launches {flash}; decode"
           f" {ms_m:.3f} ms a token on the mesh, {ms_r:.3f} ms replicated"
           f" (host clock, one run)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the tensor- and expert-parallel serving forward
+# ---------------------------------------------------------------------------
+
+# 22a: the archs served on the TP code path over the one-rank group, in
+# the order they run (GQA, MoE, Mamba-2, MLA, the hybrid), and 22b's on
+# two gloo ranks of the one card.
+TP_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m", "mamba2-780m",
+            "minicpm3-4b", "hymba-1.5b")
+TP2_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m")
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 1024, 8
+# Depth cuts of the full-width configs, to keep phase 22 within its
+# minute (None: every layer).
+TP_LAYERS = {"minicpm3-4b": 16, "hymba-1.5b": 16, "granite-moe-3b-a800m": 16,
+             "mamba2-780m": 24}
+# 22b against the unsharded path: the rule of test_torch_families_bf16.py,
+# 5 bf16 ulps at the logit scale (the ulp of the largest |logit|).
+TP_BF16_ULPS = 5
+TP2_TIMEOUT_S = 240
+# 22b, MoE: the router logits of the TP run and of the unsharded one on
+# the same routes, in bf16 ulps of each token's largest |logit|.  The
+# two runs' hidden states differ by bf16 roundings only, so their
+# router logits by a few ulps; a wrong expert block or token order
+# moves them by the logits' whole scale (128 ulps and more).
+TP_ROUTER_ULPS = 64
+
+
+def _tp_config(arch: str, small: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+    if small:
+        return get_smoke_config(arch)
+    cfg = get_config(arch)
+    if TP_LAYERS.get(arch):
+        cfg = cfg.replace(n_layers=TP_LAYERS[arch])
+    return cfg
+
+
+def _gqa_layers(cfg) -> int:
+    return cfg.n_layers if cfg.mixer in ("attn", "hybrid") \
+        and cfg.mla is None else 0
+
+
+def _tp_serve(cfg, scfg, model, prompts, dev, *, feed=None, mesh=None,
+              timer=None, repeat: bool = True):
+    """A prefill of ``prompts`` and ``TP_GEN`` decode steps (fed
+    ``feed``, or greedy and recorded) through the serving steps, each
+    timed on the host clock (synchronised); with ``repeat`` timed again
+    on the same cache, the first pass untimed.  Returns (logits of
+    every step, fed tokens, flash launches of one prefill, prefill ms,
+    decode ms a token (median of the steps), the collective ms of the
+    timed prefill and of a timed decode step if ``timer``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    b, s = prompts.shape[:2]
+    cache = steps.make_cache(cfg, scfg, batch=b, max_len=s + TP_GEN,
+                             device=dev, mesh=mesh)
+    pre = steps.make_prefill_step(cfg, scfg, seq_len=s, batch=b, device=dev,
+                                  mesh=mesh)
+    dec = steps.make_decode_step(cfg, scfg, seq_len=s + TP_GEN, batch=b,
+                                 device=dev, mesh=mesh)
+    fed = [] if feed is None else feed
+    out, times, coll = [], [], {"prefill": None, "decode": None}
+
+    def timed(fn):
+        _sync(dev)
+        if timer is not None:
+            timer.clear()
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(dev)
+        times.append(((time.perf_counter() - t0) * 1e3,
+                      timer.total() if timer is not None else None))
+        return r
+    before = fa.LAUNCHES["flash_attention"]
+    logits, _ = timed(lambda: pre(model, prompts, cache))
+    flash = fa.LAUNCHES["flash_attention"] - before
+    out.append(logits)
+    for i in range(TP_GEN):
+        if feed is None:
+            fed.append(logits[:, :cfg.vocab].argmax(-1))
+        logits, _ = timed(lambda: dec(model, cache, fed[i], s + i))
+        out.append(logits)
+    if repeat:
+        times.clear()
+        timed(lambda: pre(model, prompts, cache))
+        for i in range(TP_GEN):
+            timed(lambda: dec(model, cache, fed[i], s + i))
+    pre_ms, coll["prefill"] = times[0]
+    steps_ = sorted(times[1:])
+    dec_ms, coll["decode"] = steps_[len(steps_) // 2]
+    return out, fed, flash, pre_ms, dec_ms, coll
+
+
+def _same_logits(a, b) -> bool:
+    return all(_same_bits(x, y) for x, y in zip(a, b))
+
+
+def tp_phase(dev, small: bool = False) -> dict:
+    """22a: the tensor- and expert-parallel code path over a (1, 1)
+    ``DeviceMesh`` on the one-rank group: each of :data:`TP_ARCHS` at
+    full width in bf16 (depth cut by :data:`TP_LAYERS`), a prefill of
+    4 x 1024 tokens and 8 decode steps through ``make_prefill_step`` /
+    ``make_decode_step(mesh=)`` with the model's blocks from
+    ``convert.tp_shard_model``, the logits bitwise equal to the
+    unsharded steps' and the flash kernel launched once a GQA layer in
+    each prefill.  Returns per arch the times and launches."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.compat import psum_
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.models import convert
+    card, on_card = _card_name(), dev.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    psum_(torch.ones(1, device=dev), axis_group(mesh, "model"))  # warm
+    scfg = steps.StepConfig()
+    batch, prompt = (2, 64) if small else (TP_BATCH, TP_PROMPT)
+    out = {}
+    for arch in TP_ARCHS:
+        cfg = _tp_config(arch, small)
+        model = serve.build_model(cfg, 0, dev, torch.bfloat16)
+        prompts = serve.make_prompts(cfg, batch, prompt, 3, dev)
+        want, fed, flash_u, pre_u, dec_u, _ = _tp_serve(
+            cfg, scfg, model, prompts, dev, repeat=False)
+        local = convert.tp_shard_model(model, cfg, mesh)
+        del model
+        got, _, flash, pre_ms, dec_ms, _ = _tp_serve(
+            cfg, scfg, local, prompts, dev, feed=fed, mesh=mesh,
+            repeat=False)
+        del local
+        if on_card:
+            torch.cuda.empty_cache()
+        check(_same_logits(got, want),
+              f"22a {arch}: TP logits on the one-rank group differ from the"
+              f" unsharded steps' (max |d| "
+              f"{max(float((a - b).abs().max()) for a, b in zip(got, want))})")
+        check(all(bool(torch.isfinite(g[:, :cfg.vocab]).all()) for g in got),
+              f"22a {arch}: non-finite logits")
+        check(not on_card or flash == _gqa_layers(cfg) == flash_u,
+              f"22a {arch}: {flash} flash launches in a TP prefill,"
+              f" {flash_u} unsharded, {_gqa_layers(cfg)} GQA layers")
+        out[arch] = {"layers": cfg.n_layers, "flash": flash,
+                     "prefill_ms": pre_ms, "decode_ms": dec_ms,
+                     "unsharded_prefill_ms": pre_u,
+                     "unsharded_decode_ms": dec_u}
+        print(f"[{card}] 22a {arch} ({cfg.n_layers} layers, bf16, {batch} x"
+              f" {prompt}): TP on a (1, 1) mesh, {TP_GEN} decode steps,"
+              f" logits bitwise equal to the unsharded steps'; flash"
+              f" launches a prefill {flash} ({_gqa_layers(cfg)} GQA"
+              f" layers); prefill {pre_ms:.3f} ms (unsharded"
+              f" {pre_u:.3f}), decode {dec_ms:.3f} ms a token (unsharded"
+              f" {dec_u:.3f}; host clock, one pass each, the unsharded"
+              f" first)")
+    return out
+
+
+class _CollectiveTimer:
+    """Host milliseconds inside the collectives of ``repro_torch.compat``
+    (each call synchronised on both sides), installed around
+    ``torch.distributed``'s all-reduce and the single-tensor gather and
+    reduce-scatter that ``compat`` calls."""
+
+    def __init__(self, dev):
+        import torch.distributed as dist
+        from repro_torch import compat
+        self.ms, self.dev = [], dev
+        self._orig = (dist.all_reduce, compat._GATHER, compat._SCATTER)
+
+        def wrap(fn):
+            def timed(*a, **kw):
+                _sync(dev)
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                _sync(dev)
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return r
+            return timed
+        dist.all_reduce = wrap(dist.all_reduce)
+        compat._GATHER = wrap(compat._GATHER)
+        compat._SCATTER = wrap(compat._SCATTER)
+
+    def clear(self):
+        self.ms.clear()
+
+    def total(self) -> float:
+        return sum(self.ms)
+
+    def close(self):
+        import torch.distributed as dist
+        from repro_torch import compat
+        dist.all_reduce, compat._GATHER, compat._SCATTER = self._orig
+
+
+class _RouteLog:
+    """The router logits and experts of every MoE router call
+    (``moe.router_top_k``): recorded, or, with ``forced`` (a recorded
+    log), replaced by the recorded experts, with the disagreement
+    between this run's router logits and the recorded ones measured in
+    bf16 ulps of each token's largest |logit|.  22b forces the unsharded
+    reference of an MoE arch onto the TP run's routes: bf16 sums of
+    partial outputs round apart from the unsharded products, the router
+    logits move by a few ulps, and a token whose k-th and (k+1)-th
+    experts lie closer than that routes either way
+    (``tests/test_torch_families_bf16.py``), which moves its output by a
+    whole expert's share."""
+
+    def __init__(self, forced=None):
+        from repro_torch.models import moe
+        self.calls, self.forced, self.i = [], forced, 0
+        self.differ, self.tokens, self.max_ulps = 0, 0, 0.0
+        self._orig = moe.router_top_k
+        moe.router_top_k = self._spy
+
+    def _spy(self, p, xc, mo):
+        import torch
+        vals, idx = self._orig(p, xc, mo)
+        logits = (xc @ p.router.to(xc.dtype)).float()[:, :mo.n_experts]
+        if self.forced is None:
+            self.calls.append((logits.cpu(), idx.cpu()))
+            return vals, idx
+        theirs, want = (t.to(idx.device) for t in self.forced[self.i])
+        self.i += 1
+        scale = logits.abs().amax(-1).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+        self.max_ulps = max(self.max_ulps, float(
+            ((logits - theirs).abs().amax(-1) / ulp).max()))
+        self.differ += int((idx.sort(-1).values != want.sort(-1).values)
+                           .any(-1).sum())
+        self.tokens += idx.shape[0]
+        return logits.gather(-1, want), want
+
+    def close(self):
+        from repro_torch.models import moe
+        moe.router_top_k = self._orig
+
+
+def tp_rank_main(rank: int, n: int, store: str, out_dir: str,
+                 device: str, small: bool) -> None:
+    """One of 22b's ranks: a (1, ``n``) mesh over a ``gloo`` group of
+    ``n`` processes sharing the one card, made at once; then, when
+    ``out_dir/go`` appears (the parent is done timing 22a), each arch of
+    :data:`TP2_ARCHS` at ``cfg.with_tp(n)`` built from the seed and cut
+    to this rank's blocks, a prefill and ``TP_GEN`` greedy decode steps
+    with ``flash_decode`` off, then the same tokens with it on, each
+    step timed with the collectives' share.  Writes ``rank<r>.json`` and
+    its logits, fed tokens and router log of each pass
+    (``logits<r>-<arch>-fd<0|1>.pt``, ``feed<r>-<arch>.pt``,
+    ``routes<r>-<arch>-fd<0|1>.pt``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import serve
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    out, report = Path(out_dir), {}
+    try:
+        mesh = make_mesh((1, n), ("data", "model"), dev)
+        timer = _CollectiveTimer(dev)
+        t0 = time.perf_counter()
+        while not (out / "go").exists():
+            if time.perf_counter() - t0 > TP2_TIMEOUT_S:
+                raise TimeoutError("22b: the parent never said go")
+            time.sleep(0.05)
+        for arch in TP2_ARCHS:
+            cfg = _tp_config(arch, small).with_tp(n)
+            full = serve.build_model(cfg, 0, dev, torch.bfloat16)
+            local = convert.tp_shard_model(full, cfg, mesh)
+            del full
+            b, s = (2, 64) if small else (TP_BATCH, TP_PROMPT)
+            prompts = serve.make_prompts(cfg, b, s, 3, dev)
+            rec, feed = {}, None
+            for fd in (False, True):
+                scfg = steps.StepConfig(flash_decode=fd)
+                routes = _RouteLog()
+                try:  # one pass each: flash decode off warms the process
+                    logits, feed, flash, pre_ms, dec_ms, coll = _tp_serve(
+                        cfg, scfg, local, prompts, dev, feed=feed,
+                        mesh=mesh, timer=timer, repeat=False)
+                finally:
+                    routes.close()
+                torch.save([x.cpu() for x in logits],
+                           out / f"logits{rank}-{arch}-fd{int(fd)}.pt")
+                if routes.calls:
+                    torch.save(routes.calls, out / f"routes{rank}-{arch}"
+                               f"-fd{int(fd)}.pt")
+                rec[f"fd{int(fd)}"] = {
+                    "flash": flash, "prefill_ms": pre_ms,
+                    "decode_ms": dec_ms,
+                    "prefill_collective_ms": coll["prefill"],
+                    "decode_collective_ms": coll["decode"]}
+            torch.save([t.cpu() for t in feed], out / f"feed{rank}-{arch}.pt")
+            report[arch] = rec
+            del local
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        timer.close()
+    finally:
+        (out / f"rank{rank}.json").write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def tp_ranks_start(dev, tmp: str, small: bool = False) -> list:
+    """Start 22b's two ranks (:func:`tp_rank_main`) in processes of
+    their own; they make their group and mesh, then wait for
+    ``tmp/go``."""
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+         str(r), "2", os.path.join(tmp, "store"), tmp, dev.type,
+         "small" if small else "full"],
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def tp_ranks_phase(dev, procs: list, tmp: str,
+                   small: bool = False) -> dict:
+    """22b: two ``gloo`` ranks in processes of their own on the one card
+    (NCCL refuses two ranks on one device; :func:`tp_ranks_start`
+    started them), a (1, 2) mesh.  Here: the flash kernel against its
+    plain version at the rank-local prefill shape of llama3.2-1b (16 q /
+    4 KV heads), timed against SDPA; then the ranks are let go and each
+    of :data:`TP2_ARCHS` at ``cfg.with_tp(2)`` is served unsharded here,
+    fed the ranks' greedy tokens (an MoE arch on rank 0's routes:
+    :class:`_RouteLog`), every rank's logits within 5 bf16 ulps at the
+    logit scale of the unsharded ones, with flash decode off and on.
+    Gloo stages CUDA tensors through the host: these are gloo's times,
+    not NCCL's."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    card, on_card = _card_name(), dev.type == "cuda"
+    n, out = len(procs), {}
+    b, s = (2, 64) if small else (TP_BATCH, TP_PROMPT)
+    try:
+        # the flash kernel at the TP-local prefill shape of llama3.2-1b
+        cfg = _tp_config("llama3.2-1b", small)
+        case = ("tp-local", b, cfg.n_heads // n, cfg.n_kv // n, s, s,
+                cfg.head_dim_, True, 0, None)
+        q, k, v = _flash_inputs(case, torch.bfloat16, dev)
+        before = fa.LAUNCHES["flash_attention_wgmma"]
+        got = ops.flash_attention(q, k, v, causal=True)
+        check(not on_card
+              or fa.LAUNCHES["flash_attention_wgmma"] == before + 1,
+              "22b: the flash kernel did not launch at the TP-local shape")
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        tol = FLASH_TOL["bfloat16"]
+        g32, w32 = got.float(), want.float()
+        err = float((g32 - w32).abs().max())
+        check(bool(((g32 - w32).abs() <= tol + tol * w32.abs()).all()),
+              f"22b: flash at {case[1:7]} max|diff| {err!r} beyond {tol}")
+        reps = 20 if on_card else 2
+        k_ms = _timed(lambda: ops.flash_attention(q, k, v, causal=True),
+                      dev, reps)
+        p_ms = _timed(lambda: fa.flash_attention_plain(q, k, v,
+                                                       causal=True),
+                      dev, max(2, reps // 4))
+        l_ms = _timed(_sdpa(q, k, v, case), dev, reps)
+        bound_ms, bound_by, _, _ = _flash_bound(case, 2)
+        out["flash_local"] = {"shape": list(case[1:7]), "max_abs_err": err,
+                              "ms": k_ms, "plain_ms": p_ms,
+                              "library_ms": l_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by}
+        print(f"[{card}] 22b flash kernel at the TP-local prefill shape (B,"
+              f" H, Hkv, Sq, Sk, D) = {case[1:7]} bf16 causal: within {tol}"
+              f" of its plain version (max_abs_err {err!r}); {k_ms:.4f} ms,"
+              f" plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound"
+              f" {bound_ms:.4f} ms ({bound_by})")
+        del q, k, v, got, want, g32, w32
+        if on_card:
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        (Path(tmp) / "go").write_text("")
+        logs = [p.communicate(timeout=TP2_TIMEOUT_S)[0] for p in procs]
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"22b: a rank failed:\n{log[-3000:]}")
+    reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+               for r in range(n)]
+    scfg = steps.StepConfig()
+    for arch in TP2_ARCHS:
+        cfg = _tp_config(arch, small).with_tp(n)
+        feed = [torch.load(Path(tmp) / f"feed{r}-{arch}.pt")
+                for r in range(n)]
+        check(all(torch.equal(a, c) for f in feed[1:]
+                  for a, c in zip(f, feed[0])),
+              f"22b {arch}: the ranks decoded different tokens")
+        fed = [t.to(dev) for t in feed[0]]
+        model = serve.build_model(cfg, 0, dev, torch.bfloat16)
+        prompts = serve.make_prompts(cfg, b, s, 3, dev)
+        refs, ties, pre_u, dec_u = {}, [], None, None
+        for fd in (0, 1):
+            routes = None
+            if cfg.moe is not None:  # the reference on rank 0's routes
+                routes = _RouteLog(torch.load(
+                    Path(tmp) / f"routes0-{arch}-fd{fd}.pt"))
+            try:
+                refs[fd], _, _, pre, dec, _ = _tp_serve(
+                    cfg, scfg, model, prompts, dev, feed=fed, repeat=False)
+            finally:
+                if routes is not None:
+                    routes.close()
+            if fd == 0:
+                pre_u, dec_u = pre, dec
+            if routes is None:
+                continue
+            check(routes.i == len(routes.forced),
+                  f"22b {arch}: {routes.i} router calls against the"
+                  f" ranks' {len(routes.forced)}")
+            check(routes.max_ulps <= TP_ROUTER_ULPS,
+                  f"22b {arch} flash_decode {fd}: the router logits"
+                  f" differ from the ranks' by {routes.max_ulps} bf16"
+                  f" ulps, beyond {TP_ROUTER_ULPS}")
+            ties.append((routes.differ, routes.tokens, routes.max_ulps))
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+        ulp = _bf16_ulp(max(float(x[:, :cfg.vocab].float().abs().max())
+                            for x in refs[0]))
+        errs = []
+        for r in range(n):
+            for fd in (0, 1):
+                got = torch.load(Path(tmp) / f"logits{r}-{arch}-fd{fd}.pt")
+                d = max(float((g[:, :cfg.vocab].float()
+                               - w[:, :cfg.vocab].float().cpu())
+                              .abs().max()) for g, w in zip(got, refs[fd]))
+                errs.append(d)
+                check(d <= TP_BF16_ULPS * ulp,
+                      f"22b {arch} rank {r} flash_decode {fd}: max|d"
+                      f" logit| {d!r} beyond {TP_BF16_ULPS} bf16 ulps"
+                      f" ({ulp!r}) of the unsharded path")
+                check(not on_card or reports[r][arch][f"fd{fd}"]["flash"]
+                      == _gqa_layers(cfg),
+                      f"22b {arch} rank {r}: flash launches"
+                      f" {reports[r][arch][f'fd{fd}']['flash']}")
+        out[arch] = {"unsharded_prefill_ms": pre_u,
+                     "unsharded_decode_ms": dec_u,
+                     "ranks": [rep[arch] for rep in reports],
+                     "max_abs_err": max(errs), "routes": ties}
+        for r, rep in enumerate(reports):
+            for fd in (0, 1):
+                x = rep[arch][f"fd{fd}"]
+                print(f"[{card}] 22b {arch} ({cfg.n_layers} layers, bf16,"
+                      f" {b} x {s}) rank {r} of a (1, 2) gloo mesh,"
+                      f" flash_decode {fd}: prefill {x['prefill_ms']:.3f}"
+                      f" ms ({x['prefill_collective_ms']:.3f} ms in"
+                      f" collectives), decode {x['decode_ms']:.3f} ms a"
+                      f" token ({x['decode_collective_ms']:.3f} ms in"
+                      f" collectives); flash launches a prefill"
+                      f" {x['flash']}")
+        forced = (f"; the unsharded reference on rank 0's routes"
+                  f" (flash_decode off, on: tokens routed otherwise, tokens"
+                  f" routed, largest router-logit disagreement in bf16"
+                  f" ulps {ties})" if ties else "")
+        print(f"[{card}] 22b {arch}: every rank's logits within"
+              f" {TP_BF16_ULPS} bf16 ulps of the unsharded path's (max |d|"
+              f" {max(errs)!r}, ulp {ulp!r}){forced}; unsharded prefill"
+              f" {pre_u:.3f} ms, decode {dec_u:.3f} ms a token (one"
+              f" pass)")
+    out["ranks_wall_s"] = wall
+    return out
+
+
+def tp_times(tree: Path) -> dict:
+    """Phase 22 alone: 22b's ranks started, 22a over a one-rank
+    ``nccl`` group, then 22b, with the card's name and power limit."""
+    import torch
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _card_name()
+    t0 = time.perf_counter()
+    build.build()
+    built = time.perf_counter() - t0
+    a, b, walls = tp_phases(torch.device("cuda"))
+    return {"tree": str(tree), "card": smi, "build_s": built,
+            "22a": a, "22b": b, "walls_s": walls}
+
+
+def tp_phases(dev, small: bool = False):
+    """Phase 22: 22b's ranks started first (their start-up overlaps
+    22a), 22a over a one-rank group (``nccl`` on the card), then 22b.
+    Returns both phases' results and their walls."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = tp_ranks_start(dev, tmp, small)
+        try:
+            with tempfile.TemporaryDirectory() as tmp1:
+                dist.init_process_group(
+                    "nccl" if dev.type == "cuda" else "gloo", rank=0,
+                    world_size=1,
+                    store=dist.FileStore(os.path.join(tmp1, "store"), 1))
+                try:
+                    a = tp_phase(dev, small)
+                finally:
+                    dist.destroy_process_group()
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        wall_a = time.perf_counter() - t0
+        print(f"[{_card_name()}] phase 22a wall {wall_a:.3f} s")
+        t0 = time.perf_counter()
+        b = tp_ranks_phase(dev, procs, tmp, small)
+        wall_b = time.perf_counter() - t0
+        print(f"[{_card_name()}] phase 22b wall {wall_b:.3f} s")
+    return a, b, {"22a": wall_a, "22b": wall_b}
 
 
 def run(device_name: str = "cuda", small: bool = False) -> dict:
@@ -3415,6 +3960,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
         finally:
             dist.destroy_process_group()
     print(f"[{_card_name()}] phase 21b wall {time.perf_counter() - t0:.3f} s")
+
+    # 22. the tensor- and expert-parallel serving forward -----------------
+    tp_phases(dev, small)
     return {"kernels": [fabric, fabric_f32, *flash, *train_kernels]}
 
 
@@ -3627,6 +4175,11 @@ def _card_ready() -> bool:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--tp-rank"] and len(argv) == 7:  # one of 22b's ranks
+        sys.path.insert(0, str(ROOT / "src"))
+        tp_rank_main(int(argv[1]), int(argv[2]), argv[3], argv[4], argv[5],
+                     argv[6] == "small")
+        return 0
     if not _card_ready():
         return 1
     import torch
@@ -3634,7 +4187,7 @@ def main(argv=None) -> int:
     times = {"--fabric-times": fabric_times, "--quant8-times": quant8_times,
              "--families": families_times,
              "--train-families": train_families_times,
-             "--trace-attribution": trace_attribution}
+             "--trace-attribution": trace_attribution, "--tp": tp_times}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

@@ -13,12 +13,14 @@ destination and a receive from its source under ``perm``;
 compute while the block is in flight.  Peers are group ranks, mapped to
 global ranks when the group is not the default one.  On a group of one
 rank nothing is sent (NCCL has no send to self; the JAX loops run zero
-hops there).  ``pmax_`` and ``psum_`` are ``all_reduce`` in place.
+hops there).  ``pmax_`` and ``psum_`` are ``all_reduce`` in place (on a
+group of one rank they count the call and send nothing).
 
 ``CALLS`` counts the collectives issued through this module
-(``all_reduce`` and ``ppermute``, a posted permutation counting once),
-as the kernel wrappers count their launches, and the bytes this rank
-contributes to its all-reduces (``all_reduce_bytes``).
+(``all_reduce``, ``ppermute``, a posted permutation counting once, and
+the tensor-parallel forward's ``all_gather`` and ``reduce_scatter``
+along one dim), as the kernel wrappers count their launches, and the
+bytes this rank contributes to its all-reduces (``all_reduce_bytes``).
 
 This module also owns the precision switch of the torch and cuda fabric
 engines, the counterpart of the JAX package's ``x64_enabled`` /
@@ -42,7 +44,8 @@ import torch
 import torch.distributed as dist
 
 CALLS: Dict[str, int] = {"all_reduce": 0, "ppermute": 0,
-                         "all_reduce_bytes": 0}
+                         "all_reduce_bytes": 0, "all_gather": 0,
+                         "reduce_scatter": 0}
 
 _X64 = [True]
 
@@ -131,9 +134,12 @@ def ppermute(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]],
 
 
 def _all_reduce_(x: torch.Tensor, op, group) -> torch.Tensor:
+    """All-reduce in place, counted; a group of one rank sends nothing
+    (its sum is its own value)."""
     CALLS["all_reduce"] += 1
     CALLS["all_reduce_bytes"] += x.numel() * x.element_size()
-    dist.all_reduce(x, op=op, group=group)
+    if axis_size(group) > 1:
+        dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -145,3 +151,44 @@ def pmax_(x: torch.Tensor, group: Optional[object] = None) -> torch.Tensor:
 def psum_(x: torch.Tensor, group: Optional[object] = None) -> torch.Tensor:
     """``jax.lax.psum`` over ``group``, in place on ``x``."""
     return _all_reduce_(x, dist.ReduceOp.SUM, group)
+
+
+# The single-tensor collectives under their newer names where torch has
+# them (the older ones warn there), else the older ones.
+_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def all_gather_(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)`` over
+    ``group``: every rank's block of equal shape, concatenated along
+    ``dim`` in rank order."""
+    n = axis_size(group)
+    CALLS["all_gather"] += 1
+    if n == 1:
+        return x
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _GATHER(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim,
+    tiled=True)`` over ``group``: the sum over ranks, of which this rank
+    keeps its block along ``dim`` (the rank-th of equal blocks)."""
+    n = axis_size(group)
+    CALLS["reduce_scatter"] += 1
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter_: dim {dim} of {tuple(x.shape)}"
+                         f" does not split over {n} ranks")
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _SCATTER(out, x, group=group)
+    return out.movedim(0, dim)

@@ -242,18 +242,35 @@ def check_divisible(shape: Sequence[int], spec: Sequence,
                 f" is not divisible by {n}")
 
 
-def local_slices(shape: Sequence[int], spec: Sequence,
-                 mesh) -> Tuple[slice, ...]:
+def block(n: int, count: int, index: int, unit: int = 1) -> slice:
+    """Block ``index`` of ``count`` of a dim of ``n`` elements in units
+    of ``unit`` (a Mamba head's channels): ``torch.chunk``'s rule on the
+    n / unit units, ceil(units / count) a block, the last blocks shorter
+    (or empty); equal blocks where ``count`` divides the units."""
+    if n % unit:
+        raise ValueError(f"block: {n} is not a multiple of the unit {unit}")
+    units = n // unit
+    c = -(-units // count)
+    lo = min(units, index * c)
+    return slice(lo * unit, min(units, lo + c) * unit)
+
+
+def local_slices(shape: Sequence[int], spec: Sequence, mesh,
+                 units: Optional[Dict[int, int]] = None
+                 ) -> Tuple[slice, ...]:
     """This rank's block of a ``shape`` array under ``spec`` (the
-    slices of its DTensor local shard), the split dims checked."""
-    check_divisible(shape, spec, mesh)
+    slices of its DTensor local shard), the split dims checked.  With
+    ``units`` (dim -> unit; dims not named have unit 1) a split dim need
+    not divide: each takes :func:`block`'s rule, as the tensor-parallel
+    parameters do (``lm.param_blocks``)."""
+    if units is None:
+        check_divisible(shape, spec, mesh)
     out = [slice(0, s) for s in shape]
     for d, entry in enumerate(tuple(spec)):
         if entry is None:
             continue
-        n = size(mesh, entry)
-        i, c = axis_index(mesh, entry), shape[d] // n
-        out[d] = slice(i * c, (i + 1) * c)
+        out[d] = block(shape[d], size(mesh, entry), axis_index(mesh, entry),
+                       (units or {}).get(d, 1))
     return tuple(out)
 
 

@@ -18,15 +18,23 @@ data index's rows of the global batch, and the AdamW moments are ZeRO-1
 (``optim.adamw.zero1_update``); the decode cache is placed by
 :func:`_cache_shardings` (batch over the data axes and sequence over
 ``model``, or every axis given to the sequence when the batch does not
-split), so with ``flash_decode`` each rank holds only its sequence
-slice.  Parameters stay replicated: a mesh whose ``model`` axis is
-larger than 1 needs the tensor-parallel forward, not ported yet (ROADMAP
-queue 1, item 9), and the steps refuse it.  ``group=`` (the replicated
-cache of a plain process group) stays.
+split; the Mamba state's heads and ``conv_x``'s channels over
+``model``), so each rank holds only its block.  The serving steps run
+the tensor- and expert-parallel forward (``models.tp``) over the
+``model`` axis, at ``cfg.with_tp(M)`` as the JAX package's: each rank
+passes its block of every parameter leaf (``lm.param_blocks``;
+``models.convert.tp_params_from_jax`` or ``tp_shard_model`` make it),
+and with ``StepConfig.seq_parallel`` a prefill whose length splits over
+the M ranks keeps its residual stream split along the sequence.  The
+train step refuses a ``model`` axis larger than 1 (its backward
+collectives are ROADMAP queue 1, item 9b-train).  ``group=`` (the
+replicated cache of a plain process group) stays.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -38,6 +46,7 @@ from ..core.earlybird import SyncConfig, value_and_synced_grad
 from ..core.fabric_torch import resolve_device
 from ..core.flash_decode import flash_decode_shard
 from ..models import convert, lm
+from ..models import tp as tpc
 from ..optim.adamw import (AdamWConfig, adamw_update, init_opt_state,
                            init_zero1_state, opt_state_specs, zero1_update)
 from ..optim.schedule import warmup_cosine
@@ -59,6 +68,25 @@ class StepConfig:
     cache_dtype: str = "bfloat16"
     ce_gather_targets: bool = False  # True = take the targets by a gather
     flash_decode: bool = False       # partitioned-KV decode attention
+    seq_parallel: bool = True        # sequence-parallel residual stream
+    moe_chunk: int = 0               # override MoE dispatch chunk (0=default)
+    capacity_factor: float = 0.0     # override MoE capacity factor (0=default)
+
+
+def _apply_overrides(cfg: lm.ModelConfig, scfg: StepConfig
+                     ) -> lm.ModelConfig:
+    """``cfg`` with the step's MoE overrides (``moe_chunk``,
+    ``capacity_factor``) where they are set, as the JAX package's train
+    and prefill steps apply them (its decode step does not)."""
+    if cfg.moe is not None and (scfg.moe_chunk or scfg.capacity_factor):
+        moe = cfg.moe
+        if scfg.moe_chunk:
+            moe = dataclasses.replace(moe, dispatch_chunk=scfg.moe_chunk)
+        if scfg.capacity_factor:
+            moe = dataclasses.replace(moe,
+                                      capacity_factor=scfg.capacity_factor)
+        cfg = cfg.replace(moe=moe)
+    return cfg
 
 
 def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
@@ -80,17 +108,22 @@ def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
 
 
 def _require_data_parallel(what: str, mesh) -> None:
-    """Refuse what the mesh path cannot run yet: a ``model`` axis larger
-    than 1 (the tensor-parallel forward), or this rank outside the
-    mesh."""
-    if not _mesh.in_mesh(mesh):
-        raise ValueError(f"{what}: this rank is not in the mesh {mesh}")
+    """Refuse what the training path cannot run yet: a ``model`` axis
+    larger than 1 (the tensor-parallel backward), or this rank outside
+    the mesh."""
+    _require_member(what, mesh)
     tp = _mesh.model_size(mesh)
     if tp > 1:
         raise NotImplementedError(
             f"{what}: a mesh whose model axis has {tp} ranks needs the"
-            f" tensor-parallel forward, not ported yet (ROADMAP queue 1,"
-            f" item 9)")
+            f" tensor-parallel training step (its backward collectives, a"
+            f" vocab-parallel cross entropy, ZeRO-1 over TP-local leaves),"
+            f" not ported yet (ROADMAP queue 1, item 9b-train)")
+
+
+def _require_member(what: str, mesh) -> None:
+    if not _mesh.in_mesh(mesh):
+        raise ValueError(f"{what}: this rank is not in the mesh {mesh}")
 
 
 def param_shardings(cfg: lm.ModelConfig, mesh) -> Dict[str, Any]:
@@ -179,7 +212,7 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
     host_count=dp_size(mesh))`` gives them), the sync runs over the data
     axes and the state's moments are ZeRO-1 (``build_state(...,
     mesh=mesh)``, :func:`opt_specs`)."""
-    cfg = cfg.replace(param_dtype=scfg.param_dtype)
+    cfg = _apply_overrides(cfg.replace(param_dtype=scfg.param_dtype), scfg)
     dev = resolve_device(device)
     ospecs = None
     if mesh is not None:
@@ -274,27 +307,32 @@ def _check_cache(cache, scfg: StepConfig, batch: int, need: int) -> None:
                 f" {scfg.cache_dtype}")
 
 
+def _seq_len(cache) -> int:
+    """The positions a cache holds (0 for Mamba's, which holds none)."""
+    return next((cache[k].shape[2] for k in _SEQ_CACHES if k in cache), 0)
+
+
 class _CacheLayout:
     """Where a serving step on a mesh works: this rank's batch rows
-    (None: all of them), its slice of the cache's sequence and the
-    group over the sequence axes (the flash decode's)."""
+    (None: all of them), its slice of the cache's sequence, the group
+    over the sequence axes (the flash decode's, and the one a
+    sequence-split cache is gathered over), the tensor-parallel context
+    over ``model`` and this rank's parameter blocks."""
 
     def __init__(self, what: str, cfg: lm.ModelConfig, scfg: StepConfig,
                  mesh, batch: int):
-        _require_data_parallel(what, mesh)
-        if cfg.mixer != "attn" or cfg.mla is not None:
+        _require_member(what, mesh)
+        m = _mesh.model_size(mesh)
+        if cfg.mamba is not None and cfg.mamba.n_heads(cfg.d_model) % m:
             raise NotImplementedError(
-                f"{what}: {cfg.name} keeps an MLA latent or a Mamba state"
-                f" in its cache; a sharded cache covers GQA attention"
-                f" only: the rest needs the tensor-parallel layout, not"
-                f" ported yet (ROADMAP queue 1, item 9)")
+                f"{what}: {cfg.name}'s {cfg.mamba.n_heads(cfg.d_model)}"
+                f" Mamba heads do not split evenly over {m} model ranks;"
+                f" the cache's state and conv_x tail split over 'model'"
+                f" (lm.cache_specs) as DTensors, whose blocks are equal,"
+                f" and a block of conv_x's channels would cut a head")
         self.what, self.mesh, self.batch = what, mesh, batch
         self.b_ax, s_ax = _cache_axes(mesh, batch)
         self.n_seq = _mesh.size(mesh, s_ax)
-        if self.n_seq > 1 and not scfg.flash_decode:
-            raise ValueError(
-                f"{what}: the cache's sequence splits over {self.n_seq}"
-                f" ranks, which only StepConfig(flash_decode=True) decodes")
         self.seq_index = _mesh.axis_index(mesh, s_ax)
         self.group = _mesh.axis_group(mesh, s_ax)
         self.rows = None
@@ -303,6 +341,29 @@ class _CacheLayout:
             i = _mesh.axis_index(mesh, self.b_ax)
             self.rows = slice(i * (batch // n), (i + 1) * (batch // n))
         self.shardings = _cache_shardings(cfg, mesh, batch)
+        self.tp = tpc.from_mesh(
+            mesh, scfg.seq_parallel,
+            self.b_ax if self.rows is not None
+            and _mesh.dp_size(mesh) > 1 else None)
+        self.param_shapes = lm.local_shapes(cfg, lm.param_blocks(cfg, mesh))
+        self._checked = None
+
+    def check_params(self, params: lm.LM) -> None:
+        """Raise ``ValueError`` unless ``params`` holds this rank's block
+        of every leaf (``lm.param_blocks``); a model is checked once."""
+        if self._checked is not None and self._checked() is params:
+            return
+        got = {k: tuple(p.shape) for k, p in params.named_parameters()}
+        if set(got) != set(self.param_shapes):
+            raise ValueError(f"{self.what}: the model's parameters are not"
+                             f" the config's")
+        for k, shape in self.param_shapes.items():
+            if got[k] != shape:
+                raise ValueError(
+                    f"{self.what}: parameter {k} is {got[k]}, this rank's"
+                    f" block on the mesh is {shape} (lm.param_blocks;"
+                    f" models.convert.tp_shard_model makes the blocks)")
+        self._checked = weakref.ref(params)
 
     def seq_slice(self, cache_len: int) -> Tuple[int, Optional[int]]:
         """(positions a rank holds, the first of this rank's or None when
@@ -367,15 +428,21 @@ def make_prefill_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
     dict: ``tokens`` (batch, seq_len), or ``embeds`` (batch, seq_len, d)
     for the audio stub; optionally ``patch_embeds`` and ``positions``.
     A tensor is taken as the model input (:func:`lm.input_batch`).
+    The MoE overrides of ``scfg`` apply (:func:`_apply_overrides`).
 
-    On a ``mesh`` the cache is ``make_cache(..., mesh=mesh)``'s (placed
-    by :func:`_cache_shardings`); every rank passes the whole batch and
-    the same parameters, runs its batch rows and writes its block of
-    the cache, and every rank gets all the logits."""
-    cfg = cfg.replace(param_dtype=scfg.param_dtype)
+    On a ``mesh`` the model is ``cfg.with_tp(M)`` over its ``model``
+    axis of M ranks, ``params`` this rank's blocks of it
+    (``lm.param_blocks``) and the cache ``make_cache(..., mesh=mesh)``'s
+    (placed by :func:`_cache_shardings`); every rank passes the whole
+    batch, runs its batch rows tensor parallel (sequence parallel with
+    ``scfg.seq_parallel`` where ``seq_len`` splits over M) and writes its
+    block of the cache, and every rank gets all the logits."""
+    cfg = _apply_overrides(cfg.replace(param_dtype=scfg.param_dtype), scfg)
     dev = resolve_device(device)
-    lay = None if mesh is None else \
-        _CacheLayout("prefill_step", cfg, scfg, mesh, batch)
+    lay = None
+    if mesh is not None:
+        cfg = cfg.with_tp(_mesh.model_size(mesh))
+        lay = _CacheLayout("prefill_step", cfg, scfg, mesh, batch)
 
     def prefill_step(params: lm.LM, b, cache) -> Tuple[torch.Tensor, Dict]:
         if isinstance(b, torch.Tensor):
@@ -384,14 +451,16 @@ def make_prefill_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
         if lay is None:
             _check_cache(cache, scfg, batch, seq_len)
             return lm.prefill(cfg, params, b, cache=cache)
+        lay.check_params(params)
         local = lay.local_cache(cache)
-        s_local, offset = lay.seq_slice(cache["k"].shape[2])
-        if s_local * lay.n_seq < seq_len:
+        s_local, offset = lay.seq_slice(_seq_len(cache))
+        if _seq_len(cache) and s_local * lay.n_seq < seq_len:
             raise ValueError(f"prefill_step: a cache of {s_local * lay.n_seq}"
                              f" positions does not hold {seq_len}")
         _check_cache(local, scfg, lay.n_rows, s_local)
         logits, _ = lm.prefill(cfg, params, lay.local_batch(b), cache=local,
-                               cache_offset=offset)
+                               cache_offset=offset, cache_group=lay.group,
+                               tp=lay.tp)
         return lay.gather_rows(logits), cache
 
     return prefill_step
@@ -432,18 +501,22 @@ def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
     through the partitioned-KV flash decode over the process group
     ``group`` (None: the default group, which must be initialised; every
     rank calls the step with the same inputs); ``seq_len`` must split
-    evenly over its ranks.
+    evenly over its ranks.  As the JAX package's decode step, this one
+    takes no MoE overrides.
 
-    On a ``mesh`` (``group`` then unused) the cache is placed as
-    :func:`make_prefill_step` takes it: each rank decodes its batch
-    rows, writes the new K/V only where ``pos`` falls in its sequence
-    slice, and with ``flash_decode`` attends to that slice alone, the
-    partitions combined over the sequence axes."""
+    On a ``mesh`` (``group`` then unused) the model and the cache are
+    as :func:`make_prefill_step` takes them: each rank decodes its batch
+    rows tensor parallel, writes the new K/V (or MLA latent) only where
+    ``pos`` falls in its sequence slice, and with ``flash_decode``
+    attends to that slice alone with q's heads gathered over ``model``,
+    the partitions combined over the sequence axes; without, each
+    attention layer first gathers the whole cache over them."""
     cfg = cfg.replace(param_dtype=scfg.param_dtype)
     dev = resolve_device(device)
     key = lm.input_key(cfg)
     decode_attn, lay = None, None
     if mesh is not None:
+        cfg = cfg.with_tp(_mesh.model_size(mesh))
         lay = _CacheLayout("decode_step", cfg, scfg, mesh, batch)
         s_local, offset = lay.seq_slice(seq_len)
         if scfg.flash_decode:
@@ -472,12 +545,14 @@ def make_decode_step(cfg: lm.ModelConfig, scfg: StepConfig, *,
             _check_cache(cache, scfg, batch, seq_len)
             return lm.decode_step(cfg, params, cache, tokens, pos,
                                   embeds=embeds, decode_attn=decode_attn)
+        lay.check_params(params)
         local = lay.local_cache(cache)
         tokens, embeds = lay.local_rows(tokens), lay.local_rows(embeds)
         _check_cache(local, scfg, lay.n_rows, s_local)
         logits, _ = lm.decode_step(cfg, params, local, tokens, pos,
                                    embeds=embeds, decode_attn=decode_attn,
-                                   cache_offset=offset)
+                                   cache_offset=offset,
+                                   cache_group=lay.group, tp=lay.tp)
         return lay.gather_rows(logits), cache
 
     return decode_step

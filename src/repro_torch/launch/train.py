@@ -20,8 +20,10 @@ shardings).  Under ``torchrun`` the process group comes from the
 environment; otherwise a one-rank group is started through a
 ``FileStore`` in a temporary directory (``nccl`` on the card, ``gloo``
 on the CPU), so the gradient all-reduce is always issued.  Tensor
-parallelism (``--tp`` > 1) needs the tensor-parallel forward, not
-ported yet (ROADMAP queue 1, item 9).  Every architecture
+parallelism (``--tp`` > 1) needs the tensor-parallel training step
+(the backward of ``models.tp``'s collectives, a vocab-parallel cross
+entropy, ZeRO-1 over the blocks), not ported yet (ROADMAP queue 1, item
+9b-train; the serving steps run tensor parallel).  Every architecture
 trains but qwen2-vl-7b, which is refused (exit 2) as the JAX package's
 training CLI fails on it: the synthetic stream makes no M-RoPE
 ``positions``, which its train step needs (``make_train_step`` trains
@@ -103,9 +105,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.tp != 1:
-        print("--tp > 1 needs the tensor-parallel forward (train, prefill"
-              " and decode split over the model axis), not ported yet"
-              " (ROADMAP queue 1, item 9)", file=sys.stderr)
+        print("--tp > 1 needs the tensor-parallel training step (its"
+              " backward collectives, a vocab-parallel cross entropy, ZeRO-1"
+              " over the blocks), not ported yet (ROADMAP queue 1, item"
+              " 9b-train)", file=sys.stderr)
         return 2
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

@@ -18,12 +18,14 @@ Parameters keep the JAX shapes and names: ``wq`` is
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..compat import all_gather_
 from ..kernels import ops
+from .tp import gather_heads
 from .layers import apply_rope, dense_init, rms_norm, softcap
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable
@@ -139,6 +141,24 @@ def init_attention(p: Attention, gen: torch.Generator, *, n_heads: int
     return p
 
 
+def kv_window(head_map: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """(lo, hi) when a run of q heads uses the KV heads [lo, hi)
+    uniformly -- q head i of the run on KV head lo + i // (its length /
+    (hi - lo)) -- else None.  The whole head map of a model whose head
+    count its KV heads divide gives (0, n_kv); a tensor-parallel rank's
+    run (``attention_fwd``'s ``tp``) can be uniform over a subset where
+    the whole map, padded, is not (llama3.2-1b's smoke config at M = 3:
+    (0, 0, 1, 1, 0, 0) over all six heads, (1, 1) on rank 1)."""
+    lo, hi = min(head_map), max(head_map) + 1
+    n = len(head_map)
+    if n % (hi - lo):
+        return None
+    g = n // (hi - lo)
+    if any(m != lo + i // g for i, m in enumerate(head_map)):
+        return None
+    return lo, hi
+
+
 def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                   head_map: Tuple[int, ...], window: int = 0,
                   attn_softcap: Optional[float] = None,
@@ -148,8 +168,8 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
                   cache: Optional[Dict[str, torch.Tensor]] = None,
                   cache_pos: Optional[int] = None, q_chunk: int = 512,
                   flash: bool = True, decode_attn=None,
-                  cache_offset: Optional[int] = None
-                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  cache_offset: Optional[int] = None, cache_group=None,
+                  tp=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.
 
     x: (B, S, D).  positions: (S,) or (B, S), or (3, S) or (3, B, S)
@@ -158,24 +178,37 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     ``cache_pos``; keys are read back from the cache in its dtype.
 
     A prefill -- a cache written from position 0 with more than one new
-    token, 1-D (temporal) positions and the uniform head map -- runs its
-    self-attention over the new tokens through the flash-attention
-    kernel (``flash=False`` takes ``masked_attention`` instead, the
-    oracle of that choice).  A decode step -- one new token into a
-    cache under the uniform head map -- goes through ``decode_attn(q
-    (B, H, D), k, v (B, S, Kv, D), *, pos, window, attn_softcap, scale)
-    -> (B, H, D)`` when one is given (the partitioned-KV flash decode of
+    token, 1-D (temporal) positions and q heads that use their KV heads
+    uniformly (:func:`kv_window`) -- runs its self-attention over the
+    new tokens through the flash-attention kernel, given those KV heads
+    (``flash=False`` takes ``masked_attention`` instead, the oracle of
+    that choice).  A decode step -- one new token into a cache under the
+    uniform head map -- goes through ``decode_attn(q (B, H, D), k, v (B,
+    S, Kv, D), *, pos, window, attn_softcap, scale) -> (B, H, D)`` when
+    one is given (the partitioned-KV flash decode of
     ``launch.steps.make_decode_step``); every other shape uses
-    ``masked_attention``.
+    ``masked_attention``, the KV heads expanded by the head map where it
+    is not uniform.
 
     ``cache_offset`` marks a cache split along the sequence (the
     sequence-sharded cache of ``launch.steps``): the tensors hold only
-    positions [cache_offset, cache_offset + their length).  The new
-    tokens are written where they fall in that slice; a prefill attends
-    over the new tokens as the cache would hold them (in its dtype), and
-    a decode step attends through ``decode_attn`` to the local slice
-    (the partitioned flash decode).  Every other path needs the whole
-    cache and raises.
+    positions [cache_offset, cache_offset + their length), and
+    ``cache_group`` is the process group over that split.  The new
+    tokens are written where they fall in that slice; a prefill from
+    position 0 with 1-D positions attends over the new tokens as the
+    cache would hold them (in its dtype), a decode step through
+    ``decode_attn`` attends to the local slice (the partitioned flash
+    decode; the KV heads expanded by the head map where it is not
+    uniform), and every other path first gathers the whole cache over
+    ``cache_group``, as GSPMD does in the JAX package.
+
+    ``tp`` (``models.tp.TP``): this rank holds the q heads [r H/M, (r+1)
+    H/M) of ``wq``/``bq`` and the same rows of ``wo``, and all the KV
+    heads; the output is this rank's partial sum, which the caller
+    reduces.  A decode step through ``decode_attn`` first gathers q's
+    heads over the group, so every rank attends all heads over its
+    cache slice (the hook's q is replicated over the sequence axes, as
+    the JAX package's), then keeps its own heads for ``wo``.
     """
     head_dim = p.wq.shape[-1]
     scale = q_scale if q_scale is not None else head_dim ** -0.5
@@ -190,7 +223,12 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     k = apply_rope(k, positions, rope_theta, mrope_sections)
     tpos = positions if mrope_sections is None else positions[0]
 
-    sq = q.shape[1]
+    sq, n_kv, h_local = q.shape[1], k.shape[2], q.shape[2]
+    h0 = 0 if tp is None else tp.rank * h_local
+    win = kv_window(head_map[h0:h0 + h_local])
+    whole = kv_window(head_map) == (0, n_kv)
+    hook = (decode_attn is not None and cache is not None and sq == 1
+            and (whole or tp is not None or cache_offset is not None))
     if cache is not None:
         if cache_pos is None:
             raise ValueError("attention_fwd: a cache needs cache_pos")
@@ -199,46 +237,43 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
             cache["v"][:, cache_pos:cache_pos + sq] = v
             k, v = cache["k"], cache["v"]
         else:
-            k, v = _write_slice(cache, k, v, cache_pos, cache_offset)
+            _write_slice(cache, {"k": k, "v": v}, cache_pos, cache_offset)
+            if sq > 1 and cache_pos == 0 and tpos.dim() == 1:
+                k, v = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
+            elif hook:
+                k, v = cache["k"], cache["v"]
+            else:
+                k, v = (gather_cache(cache[n], cache_group)
+                        for n in ("k", "v"))
         q_pos = tpos if tpos.dim() >= 1 else tpos[None]
     else:
         q_pos = torch.arange(sq, device=x.device)
     k_pos = torch.arange(k.shape[1], device=x.device)
 
-    n_kv = k.shape[2]
-    h_padded = q.shape[2]
-    uniform = (h_padded % n_kv == 0 and
-               tuple(head_map) == tuple(i // (h_padded // n_kv)
-                                        for i in range(h_padded)))
-    if cache_offset is not None and not (
-            uniform and ((sq == 1 and decode_attn is not None) or (
-                flash and cache_pos == 0 and sq > 1 and tpos.dim() == 1))):
-        raise ValueError(
-            "attention_fwd: a sequence-split cache takes a flash prefill"
-            " from position 0 or a decode step through decode_attn, under"
-            " the uniform head map; other paths need the whole cache")
-    if decode_attn is not None and cache is not None and sq == 1 \
-            and uniform:
-        out = decode_attn(q[:, 0], k, v, pos=cache_pos, window=window,
+    if hook:
+        q1 = q[:, 0] if tp is None else gather_heads(q[:, 0], tp)
+        if not whole:
+            k, v = _expand_kv(k, v, head_map)
+        out = decode_attn(q1, k, v, pos=cache_pos, window=window,
                           attn_softcap=attn_softcap, scale=scale)
+        out = out[:, h0:h0 + h_local]
         dt = torch.promote_types(out.dtype, p.wo.dtype)
         out = torch.einsum("bhk,hkd->bd", out.to(dt), p.wo.to(dt))
         return out[:, None, :], cache
     if (flash and cache is not None and cache_pos == 0 and sq > 1
-            and tpos.dim() == 1 and uniform):
+            and tpos.dim() == 1 and win is not None):
         # keys beyond the new tokens are hidden by causality: pass [:S]
+        lo, hi = win
         out = ops.flash_attention(
-            q.transpose(1, 2), k[:, :sq].transpose(1, 2),
-            v[:, :sq].transpose(1, 2), causal=True, window=window,
+            q.transpose(1, 2), k[:, :sq, lo:hi].transpose(1, 2),
+            v[:, :sq, lo:hi].transpose(1, 2), causal=True, window=window,
             softcap=attn_softcap, scale=scale).transpose(1, 2)
         out = out.to(torch.promote_types(q.dtype, v.dtype))
     else:
-        if uniform:
-            k_att, v_att = k, v
+        if win is not None:
+            k_att, v_att = k[:, :, win[0]:win[1]], v[:, :, win[0]:win[1]]
         else:  # non-uniform head map: expand KV by gather
-            hm = torch.tensor(head_map, dtype=torch.long, device=x.device)
-            k_att = k.index_select(2, hm)
-            v_att = v.index_select(2, hm)
+            k_att, v_att = _expand_kv(k, v, head_map[h0:h0 + h_local])
         out = masked_attention(q, k_att, v_att, q_pos=q_pos, k_pos=k_pos,
                                window=window, attn_softcap=attn_softcap,
                                scale=scale, q_chunk=q_chunk)
@@ -247,21 +282,33 @@ def attention_fwd(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     return out, cache
 
 
-def _write_slice(cache: Dict[str, torch.Tensor], k: torch.Tensor,
-                 v: torch.Tensor, pos: int, off: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write the new tokens at positions [pos, pos + S) into a cache
-    slice holding positions [off, off + its length), where they fall in
-    it.  Returns the keys and values to attend to: the local slice for a
-    decode step, the new tokens in the cache's dtype for a prefill."""
-    sq, n = k.shape[1], cache["k"].shape[1]
-    lo, hi = max(pos, off), min(pos + sq, off + n)
-    if lo < hi:
-        cache["k"][:, lo - off:hi - off] = k[:, lo - pos:hi - pos]
-        cache["v"][:, lo - off:hi - off] = v[:, lo - pos:hi - pos]
-    if sq == 1:
-        return cache["k"], cache["v"]
-    return k.to(cache["k"].dtype), v.to(cache["v"].dtype)
+def _expand_kv(k: torch.Tensor, v: torch.Tensor, head_map
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V with one head per q head of ``head_map`` (a gather)."""
+    hm = torch.tensor(tuple(head_map), dtype=torch.long, device=k.device)
+    return k.index_select(2, hm), v.index_select(2, hm)
+
+
+def gather_cache(t: torch.Tensor, group) -> torch.Tensor:
+    """The whole sequence of a sequence-split cache entry (B, S/N, ...)
+    on every rank of ``group``, the N ranks' slices in order."""
+    if group is None:
+        raise ValueError("a sequence-split cache needs the group over its"
+                         " split (cache_group) to attend to the whole"
+                         " sequence")
+    return all_gather_(t, 1, group)
+
+
+def _write_slice(cache: Dict[str, torch.Tensor],
+                 new: Dict[str, torch.Tensor], pos: int, off: int) -> None:
+    """Write each of ``new``'s tokens at positions [pos, pos + S) into
+    its cache slice holding positions [off, off + its length), where
+    they fall in it."""
+    for name, t in new.items():
+        sq, n = t.shape[1], cache[name].shape[1]
+        lo, hi = max(pos, off), min(pos + sq, off + n)
+        if lo < hi:
+            cache[name][:, lo - off:hi - off] = t[:, lo - pos:hi - pos]
 
 
 # ---------------------------------------------------------------------------
@@ -326,13 +373,22 @@ def mla_fwd(p: MLA, x: torch.Tensor, *, positions: torch.Tensor,
             qk_nope: int, qk_rope: int, rope_theta: float = 1e4,
             window: int = 0,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_pos: Optional[int] = None, q_chunk: int = 512
+            cache_pos: Optional[int] = None, q_chunk: int = 512,
+            cache_offset: Optional[int] = None, cache_group=None
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA: the cache holds only the compressed latent and the shared
     rope key, ``{'ckv': (B, S_max, kv_lora), 'kr': (B, S_max,
     qk_rope)}``, written in place at ``cache_pos``.  Every call rebuilds
     the per-head keys and values from the whole latent it attends over
-    (the full cache when there is one), as the JAX package does."""
+    (the full cache when there is one), as the JAX package does.
+
+    Tensor parallel, this rank holds a block of the heads of ``w_uq``,
+    ``w_uk`` and ``w_uv`` and the same rows of ``wo`` (the latent
+    projections whole), and returns its partial sum, which the caller
+    reduces.  ``cache_offset`` and ``cache_group``: a cache split along
+    the sequence, as ``attention_fwd`` takes it: a prefill from position
+    0 attends over its new tokens, every other call gathers the whole
+    latent first."""
     scale = (qk_nope + qk_rope) ** -0.5
     cq = rms_norm(x @ p.w_dq, p.norm_q)
     q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq)
@@ -347,9 +403,19 @@ def mla_fwd(p: MLA, x: torch.Tensor, *, positions: torch.Tensor,
         if cache_pos is None:
             raise ValueError("mla_fwd: a cache needs cache_pos")
         s = x.shape[1]
-        cache["ckv"][:, cache_pos:cache_pos + s] = ckv
-        cache["kr"][:, cache_pos:cache_pos + s] = kr
-        ckv_att, kr_att = cache["ckv"], cache["kr"]
+        if cache_offset is None:
+            cache["ckv"][:, cache_pos:cache_pos + s] = ckv
+            cache["kr"][:, cache_pos:cache_pos + s] = kr
+            ckv_att, kr_att = cache["ckv"], cache["kr"]
+        else:
+            _write_slice(cache, {"ckv": ckv, "kr": kr}, cache_pos,
+                         cache_offset)
+            if s > 1 and cache_pos == 0 and positions.dim() == 1:
+                ckv_att = ckv.to(cache["ckv"].dtype)
+                kr_att = kr.to(cache["kr"].dtype)
+            else:
+                ckv_att, kr_att = (gather_cache(cache[n], cache_group)
+                                   for n in ("ckv", "kr"))
         q_pos = positions if positions.dim() >= 1 else positions[None]
     else:
         ckv_att, kr_att = ckv, kr

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from . import tp as tpc
 from .attention import MLA, Attention, attention_fwd, mla_fwd
 from .layers import rms_norm, silu
 from .mamba import Mamba, mamba_fwd
@@ -98,16 +99,30 @@ def _sub(cache: Optional[Dict[str, torch.Tensor]], names):
 def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_pos: Optional[int] = None, flash: bool = True,
-              decode_attn=None, cache_offset: Optional[int] = None
+              decode_attn=None, cache_offset: Optional[int] = None,
+              cache_group=None, tp=None, seq_split: bool = False
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One decoder layer.  ``cache``: this layer's views of the stacked
     cache ({'k', 'v'}, {'ckv', 'kr'} and/or the Mamba state), written in
     place.  ``decode_attn``: the GQA mixer's decode hook
-    (``attention_fwd``); MLA and Mamba never take it.  ``cache_offset``:
-    the first position a sequence-split cache holds (``attention_fwd``;
-    GQA only).  Returns (h', the layer's cache or None)."""
+    (``attention_fwd``); MLA and Mamba never take it.  ``cache_offset``
+    and ``cache_group``: a cache split along the sequence
+    (``attention_fwd``).  Returns (h', the layer's cache or None).
+
+    ``tp`` (``models.tp.TP``): the layer's blocks of the mixers and the
+    FFN (the MLP column-parallel in ``w_gate``/``w_up`` and
+    row-parallel in ``w_down``, the MoE expert-parallel); each branch's
+    partial output is all-reduced before the residual add, the hybrid's
+    two in one message.  With ``seq_split`` (sequence parallel) ``h`` is
+    this rank's (B, S/M, D) block of the residual stream: each normed
+    input is all-gathered along the sequence before its mixer or FFN and
+    the partial outputs are reduce-scattered back to blocks."""
     zc = cfg.zero_centered_norm
-    hin = rms_norm(h, lp.ln1, zero_centered=zc)
+
+    def enter(x):
+        x = tpc.gather_seq(x, tp) if seq_split else x
+        return tpc.enter(x, tp)
+    hin = enter(rms_norm(h, lp.ln1, zero_centered=zc))
     outs = []
     if cfg.mixer in ("attn", "hybrid"):
         if cfg.mla is not None:
@@ -115,7 +130,8 @@ def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
                 lp.attn, hin, positions=positions, qk_nope=cfg.mla.qk_nope,
                 qk_rope=cfg.mla.qk_rope, rope_theta=cfg.rope_theta,
                 window=window, cache=_sub(cache, MLA_CACHE),
-                cache_pos=cache_pos, q_chunk=cfg.q_chunk)
+                cache_pos=cache_pos, q_chunk=cfg.q_chunk,
+                cache_offset=cache_offset, cache_group=cache_group)
         else:
             a_out, _ = attention_fwd(
                 lp.attn, hin, positions=positions, head_map=cfg.head_map,
@@ -124,28 +140,32 @@ def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
                 mrope_sections=cfg.mrope_sections, q_scale=cfg.q_scale,
                 cache=_sub(cache, ATTN_CACHE), cache_pos=cache_pos,
                 q_chunk=cfg.q_chunk, flash=flash, decode_attn=decode_attn,
-                cache_offset=cache_offset)
+                cache_offset=cache_offset, cache_group=cache_group, tp=tp)
         outs.append(a_out)
     if cfg.mixer in ("mamba", "hybrid"):
         m_out, _ = mamba_fwd(lp.mamba, hin, mc=cfg.mamba,
                              d_model=cfg.d_model,
-                             cache=_sub(cache, MAMBA_CACHE))
+                             cache=_sub(cache, MAMBA_CACHE), tp=tp)
         outs.append(m_out)
     if cfg.mixer == "hybrid":
+        if tp is not None:  # both partial outputs in one message
+            both = tpc.reduce_out(torch.cat(outs, dim=-1), tp, seq_split)
+            outs = list(both.split(cfg.d_model, dim=-1))
         # Hymba: per-branch normalization, then the mean of the two
         mix = (rms_norm(outs[0], lp.norm_attn, zero_centered=zc)
                + rms_norm(outs[1], lp.norm_mamba, zero_centered=zc)) * 0.5
     else:
-        mix = outs[0]
+        mix = tpc.reduce_out(outs[0], tp, seq_split)
     if cfg.post_norm:
         mix = rms_norm(mix, lp.ln1_post, zero_centered=zc)
     h = h + mix
     if cfg.moe is not None or cfg.d_ff > 0:
-        hin2 = rms_norm(h, lp.ln2, zero_centered=zc)
+        hin2 = enter(rms_norm(h, lp.ln2, zero_centered=zc))
         if cfg.moe is not None:
-            f_out = moe_fwd(lp.moe, hin2, mo=cfg.moe)
+            f_out = moe_fwd(lp.moe, hin2, mo=cfg.moe, tp=tp)
         else:
             f_out = mlp_fwd(lp.mlp, hin2)
+        f_out = tpc.reduce_out(f_out, tp, seq_split)
         if cfg.post_norm:
             f_out = rms_norm(f_out, lp.ln2_post, zero_centered=zc)
         h = h + f_out

@@ -13,6 +13,10 @@ by parameter name, or under ZeRO-1 (``optim.adamw.init_zero1_state``)
 by leaf name as DTensors of the stacked leaves; in the JAX layout it is
 ``{"params": tree, "opt": {"step", "m": tree, "v": tree}}``, the tree
 the checkpoints hold.
+
+A tensor-parallel rank holds its block of every leaf
+(``lm.param_blocks``): :func:`tp_params_from_jax` slices the JAX
+package's parameters to it, :func:`tp_shard_model` a whole port model.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.fabric_torch import resolve_device
+from . import lm
 from .lm import LM, ModelConfig, param_leaves
 
 
@@ -69,6 +74,66 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, device="cuda",
                              f" {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
+
+
+def _check_leaves(have: Mapping[str, Tuple[int, ...]], cfg: ModelConfig
+                  ) -> None:
+    want = lm.param_shapes(cfg)
+    if set(have) != set(want):
+        raise ValueError(f"parameter leaves differ: only given"
+                         f" {sorted(set(have) - set(want))}, only in the"
+                         f" model {sorted(set(want) - set(have))}")
+    for name, shape in want.items():
+        if tuple(have[name]) != tuple(shape):
+            raise ValueError(f"{name}: given shape {tuple(have[name])},"
+                             f" the model's {tuple(shape)}")
+
+
+@torch.no_grad()
+def tp_params_from_jax(tree: Dict, cfg: ModelConfig, mesh, device="cuda",
+                       dtype=None) -> LM:
+    """This rank's tensor-parallel model on ``mesh``: the JAX package's
+    parameters ``tree`` at ``cfg`` (already ``cfg.with_tp(M)``; NumPy
+    leaves) sliced to this rank's block of every leaf
+    (``lm.param_blocks``: the blocks of ``lm.param_specs``), in
+    ``dtype`` (default: the config's) on ``device``.  The replicated
+    leaves (``wk``, ``wv``, the MLA latent projections, ``w_B``, ``w_C``,
+    ``w_dt``, ``A_log``, ``D``, ``dt_bias``, the router and the norms)
+    stay whole.  Raises if a leaf's name or shape differs."""
+    leaves = {k: np.asarray(v) for k, v in jax_to_leaves(tree).items()}
+    _check_leaves({k: v.shape for k, v in leaves.items()}, cfg)
+    blocks = lm.param_blocks(cfg, mesh)
+    model = lm.local_model(cfg, blocks, device=resolve_device(device),
+                           dtype=dtype)
+    for name, segs in param_leaves(model.named_parameters()):
+        a = leaves[name][blocks[name]]
+        for i, p in enumerate(segs):
+            part = a[i] if name.startswith("layers.") else a
+            p.copy_(torch.from_numpy(np.array(part, dtype=np.float32)))
+    return model
+
+
+@torch.no_grad()
+def tp_shard_model(model: LM, cfg: ModelConfig, mesh) -> LM:
+    """This rank's tensor-parallel model on ``mesh`` from a whole port
+    model of ``cfg`` (a seeded ``serve.build_model``, so no JAX is
+    needed): copies of its blocks of every leaf (``lm.param_blocks``) on
+    the model's device, each in its parameter's dtype."""
+    full = dict(model.named_parameters())
+    _check_leaves({k: ((len(v), *v[0].shape) if k.startswith("layers.")
+                       else tuple(v[0].shape))
+                   for k, v in param_leaves(full.items())}, cfg)
+    blocks = lm.param_blocks(cfg, mesh)
+    local = lm.local_model(cfg, blocks, device=model.embed.device,
+                           dtype=model.embed.dtype)
+    for name, p in local.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            sl = blocks[".".join(["layers", *parts[2:]])][1:]
+        else:
+            sl = blocks[name]
+        p.copy_(full[name][sl])
+    return local
 
 
 def cache_from_jax(cache: Dict, device="cuda", dtype=None

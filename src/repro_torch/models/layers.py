@@ -17,12 +17,21 @@ import torch.utils.checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
-             zero_centered: bool = False) -> torch.Tensor:
+             zero_centered: bool = False, sum_sq=None,
+             width: int = 0) -> torch.Tensor:
     """RMSNorm with f32 accumulation; ``zero_centered`` uses ``1 + scale``
-    in the parameter dtype (gemma)."""
+    in the parameter dtype (gemma).
+
+    The partial-sum form, for a normalised dim split over ranks: ``x``
+    and ``scale`` are this rank's block of the dim, ``sum_sq`` sums the
+    blocks' f32 sums of squares (``models.tp.psum``) and ``width`` is the
+    whole dim's size, the mean's divisor."""
     dtype = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if sum_sq is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = sum_sq(x.square().sum(dim=-1, keepdim=True)) / width
     x = x * torch.rsqrt(var + eps)
     w = (1.0 + scale) if zero_centered else scale
     return (x * w).to(dtype)

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..core.fabric_torch import resolve_device
 from ..launch.mesh import PartitionSpec as P
+from . import tp as tpc
 from .attention import MLA, head_to_kv_map, init_attention, init_mla
 from .blocks import Block, block_fwd
 from .layers import chunked_cross_entropy, dense_init, embed_init, rms_norm, \
@@ -122,6 +123,14 @@ class ModelConfig:
             g = {0, L // 2, L - 1}
             return tuple(0 if i in g else self.window_size for i in range(L))
         raise ValueError(self.window_pattern)
+
+    def with_tp(self, tp: int) -> "ModelConfig":
+        """Return a copy padded for a TP degree (heads + experts)."""
+        moe = self.moe
+        if moe is not None:
+            epad = -(-moe.n_experts // tp) * tp
+            moe = dataclasses.replace(moe, n_experts_padded=epad)
+        return dataclasses.replace(self, tp_pad=tp, moe=moe)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -422,6 +431,62 @@ def param_specs(cfg: ModelConfig, axis: str = MODEL_AXIS) -> Dict[str, P]:
     return {name: flat[name] for name in param_shapes(cfg)}
 
 
+def _units(cfg: ModelConfig, name: str, shape, spec) -> Dict[int, int]:
+    """The unit of each split dim of a leaf: a Mamba head's channels for
+    the d_inner dims of the Mamba leaves (so that a rank's block holds
+    whole heads), else 1."""
+    if not name.startswith("layers.mamba.") or cfg.mamba is None:
+        return {}
+    di = cfg.mamba.d_inner(cfg.d_model)
+    return {d: cfg.mamba.head_dim for d, e in enumerate(tuple(spec))
+            if e is not None and shape[d] == di}
+
+
+def param_blocks(cfg: ModelConfig, mesh, axis: str = MODEL_AXIS
+                 ) -> Dict[str, Tuple[slice, ...]]:
+    """This rank's block of every parameter leaf on ``mesh`` under
+    :func:`param_specs` (``launch.mesh.local_slices``), by leaf name,
+    over the stacked shapes of :func:`param_shapes`.  A split dim that
+    does not divide over the axis takes ``launch.mesh.block``'s rule,
+    the d_inner dims of the Mamba leaves in whole heads."""
+    from ..launch.mesh import local_slices
+    shapes, specs = param_shapes(cfg), param_specs(cfg, axis)
+    return {k: local_slices(shapes[k], specs[k], mesh,
+                            units=_units(cfg, k, shapes[k], specs[k]))
+            for k in shapes}
+
+
+def local_shapes(cfg: ModelConfig, blocks: Dict[str, Tuple[slice, ...]]
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """Each parameter's shape (by port name, ``layers.<i>.<rest>``) in a
+    model holding ``blocks`` (:func:`param_blocks`)."""
+    out = {}
+    for name, p in LM(cfg, device=torch.device("meta")).named_parameters():
+        parts = name.split(".")
+        layer = parts[0] == "layers"
+        leaf = ".".join(["layers", *parts[2:]]) if layer else name
+        sl = blocks[leaf][1:] if layer else blocks[leaf]
+        out[name] = tuple(s.stop - s.start for s in sl)
+    return out
+
+
+def local_model(cfg: ModelConfig, blocks: Dict[str, Tuple[slice, ...]], *,
+                device, dtype=None) -> LM:
+    """An uninitialised :class:`LM` holding this rank's ``blocks`` of
+    every leaf (:func:`param_blocks`): the model a tensor-parallel step
+    takes (``models.convert.tp_params_from_jax`` and
+    ``tp_shard_model`` fill it)."""
+    model = LM(cfg, device=torch.device("meta"), dtype=dtype)
+    shapes = local_shapes(cfg, blocks)
+    for name, p in list(model.named_parameters()):
+        mod, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(mod) if mod else model, attr,
+                nn.Parameter(torch.empty(shapes[name], dtype=p.dtype,
+                                         device=device),
+                             requires_grad=False))
+    return model
+
+
 def cache_specs(cfg: ModelConfig, axis: str = MODEL_AXIS,
                 data_axis=None, seq_axis=None) -> Dict[str, P]:
     """Sharding specs of the decode cache (:func:`init_cache`'s entries):
@@ -486,12 +551,26 @@ def _decode_batch(cfg: ModelConfig, tokens: Optional[torch.Tensor],
     return {key: x if key == "embeds" else x[:, None]}
 
 
-def _embed_inputs(cfg: ModelConfig, params: LM, batch: Dict) -> torch.Tensor:
+def _embed_inputs(cfg: ModelConfig, params: LM, batch: Dict,
+                  tp=None, seq_split: bool = False) -> torch.Tensor:
+    """The input embeddings (B, S, d); with ``seq_split`` this rank's
+    (B, S/M, d) block of the sequence.  Under ``tp`` the lookup is
+    vocab-parallel: each rank looks up the tokens of its vocabulary
+    block (the others give zeros), and the blocks' sum is all-reduced,
+    or reduce-scattered along the sequence with ``seq_split``."""
     x = _model_input(cfg, batch)
     if cfg.frontend == "audio_stub":
         # musicgen: precomputed frame embeddings come straight in
-        return x.to(cfg.dtype)
-    h = params.embed[x.long()]
+        h = x.to(cfg.dtype)
+        return _seq_block(h, tp) if seq_split else h
+    if tp is None:
+        h = params.embed[x.long()]
+    else:
+        rows = params.embed.shape[0]
+        ids = x.long() - tp.rank * rows
+        mine = (ids >= 0) & (ids < rows)
+        h = params.embed[ids.clamp(0, rows - 1)]
+        h = tpc.reduce_out(torch.where(mine[..., None], h, 0), tp, seq_split)
     if cfg.emb_scale:  # the scale is rounded to the parameter dtype first
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
@@ -499,13 +578,21 @@ def _embed_inputs(cfg: ModelConfig, params: LM, batch: Dict) -> torch.Tensor:
         # the patches overwrite the first token embeddings; a patch block
         # larger than the stream raises, as JAX's dynamic_update_slice
         pe = batch["patch_embeds"]
+        full = (h.shape[0], x.shape[1], h.shape[2])
         if pe.dim() != h.dim() or any(a > b for a, b in zip(pe.shape,
-                                                              h.shape)):
+                                                              full)):
             raise ValueError(f"{cfg.name}: patch_embeds {tuple(pe.shape)}"
-                             f" do not fit the token embeddings"
-                             f" {tuple(h.shape)}")
-        h[:pe.shape[0], :pe.shape[1], :pe.shape[2]] = pe.to(h.dtype)
+                             f" do not fit the token embeddings {full}")
+        off = tp.rank * h.shape[1] if seq_split else 0
+        n = max(0, min(pe.shape[1] - off, h.shape[1]))
+        h[:pe.shape[0], :n, :pe.shape[2]] = pe[:, off:off + n].to(h.dtype)
     return h
+
+
+def _seq_block(h: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's block of the sequence (dim 1)."""
+    n = h.shape[1] // tp.size
+    return h[:, tp.rank * n:(tp.rank + 1) * n]
 
 
 def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int,
@@ -540,7 +627,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             cache_pos: Optional[int] = None, flash: bool = True,
             remat: bool = False,
             param_hook: Callable[[Block], Block] = lambda lp: lp,
-            decode_attn=None, cache_offset: Optional[int] = None
+            decode_attn=None, cache_offset: Optional[int] = None,
+            cache_group=None, tp=None
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Run the decoder stack: returns (hidden (B, S, D) after the final
     norm, the cache written in place or None).  ``flash=False``, or
@@ -554,10 +642,19 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     (``torch.utils.checkpoint``) instead of keeping its activations; the
     hook is called outside the checkpointed region, so a recomputation
     does not call it again.  ``decode_attn`` is the attention layers'
-    decode hook and ``cache_offset`` the first position a
-    sequence-split cache holds (``attention.attention_fwd``)."""
-    h = _embed_inputs(cfg, params, batch)
-    b, s = h.shape[0], h.shape[1]
+    decode hook, ``cache_offset`` the first position a sequence-split
+    cache holds and ``cache_group`` the group over its split
+    (``attention.attention_fwd``).
+
+    ``tp`` (``models.tp.TP``): ``params`` holds this rank's blocks
+    (:func:`local_model`) and the layers run tensor-, expert- and, with
+    ``tp.seq_parallel`` where ``tp.splits_seq`` the stream, sequence
+    parallel; the hidden returned is then this rank's (B, S/M, D) block
+    of the sequence (:func:`_last_hidden` takes the last position)."""
+    x = _model_input(cfg, batch)
+    seq_split = tp is not None and tp.splits_seq(x.shape[1])
+    h = _embed_inputs(cfg, params, batch, tp, seq_split)
+    b, s = h.shape[0], x.shape[1]
     positions = _positions(cfg, batch, b, s, cache_pos, h.device)
     flash = flash and "positions" not in batch
     for i, (lp, window) in enumerate(zip(params.layers, cfg.windows())):
@@ -567,6 +664,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
         kw = dict(positions=positions, window=window, cache=layer_cache,
                   cache_pos=cache_pos, flash=flash, decode_attn=decode_attn,
                   cache_offset=cache_offset)
+        if tp is not None or cache_group is not None:
+            kw.update(cache_group=cache_group, tp=tp, seq_split=seq_split)
         if remat and cache is None:
             h, _ = torch.utils.checkpoint.checkpoint(
                 block_fwd, cfg, lp, h, use_reentrant=False, **kw)
@@ -576,19 +675,33 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     return h, cache
 
 
+def _last_hidden(h: torch.Tensor, tp, s: int) -> torch.Tensor:
+    """The last position's hidden (B, D) of :func:`forward`'s output for
+    a stream of ``s`` positions: under sequence parallelism the last
+    rank holds it, and the ranks' last positions are all-gathered."""
+    if tp is not None and tp.splits_seq(s):
+        return tpc.gather_seq(h[:, -1:], tp)[:, -1]
+    return h[:, -1]
+
+
 def output_head(cfg: ModelConfig, params: LM) -> torch.Tensor:
     return params.embed.T if cfg.tie_embeddings else params.head
 
 
 def _final_logits(cfg: ModelConfig, h_last: torch.Tensor,
-                  params: LM) -> torch.Tensor:
+                  params: LM, tp=None) -> torch.Tensor:
     """Last-position logits in f32: the head's product in the parameter
-    dtype, then the softcap, then the TP-padding mask."""
-    logits = h_last @ output_head(cfg, params)
+    dtype, then the softcap, then the TP-padding mask.  Under ``tp`` the
+    head (or the tied ``embed.T``) is this rank's vocabulary block: its
+    logits are masked where the padding falls in it, then all-gathered
+    to the whole (B, V) on every rank."""
+    head = output_head(cfg, params)
+    logits = tpc.enter(h_last, tp) @ head
     logits = softcap(logits.float(), cfg.final_softcap)
-    if cfg.vocab_padded > cfg.vocab:
-        logits[:, cfg.vocab:] = -torch.inf
-    return logits
+    lo = 0 if tp is None else tp.rank * head.shape[1]
+    if cfg.vocab_padded > cfg.vocab and cfg.vocab - lo < head.shape[1]:
+        logits[:, max(0, cfg.vocab - lo):] = -torch.inf
+    return logits if tp is None else tpc.gather_vocab(logits, tp)
 
 
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *,
@@ -608,34 +721,39 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *,
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, batch: Dict, *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            flash: bool = True, cache_offset: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Dict]:
+            flash: bool = True, cache_offset: Optional[int] = None,
+            cache_group=None, tp=None) -> Tuple[torch.Tensor, Dict]:
     """Forward pass that fills a KV cache from position 0; returns
     (last-token logits (B, V) f32, the cache).  ``batch`` holds
     ``tokens`` (B, S), or ``embeds`` (B, S, d) for the audio stub, and
-    optionally ``patch_embeds`` and ``positions``.  ``cache_offset``: the
-    cache holds only its sequence slice from there (``forward``)."""
+    optionally ``patch_embeds`` and ``positions``.  ``cache_offset`` and
+    ``cache_group``: the cache holds only its sequence slice from there;
+    ``tp``: the tensor-parallel forward (:func:`forward`)."""
     x = _model_input(cfg, batch)
     b, s = x.shape[:2]
     if cache is None:
         cache = init_cache(cfg, b, s, device=x.device)
     h, cache = forward(cfg, params, batch, cache=cache, cache_pos=0,
-                       flash=flash, cache_offset=cache_offset)
-    return _final_logits(cfg, h[:, -1, :], params), cache
+                       flash=flash, cache_offset=cache_offset,
+                       cache_group=cache_group, tp=tp)
+    return _final_logits(cfg, _last_hidden(h, tp, s), params, tp), cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, cache: Dict[str, torch.Tensor],
                 tokens: Optional[torch.Tensor], pos: int, *,
                 embeds: Optional[torch.Tensor] = None, decode_attn=None,
-                cache_offset: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict]:
+                cache_offset: Optional[int] = None, cache_group=None,
+                tp=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step: tokens (B,) int, ``pos`` the write offset; the
     audio stub takes ``embeds`` (B, 1, d) instead.  ``decode_attn``: the
-    attention layers' decode hook and ``cache_offset`` the first position
-    a sequence-split cache holds (``attention.attention_fwd``).
-    Returns (logits (B, V) f32, the cache written in place)."""
+    attention layers' decode hook, ``cache_offset`` the first position a
+    sequence-split cache holds and ``cache_group`` the group over its
+    split (``attention.attention_fwd``); ``tp``: the tensor-parallel
+    forward (:func:`forward`; one position never splits).  Returns
+    (logits (B, V) f32, the cache written in place)."""
     batch = _decode_batch(cfg, tokens, embeds)
     h, cache = forward(cfg, params, batch, cache=cache, cache_pos=int(pos),
-                       decode_attn=decode_attn, cache_offset=cache_offset)
-    return _final_logits(cfg, h[:, -1, :], params), cache
+                       decode_attn=decode_attn, cache_offset=cache_offset,
+                       cache_group=cache_group, tp=tp)
+    return _final_logits(cfg, h[:, -1, :], params, tp), cache

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import dense_init, rms_norm, silu
+from .tp import psum
 
 
 @dataclass(frozen=True)
@@ -198,7 +199,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
-              cache: Optional[Dict[str, torch.Tensor]] = None
+              cache: Optional[Dict[str, torch.Tensor]] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Mamba-2 block forward.
 
@@ -208,16 +209,37 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
     starting from ``state``) or one decode token; the cache is written
     in place (the SSM state cast to its dtype; a prefill keeps the last
     K-1 *pre-convolution* inputs) and returned.
+
+    ``tp`` (``models.tp.TP``): this rank holds a block of the heads
+    (``tp.block(H)``) and their d_inner channels in ``w_z``, ``w_x``,
+    ``conv_x``, ``conv_bx``, ``norm`` and the rows of ``out_proj``, and
+    its heads' block of the cache's state and ``conv_x`` tail; it takes
+    its heads' columns of the ``w_dt`` product and of ``dt_bias``,
+    ``A_log`` and ``D``, which it holds whole with ``w_B``, ``w_C`` and
+    their convolutions.  The gated norm spans the whole d_inner: its
+    sums of squares are summed over the group before the scale.  The
+    output is this rank's partial sum, which the caller reduces.
     """
     di = mc.d_inner(d_model)
     nh = mc.n_heads(d_model)
+    hs = slice(0, nh) if tp is None else tp.block(nh)
+    nh_local = p.w_x.shape[1] // mc.head_dim
+    if mc.n_groups > 1 and nh_local != nh:
+        raise NotImplementedError(
+            f"mamba_fwd: {mc.n_groups} B/C groups over a block of the"
+            f" heads (every config of the port has one group)")
+    if hs.stop - hs.start != nh_local:
+        raise ValueError(f"mamba_fwd: {nh_local} heads held, the block of"
+                         f" {nh} heads is {hs}")
     b = x.shape[0]
     z = x @ p.w_z
     xr = x @ p.w_x
     Br = x @ p.w_B
     Cr = x @ p.w_C
-    dt = F.softplus((x @ p.w_dt).float() + p.dt_bias)
-    A = -torch.exp(p.A_log)
+    dt = F.softplus((x @ p.w_dt[:, hs]).float() + p.dt_bias[hs])
+    A = -torch.exp(p.A_log[hs])
+    Dh = p.D[hs]
+    nh, di_local = nh_local, nh_local * mc.head_dim
 
     if cache is None or x.shape[1] > 1:
         # the full sequence (training, or a prefill seeding a fresh
@@ -230,9 +252,9 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
             xs.reshape(b, s, nh, mc.head_dim).float(), dt, A,
             Bm.reshape(b, s, mc.n_groups, mc.d_state).float(),
             Cm.reshape(b, s, mc.n_groups, mc.d_state).float(),
-            p.D, mc.chunk,
+            Dh, mc.chunk,
             init_state=None if cache is None else cache["state"].float())
-        y = y.reshape(b, s, di).to(x.dtype)
+        y = y.reshape(b, s, di_local).to(x.dtype)
         if cache is not None:
             kk = mc.d_conv - 1
             cache["state"].copy_(final)
@@ -254,14 +276,18 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
         upd = torch.einsum("bhp,bhn->bhpn", xh * dt1[..., None], Bh)
         state = cache["state"].float() * dA[..., None, None] + upd
         y = torch.einsum("bhpn,bhn->bhp", state, Ch) \
-            + xh * p.D[None, :, None]
-        y = y.reshape(b, 1, di).to(x.dtype)
+            + xh * Dh[None, :, None]
+        y = y.reshape(b, 1, di_local).to(x.dtype)
         cache["state"].copy_(state)
         cache["conv_x"].copy_(conv_x)
         cache["conv_B"].copy_(conv_B)
         cache["conv_C"].copy_(conv_C)
 
-    y = rms_norm(y * silu(z), p.norm)
+    if tp is None or tp.size == 1:
+        y = rms_norm(y * silu(z), p.norm)
+    else:
+        y = rms_norm(y * silu(z), p.norm, sum_sq=lambda t: psum(t, tp),
+                     width=di)
     return y @ p.out_proj, cache
 
 

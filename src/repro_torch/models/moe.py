@@ -16,6 +16,7 @@ experts stacked on the leading axis.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -23,7 +24,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..compat import axis_index
 from .layers import dense_init, silu
+from .tp import gather_rows
 
 
 @dataclass(frozen=True)
@@ -90,10 +93,16 @@ def router_top_k(p: MoE, xc: torch.Tensor, mo: MoEConfig
     return torch.topk(logits, mo.top_k, dim=-1)
 
 
-def _route_chunk(p: MoE, xc: torch.Tensor, mo: MoEConfig) -> torch.Tensor:
-    """Route one chunk of tokens: xc (T_c, D) -> (T_c, D)."""
+def _route_chunk(p: MoE, xc: torch.Tensor, mo: MoEConfig,
+                 e_lo: int = 0) -> torch.Tensor:
+    """Route one chunk of tokens: xc (T_c, D) -> (T_c, D).  ``p`` holds
+    the experts [e_lo, e_lo + its count) (all of them unsharded): every
+    token is routed over all experts, and only the held experts' buffers
+    are computed; the result is the sum over the slots those experts
+    take, a partial sum under expert parallelism."""
     tc, d = xc.shape
     e, k = mo.e_pad, mo.top_k
+    e_held = p.w_gate.shape[0]
     cap = mo.capacity(tc)
     top_vals, top_idx = router_top_k(p, xc, mo)
     gates = torch.softmax(top_vals, dim=-1)
@@ -121,25 +130,45 @@ def _route_chunk(p: MoE, xc: torch.Tensor, mo: MoEConfig) -> torch.Tensor:
     buf_idx = buf_idx[:, :cap]
 
     xc_ext = torch.cat([xc, xc.new_zeros((1, d))])
-    buf = xc_ext[buf_idx]                                  # (E, cap, D)
+    buf = xc_ext[buf_idx[e_lo:e_lo + e_held]]              # (E_h, cap, D)
     h = silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    out = torch.bmm(h, p.w_down)                           # (E, cap, D)
+    out = torch.bmm(h, p.w_down)                           # (E_h, cap, D)
 
-    # gather back per slot; dropped slots are zero-weighted
-    per_slot = out[flat_e, pos_c % cap]                    # (T_c * k, D)
-    w = (gates.reshape(-1) * keep).to(xc.dtype)
+    # gather back per slot; dropped slots, and under expert parallelism
+    # the slots of experts held elsewhere, are zero-weighted
+    held = (flat_e >= e_lo) & (flat_e < e_lo + e_held)
+    per_slot = out[(flat_e - e_lo).clamp(0, e_held - 1), pos_c % cap]
+    w = (gates.reshape(-1) * (keep & held)).to(xc.dtype)
     return (per_slot * w[:, None]).reshape(tc, k, d).sum(dim=1)
 
 
-def moe_fwd(p: MoE, x: torch.Tensor, *, mo: MoEConfig) -> torch.Tensor:
+def moe_fwd(p: MoE, x: torch.Tensor, *, mo: MoEConfig,
+            tp=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).  Top-k routed SwiGLU experts, the
     tokens dispatched ``dispatch_chunk`` at a time (one chunk when the
-    token count is not a multiple of it)."""
+    token count is not a multiple of it).
+
+    ``tp`` (``models.tp.TP``): expert parallel, this rank holds the
+    experts [r E/M, (r+1) E/M) of ``w_gate``, ``w_up`` and ``w_down``
+    and the router whole; routing, capacity and drops are the unsharded
+    model's (every rank routes every token of the chunk), and the output
+    is this rank's partial sum, which the caller reduces.  Where the
+    data axes split the batch (``tp.rows_group``) the rows are gathered
+    first and this rank's returned, so the capacity counts the whole
+    chunk's tokens, as in the JAX package."""
+    if tp is not None and tp.rows_group is not None:
+        rows = x.shape[0]
+        r = axis_index(tp.rows_group)
+        out = moe_fwd(p, gather_rows(x, tp), mo=mo,
+                      tp=dataclasses.replace(tp, rows_group=None))
+        return out[r * rows:(r + 1) * rows]
     b, s, d = x.shape
+    e_lo = 0 if tp is None else tp.rank * p.w_gate.shape[0]
     t = b * s
     xt = x.reshape(t, d)
     chunk = min(mo.dispatch_chunk, t)
     if t % chunk:
         chunk = t  # fall back to one chunk for odd token counts
-    out = [_route_chunk(p, xt[c:c + chunk], mo) for c in range(0, t, chunk)]
+    out = [_route_chunk(p, xt[c:c + chunk], mo, e_lo)
+           for c in range(0, t, chunk)]
     return torch.cat(out).reshape(b, s, d)
