@@ -9,7 +9,8 @@ serving, training, the paper's scenarios, the planner, the serving of
 the MLA, Mamba-2, MoE and hybrid families and the two stub frontends,
 the training of all of them, and partitioned communication over
 ``torch.distributed`` (ring collectives, the int8 ring with error
-feedback, partitioned-KV flash decode), and the evaluation tooling (the
+feedback, partitioned-KV flash decode), tensor-parallel serving and
+training, and the evaluation tooling (the
 sweep's throughput bench, worker pool and profile, the benchmark
 harness and the chaos command line) -- phase by phase; every
 phase prints one line and any failure exits non-zero without a result:
@@ -208,8 +209,19 @@ phase prints one line and any failure exits non-zero without a result:
      unsharded path's (granite's reference on the ranks' MoE routes),
      per-rank prefill and decode ms and their collectives' ms (gloo's,
      staged through the host), and the flash kernel at the rank-local
-     shape against its plain version and SDPA.  Then the kernel table as
-     one JSON line, the float32 fabric kernel a row of its own.
+     shape against its plain version and SDPA;
+ 23. the tensor-parallel training step: (a) a (1, 1) mesh over the
+     one-rank ``nccl`` group, llama3.2-1b at full width and depth in f32
+     (3 steps), granite-moe and hymba at 8 layers (2 steps), 4 x 1024
+     tokens, 1 MiB buckets: every step's loss and gradients and the
+     final parameters bitwise the unsharded step's, pack and unpack
+     launches a step the plan's on both paths, step ms of both; (b) two
+     ``gloo`` ranks in processes of their own sharing the card, a (1, 2)
+     mesh: llama3.2-1b at ``cfg.with_tp(2)``, 4 layers, 2 x 256 tokens,
+     2 steps, every rank's losses and step-0 gradient blocks within the
+     CPU tests' tolerance of the unsharded step on the card, step ms and
+     the collectives' ms a rank.  Then the kernel table as one JSON
+     line, the float32 fabric kernel a row of its own.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -245,6 +257,11 @@ peak memory, idle share and pack/unpack device ms, and the depth cuts.
 
 runs phase 22 alone (its kernels built first) and prints its numbers as
 one JSON line.
+
+    python3 chip_smoke.py --tp-train
+
+runs phase 23 alone (its kernels built first) and prints its numbers
+as one JSON line.
 
     python3 chip_smoke.py --trace-attribution [TREE]
 
@@ -3450,14 +3467,7 @@ def tp_ranks_start(dev, tmp: str, small: bool = False) -> list:
     """Start 22b's two ranks (:func:`tp_rank_main`) in processes of
     their own; they make their group and mesh, then wait for
     ``tmp/go``."""
-    return [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
-         str(r), "2", os.path.join(tmp, "store"), tmp, dev.type,
-         "small" if small else "full"],
-        env={**os.environ, "PYTHONPATH": os.pathsep.join(
-            [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])},
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
+    return _rank_procs("--tp-rank", dev, tmp, small)
 
 
 def tp_ranks_phase(dev, procs: list, tmp: str,
@@ -3519,17 +3529,14 @@ def tp_ranks_phase(dev, procs: list, tmp: str,
         if on_card:
             torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
-        (Path(tmp) / "go").write_text("")
-        logs = [p.communicate(timeout=TP2_TIMEOUT_S)[0] for p in procs]
-        wall = time.perf_counter() - t0
-    finally:
+    except BaseException:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        check(p.returncode == 0, f"22b: a rank failed:\n{log[-3000:]}")
+            p.kill()
+            p.wait()
+        raise
+    t0 = time.perf_counter()
+    _let_ranks_go(procs, tmp, "22b")
+    wall = time.perf_counter() - t0
     reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                for r in range(n)]
     scfg = steps.StepConfig()
@@ -3662,6 +3669,340 @@ def tp_phases(dev, small: bool = False):
         wall_b = time.perf_counter() - t0
         print(f"[{_card_name()}] phase 22b wall {wall_b:.3f} s")
     return a, b, {"22a": wall_a, "22b": wall_b}
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the tensor-parallel training step
+# ---------------------------------------------------------------------------
+
+# 23a on a (1, 1) mesh: (arch, layers or None for all, steps), f32,
+# 4 x 1024 tokens a step, 1 MiB buckets.
+TP_TRAIN = (("llama3.2-1b", None, 3), ("granite-moe-3b-a800m", 8, 2),
+            ("hymba-1.5b", 8, 2))
+# 23b on a (1, 2) mesh of two gloo ranks sharing the card.
+TP_TRAIN2 = ("llama3.2-1b", 4, 2, 256, 2)  # arch, layers, rows, seq, steps
+
+
+def _tp_train_config(arch: str, layers, small: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if small else get_config)(arch)
+    if layers and not small:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg.replace(param_dtype="float32")
+
+
+def _step_grads(state) -> dict:
+    return {k: p.grad for k, p in state["params"].named_parameters()}
+
+
+def tp_train_phase(dev, small: bool = False) -> dict:
+    """23a: the tensor-parallel training step over a (1, 1)
+    ``DeviceMesh`` on the one-rank group against the unsharded step,
+    each of :data:`TP_TRAIN` at full width in f32 from the same seed,
+    4 x 1024 tokens a step, partitioned sync with 1 MiB buckets: every
+    step's loss and gradients and the parameters after the last step bit
+    for bit the unsharded step's, the pack and unpack launches a step
+    the plan's multi-leaf buckets on both paths.  Returns per arch the
+    step ms of both paths."""
+    import numpy as np
+    import torch
+    from repro_torch.compat import psum_
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    card, on_card = _card_name(), dev.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    psum_(torch.ones(1, device=dev), axis_group(mesh, "model"))  # warm
+    batch, seq = (2, 64) if small else (4, 1024)
+    out = {}
+    for arch, layers, n_steps in TP_TRAIN:
+        cfg = _tp_train_config(arch, layers, small)
+        stream = pipeline.for_model(cfg, seq, batch)
+        data = [steps.batch_to_device(stream.batch(i), dev)
+                for i in range(n_steps)]
+        scfg = steps.StepConfig(sync_mode="partitioned",
+                                aggr_bytes=TRAIN_AGGR, param_dtype="float32",
+                                warmup_steps=1, total_steps=10)
+        paths = {}
+        for name, m in (("unsharded", None), ("tp", mesh)):
+            paths[name] = (steps.build_state(cfg, 0, dev, scfg.adam, mesh=m),
+                           steps.make_train_step(cfg, scfg, seq_len=seq,
+                                                 batch=batch, device=dev,
+                                                 mesh=m))
+        want_packs = _expected_packs(paths["tp"][0]["params"], "partitioned",
+                                     TRAIN_AGGR)
+        times = {name: [] for name in paths}
+        losses = {name: [] for name in paths}
+        for i, b in enumerate(data):
+            grads = {}
+            for name, (state, step) in paths.items():
+                before = dict(bp.LAUNCHES)
+                _sync(dev)
+                t0 = time.perf_counter()
+                state, loss = step(state, b)
+                losses[name].append(loss.item())
+                _sync(dev)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                packs = {k: bp.LAUNCHES[k] - before[k] for k in before}
+                check(not on_card or packs == {"bucket_pack": want_packs,
+                                               "bucket_unpack": want_packs},
+                      f"23a {arch} {name} step {i}: pack/unpack launches"
+                      f" {packs}, the plan's {want_packs} each")
+                grads[name] = _step_grads(state)
+            check(losses["tp"][i] == losses["unsharded"][i],
+                  f"23a {arch} step {i}: TP loss {losses['tp'][i]!r} !="
+                  f" unsharded {losses['unsharded'][i]!r}")
+            check(all(_same_bits(g, grads["tp"][k])
+                      for k, g in grads["unsharded"].items()),
+                  f"23a {arch} step {i}: TP gradients differ from the"
+                  f" unsharded step's")
+            del grads
+        pt = dict(paths["tp"][0]["params"].named_parameters())
+        check(all(_same_bits(p, pt[k]) for k, p in
+                  paths["unsharded"][0]["params"].named_parameters()),
+              f"23a {arch}: TP parameters differ after {n_steps} steps")
+        check(all(np.isfinite(x) for x in losses["tp"]),
+              f"23a {arch}: non-finite losses {losses['tp']}")
+        del paths, pt
+        if on_card:
+            torch.cuda.empty_cache()
+        out[arch] = {"layers": cfg.n_layers, "losses": losses["tp"],
+                     "step_ms": times["tp"],
+                     "unsharded_step_ms": times["unsharded"],
+                     "packs_a_step": want_packs}
+        print(f"[{card}] 23a {arch} ({cfg.n_layers} layers, f32, {batch} x"
+              f" {seq} tokens): TP train step on a (1, 1) mesh, {n_steps}"
+              f" steps bitwise equal to the unsharded step's (losses"
+              f" {losses['tp']}, every gradient, the parameters); pack and"
+              f" unpack launches a step {want_packs} each = the plan's;"
+              f" step ms {[round(t, 3) for t in times['tp']]} (unsharded"
+              f" {[round(t, 3) for t in times['unsharded']]}; host clock,"
+              f" the unsharded step first in each pair)")
+    return out
+
+
+def tp_train_rank_main(rank: int, n: int, store: str, out_dir: str,
+                       device: str, small: bool) -> None:
+    """One of 23b's ranks: a (1, ``n``) mesh over a ``gloo`` group of
+    ``n`` processes sharing the card, made at once; when ``out_dir/go``
+    appears, :data:`TP_TRAIN2`'s arch at ``cfg.with_tp(n)``: the TP
+    step from ``build_state(..., mesh=)``, each step timed with its
+    collectives' share, then the unsharded step (synced over the data
+    axes, one rank) on the same rows from the same seed; this rank's
+    blocks of the step-0 gradients against the unsharded step's
+    (``TRAIN_GRAD_TOL``), and the median |g| of each leaf whose partial
+    gradients the step sums over ``model``, the scale beside which the
+    tolerance's atol stands.  Writes ``train<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import axis_group, dp_axes, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import tp as tpc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    out, report = Path(out_dir), {}
+    try:
+        mesh = make_mesh((1, n), ("data", "model"), dev)
+        timer = _CollectiveTimer(dev)
+        t0 = time.perf_counter()
+        while not (out / "go").exists():
+            if time.perf_counter() - t0 > TP2_TIMEOUT_S:
+                raise TimeoutError("23b: the parent never said go")
+            time.sleep(0.05)
+        arch, layers, rows, seq, n_steps = TP_TRAIN2
+        if small:
+            rows, seq = 2, 64
+        cfg = _tp_train_config(arch, layers, small)
+        cfg_tp = cfg.with_tp(n)
+        stream = pipeline.for_model(cfg, seq, rows)
+        data = [steps.batch_to_device(stream.batch(i), dev)
+                for i in range(n_steps)]
+        scfg = steps.StepConfig(sync_mode="partitioned",
+                                aggr_bytes=TRAIN_AGGR, param_dtype="float32",
+                                warmup_steps=1, total_steps=10)
+        state = steps.build_state(cfg, 0, dev, scfg.adam, mesh=mesh)
+        step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=rows,
+                                     device=dev, mesh=mesh)
+        losses, ms, coll, g0 = [], [], [], None
+        for i, b in enumerate(data):
+            _sync(dev)
+            timer.clear()
+            t0 = time.perf_counter()
+            state, loss = step(state, b)
+            losses.append(loss.item())
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            coll.append(timer.total())
+            if i == 0:
+                g0 = {k: g.clone() for k, g in _step_grads(state).items()}
+        timer.close()
+        del state
+        plain = steps.build_state(cfg_tp, 0, dev, scfg.adam)
+        ustep = steps.make_train_step(
+            cfg_tp, scfg, seq_len=seq, batch=rows, device=dev,
+            group=axis_group(mesh, dp_axes(mesh)))
+        u_losses, u_ms = [], []
+        blocks = lm.param_blocks(cfg_tp, mesh)
+        summed = lm.partial_grad_leaves(
+            cfg_tp, tpc.from_mesh(mesh, scfg.seq_parallel).splits_seq(seq))
+        rtol, atol = TRAIN_GRAD_TOL
+        worst, medians = float("-inf"), {}
+        for i, b in enumerate(data):
+            _sync(dev)
+            t0 = time.perf_counter()
+            plain, loss = ustep(plain, b)
+            u_losses.append(loss.item())
+            _sync(dev)
+            u_ms.append((time.perf_counter() - t0) * 1e3)
+            if i:
+                continue
+            seen = {}
+            for k, g in _step_grads(plain).items():
+                parts = k.split(".")
+                leaf = ".".join(["layers", *parts[2:]]) \
+                    if parts[0] == "layers" else k
+                w = g[blocks[leaf][1:] if parts[0] == "layers"
+                      else blocks[k]]
+                excess = float(((g0[k] - w).abs() - atol - rtol * w.abs())
+                               .max())
+                worst = max(worst, excess)
+                if leaf in summed:
+                    seen.setdefault(leaf, []).append(g.abs().flatten())
+            medians = {leaf: float(torch.cat(gs).median())
+                       for leaf, gs in seen.items()}
+        report = {"losses": losses, "unsharded_losses": u_losses,
+                  "step_ms": ms, "collective_ms": coll,
+                  "unsharded_step_ms": u_ms, "grad_excess": worst,
+                  "summed_median_abs_grad": medians,
+                  "layers": cfg.n_layers, "rows": rows, "seq": seq}
+    finally:
+        (out / f"train{rank}.json").write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def _rank_procs(flag: str, dev, tmp: str, small: bool) -> list:
+    """Two ranks of ``chip_smoke.py flag`` in processes of their own
+    (22b's and 23b's); they make their group and mesh, then wait for
+    ``tmp/go``."""
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag,
+         str(r), "2", os.path.join(tmp, "store"), tmp, dev.type,
+         "small" if small else "full"],
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def _let_ranks_go(procs: list, tmp: str, what: str) -> list:
+    """Say go to the ranks, wait for them (killing any left), require
+    exit code 0 and return their logs."""
+    logs = []
+    try:
+        (Path(tmp) / "go").write_text("")
+        logs = [p.communicate(timeout=TP2_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"{what}: a rank failed:\n{log[-3000:]}")
+    return logs
+
+
+def tp_train_ranks_phase(dev, procs: list, tmp: str,
+                         small: bool = False) -> dict:
+    """23b: two ``gloo`` ranks in processes of their own on the one card
+    (:func:`tp_train_rank_main`), a (1, 2) mesh: every rank's losses and
+    step-0 gradient blocks within ``TRAIN_GRAD_TOL`` of the unsharded
+    step on the card, its step and collective ms printed.  Gloo stages
+    CUDA tensors through the host: these are gloo's times, not NCCL's."""
+    card = _card_name()
+    t0 = time.perf_counter()
+    _let_ranks_go(procs, tmp, "23b")
+    wall = time.perf_counter() - t0
+    reports = [json.loads((Path(tmp) / f"train{r}.json").read_text())
+               for r in range(len(procs))]
+    arch = TP_TRAIN2[0]
+    for r, rep in enumerate(reports):
+        check(rep["losses"] == reports[0]["losses"],
+              f"23b rank {r}: losses {rep['losses']} != rank 0's")
+        check(all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b) for a, b in
+                  zip(rep["losses"], rep["unsharded_losses"])),
+              f"23b rank {r}: losses {rep['losses']} against the unsharded"
+              f" {rep['unsharded_losses']}")
+        check(rep["grad_excess"] <= 0.0,
+              f"23b rank {r}: a step-0 gradient beyond {TRAIN_GRAD_TOL}"
+              f" of the unsharded step's by {rep['grad_excess']!r}")
+        print(f"[{card}] 23b {arch} ({rep['layers']} layers, f32,"
+              f" {rep['rows']} x {rep['seq']} tokens) at with_tp(2), rank"
+              f" {r} of a (1, 2) gloo mesh: losses {rep['losses']}"
+              f" (unsharded {rep['unsharded_losses']}, rtol"
+              f" {TRAIN_LOSS_RTOL}), step-0 gradient blocks within"
+              f" {TRAIN_GRAD_TOL} (rtol, atol) of the unsharded step's,"
+              f" worst excess {rep['grad_excess']!r}; median |g| of the"
+              f" leaves summed over 'model'"
+              f" {rep['summed_median_abs_grad']}; step ms"
+              f" {[round(x, 3) for x in rep['step_ms']]}, of it in"
+              f" collectives {[round(x, 3) for x in rep['collective_ms']]};"
+              f" unsharded step ms"
+              f" {[round(x, 3) for x in rep['unsharded_step_ms']]}")
+    return {"ranks": reports, "ranks_wall_s": wall}
+
+
+def tp_train_phases(dev, small: bool = False):
+    """Phase 23: 23b's ranks started first (their start-up overlaps
+    23a), 23a over a one-rank group (``nccl`` on the card), then 23b.
+    Returns both phases' results and their walls."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = _rank_procs("--tp-train-rank", dev, tmp, small)
+        try:
+            with tempfile.TemporaryDirectory() as tmp1:
+                dist.init_process_group(
+                    "nccl" if dev.type == "cuda" else "gloo", rank=0,
+                    world_size=1,
+                    store=dist.FileStore(os.path.join(tmp1, "store"), 1))
+                try:
+                    a = tp_train_phase(dev, small)
+                finally:
+                    dist.destroy_process_group()
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        wall_a = time.perf_counter() - t0
+        print(f"[{_card_name()}] phase 23a wall {wall_a:.3f} s")
+        t0 = time.perf_counter()
+        b = tp_train_ranks_phase(dev, procs, tmp, small)
+        wall_b = time.perf_counter() - t0
+        print(f"[{_card_name()}] phase 23b wall {wall_b:.3f} s")
+    return a, b, {"23a": wall_a, "23b": wall_b}
+
+
+def tp_train_times(tree: Path) -> dict:
+    """Phase 23 alone (its kernels built first), with the card's name and
+    power limit."""
+    import torch
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _card_name()
+    t0 = time.perf_counter()
+    build.build()
+    built = time.perf_counter() - t0
+    a, b, walls = tp_train_phases(torch.device("cuda"))
+    return {"tree": str(tree), "card": smi, "build_s": built,
+            "23a": a, "23b": b, "walls_s": walls}
 
 
 def run(device_name: str = "cuda", small: bool = False) -> dict:
@@ -3963,6 +4304,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
 
     # 22. the tensor- and expert-parallel serving forward -----------------
     tp_phases(dev, small)
+
+    # 23. the tensor-parallel training step -------------------------------
+    tp_train_phases(dev, small)
     return {"kernels": [fabric, fabric_f32, *flash, *train_kernels]}
 
 
@@ -4175,10 +4519,12 @@ def _card_ready() -> bool:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["--tp-rank"] and len(argv) == 7:  # one of 22b's ranks
+    ranks = {"--tp-rank": tp_rank_main,  # one of 22b's ranks
+             "--tp-train-rank": tp_train_rank_main}  # one of 23b's
+    if argv[:1] and argv[0] in ranks and len(argv) == 7:
         sys.path.insert(0, str(ROOT / "src"))
-        tp_rank_main(int(argv[1]), int(argv[2]), argv[3], argv[4], argv[5],
-                     argv[6] == "small")
+        ranks[argv[0]](int(argv[1]), int(argv[2]), argv[3], argv[4],
+                       argv[5], argv[6] == "small")
         return 0
     if not _card_ready():
         return 1
@@ -4187,7 +4533,8 @@ def main(argv=None) -> int:
     times = {"--fabric-times": fabric_times, "--quant8-times": quant8_times,
              "--families": families_times,
              "--train-families": train_families_times,
-             "--trace-attribution": trace_attribution, "--tp": tp_times}
+             "--trace-attribution": trace_attribution, "--tp": tp_times,
+             "--tp-train": tp_train_times}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

@@ -120,7 +120,10 @@ def restore(directory: str | Path, template: Any, *,
     ``launch.mesh.NamedSharding`` (``None`` leaves stay host arrays, a
     missing subtree too) -- each leaf is placed on its mesh with
     ``runtime.elastic.reshard`` as a DTensor, each rank keeping its
-    block (reshard-on-restore for elastic scaling).  A collective call
+    block (reshard-on-restore for elastic scaling; the
+    tensor-parallel blocks of ``launch.steps.param_shardings`` and
+    ``opt_shardings``, across a change of the ``model`` axis too, where
+    the shapes the new mesh pads to are the saved ones).  A collective call
     when any leaf is placed: every rank of the meshes restores."""
     directory = Path(directory)
     if step is None:

@@ -231,7 +231,34 @@ def stack_layer_grads(model, layers_key: str = "layers") -> List:
             for p, g in stacked_grad_slices(model, layers_key)]
 
 
-def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
+def model_axis_sum(leaf_names, group, aggr_bytes: int) -> Callable:
+    """The tensor-parallel step's gradient sum over the mesh's ``model``
+    axis: ``fn(model)`` adds, in place over ``group``, the gradients of
+    the leaves ``leaf_names`` (``models.lm.partial_grad_leaves``: each
+    rank holds a partial sum of them) in buckets of at most
+    ``aggr_bytes`` (``bucketing.bucketed_apply``, so a multi-leaf bucket
+    goes through the pack and unpack kernels), one all-reduce a bucket;
+    ``fn.log`` is the :class:`SyncLog` of the last call (tag
+    ``"model"``).  The other leaves are left alone: their gradients are
+    whole, or this rank's block."""
+    names = set(leaf_names)
+
+    def fn(model) -> None:
+        log = fn.log = SyncLog()
+        leaves = [[p.grad for p in segs] for name, segs in
+                  param_leaves(model.named_parameters()) if name in names]
+
+        def add(flat, bucket):
+            psum_(flat, group)
+            log.entries.append(("model", flat.numel()))
+            return flat
+        bucketed_apply(leaves, add, aggr_bytes=aggr_bytes)
+    fn.log = SyncLog()
+    return fn
+
+
+def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig,
+                          grad_sum: Optional[Callable] = None) -> Callable:
     """Backward + the configured gradient synchronization.
 
     ``loss_fn(model, *args, param_hook=...)`` must call ``param_hook``
@@ -244,7 +271,10 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
     plan is one all-reduce.  A parameter the model's config names as
     unread (``lm.unread_params``: musicgen's ``embed``) gets a zero
     gradient, as JAX's, and is synced and updated like any other; any
-    other parameter without a gradient raises.
+    other parameter without a gradient raises.  ``grad_sum(model)``,
+    when given, runs after backward and before the data-parallel sync
+    of what the layer hooks left (the tensor-parallel step's
+    :func:`model_axis_sum`).
     ``wrapped.log`` is the :class:`SyncLog` of the last call.
     """
     def wrapped(model, *args):
@@ -274,6 +304,8 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig) -> Callable:
             if p.grad is None:
                 raise RuntimeError(f"early-bird sync: {name} got no"
                                    f" gradient")
+        if grad_sum is not None:
+            grad_sum(model)
         finalize_grads(model, sync, log)
         val = _pmean_(val.detach().clone(), sync, log, "loss")
         return val, {n: p.grad for n, p in model.named_parameters()}

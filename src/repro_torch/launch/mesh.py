@@ -78,6 +78,11 @@ def _as_axes(axes: Axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one entry of a spec names (none for ``None``)."""
+    return () if entry is None else _as_axes(entry)
+
+
 def _flat_groups(mesh) -> Dict[Tuple[str, ...], object]:
     """One flat process group per non-empty tuple of axes (in mesh
     order) and per fixing of the other axes; every world rank creates
@@ -274,11 +279,15 @@ def local_slices(shape: Sequence[int], spec: Sequence, mesh,
     return tuple(out)
 
 
-def zeros(shape: Sequence[int], spec: Sequence, mesh, dtype, device):
+def zeros(shape: Sequence[int], spec: Sequence, mesh, dtype, device,
+          units: Optional[Dict[int, int]] = None):
     """A zero DTensor of global ``shape`` on ``mesh`` under ``spec``,
-    allocating only this rank's block."""
+    allocating only this rank's block (with ``units``, a split dim that
+    does not divide takes :func:`block`'s rule, DTensor's own
+    ``torch.chunk`` rule where the units are 1)."""
     from torch.distributed.tensor import DTensor
-    local = [s.stop - s.start for s in local_slices(shape, spec, mesh)]
+    local = [s.stop - s.start
+             for s in local_slices(shape, spec, mesh, units)]
     return DTensor.from_local(
         torch.zeros(local, dtype=dtype, device=device), mesh,
         to_placements(spec, mesh, len(shape)), run_check=False,
@@ -292,3 +301,30 @@ def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
         out.append(acc)
         acc *= n
     return tuple(reversed(out))
+
+
+def gather_blocks(local: torch.Tensor, shape: Sequence[int], spec: Sequence,
+                  mesh, units: Optional[Dict[int, int]] = None
+                  ) -> torch.Tensor:
+    """The whole ``shape`` array on every rank of ``mesh`` from each
+    rank's block under ``spec`` (:func:`local_slices` with ``units``:
+    uneven blocks too), one all-gather (``compat.all_gather_``) over the
+    axes of each split dim of more than one rank, the blocks padded to
+    the largest.  A collective call: every rank of the mesh makes it."""
+    from ..compat import all_gather_
+    out = local
+    for d, entry in enumerate(tuple(spec)):
+        n = size(mesh, spec_axes(entry))
+        if n == 1:
+            continue
+        unit = (units or {}).get(d, 1)
+        sizes = [block(shape[d], n, i, unit) for i in range(n)]
+        sizes = [s.stop - s.start for s in sizes]
+        c = max(sizes)
+        pad = torch.zeros((*out.shape[:d], c, *out.shape[d + 1:]),
+                          dtype=out.dtype, device=out.device)
+        pad.narrow(d, 0, out.shape[d]).copy_(out)
+        g = all_gather_(pad, d, axis_group(mesh, entry))
+        out = torch.cat([g.narrow(d, i * c, k) for i, k in enumerate(sizes)],
+                        dim=d)
+    return out

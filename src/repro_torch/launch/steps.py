@@ -15,7 +15,7 @@ sequence.
 On a mesh (``launch.mesh``, ``mesh=``), as the JAX package lays out its
 steps: the early-bird sync runs over the data axes, each rank takes its
 data index's rows of the global batch, and the AdamW moments are ZeRO-1
-(``optim.adamw.zero1_update``); the decode cache is placed by
+over every axis (``optim.adamw.zero1_update``); the decode cache is placed by
 :func:`_cache_shardings` (batch over the data axes and sequence over
 ``model``, or every axis given to the sequence when the batch does not
 split; the Mamba state's heads and ``conv_x``'s channels over
@@ -26,8 +26,12 @@ passes its block of every parameter leaf (``lm.param_blocks``;
 ``models.convert.tp_params_from_jax`` or ``tp_shard_model`` make it),
 and with ``StepConfig.seq_parallel`` a prefill whose length splits over
 the M ranks keeps its residual stream split along the sequence.  The
-train step refuses a ``model`` axis larger than 1 (its backward
-collectives are ROADMAP queue 1, item 9b-train).  ``group=`` (the
+train step runs the same forward and its backward on those blocks: a
+vocab-parallel loss, the partial gradients of the replicated leaves
+summed over ``model`` after backward, the sync over the data axes, and
+the ZeRO-1 update of each rank's (model, data) block.  The JAX package
+writes none of that by hand: its step runs the sync in ``shard_map``
+over the data axes and lets GSPMD do the rest.  ``group=`` (the
 replicated cache of a plain process group) stays.
 """
 
@@ -42,7 +46,8 @@ import numpy as np
 import torch
 
 from ..compat import axis_index, axis_size
-from ..core.earlybird import SyncConfig, value_and_synced_grad
+from ..core.earlybird import (SyncConfig, SyncLog, model_axis_sum,
+                              value_and_synced_grad)
 from ..core.fabric_torch import resolve_device
 from ..core.flash_decode import flash_decode_shard
 from ..models import convert, lm
@@ -94,31 +99,26 @@ def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
                 ) -> Dict[str, Any]:
     """A fresh training state ``{"params", "opt"}``: the model of
     ``cfg`` with weights drawn from a generator on ``device`` seeded
-    with ``seed``, requiring gradients, and zero AdamW moments, on a
-    ``mesh`` the ZeRO-1 moments of :func:`opt_specs` (each rank
-    allocating its block only)."""
+    with ``seed``, requiring gradients, and zero AdamW moments.  On a
+    ``mesh`` the model is ``cfg.with_tp(M)`` over its ``model`` axis of
+    M ranks: the whole model is drawn and this rank keeps its blocks
+    (``convert.tp_shard_model``), bit for bit those of the unsharded
+    model; the moments are the ZeRO-1 DTensors of :func:`opt_specs`,
+    each rank allocating its (model, data) block only."""
     dev = resolve_device(device)
+    if mesh is not None:
+        cfg = cfg.with_tp(_mesh.model_size(mesh))
     model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
+    if mesh is not None and _mesh.model_size(mesh) > 1:
+        model = convert.tp_shard_model(model, cfg, mesh)
     model.requires_grad_(True)
     named = dict(model.named_parameters())
     opt = init_opt_state(named, adam) if mesh is None else \
-        init_zero1_state(named, adam, mesh, opt_specs(cfg, mesh)["m"])
+        init_zero1_state(named, adam, mesh, opt_specs(cfg, mesh)["m"],
+                         shapes=lm.param_shapes(cfg),
+                         units=lm.param_units(cfg))
     return {"params": model, "opt": opt}
-
-
-def _require_data_parallel(what: str, mesh) -> None:
-    """Refuse what the training path cannot run yet: a ``model`` axis
-    larger than 1 (the tensor-parallel backward), or this rank outside
-    the mesh."""
-    _require_member(what, mesh)
-    tp = _mesh.model_size(mesh)
-    if tp > 1:
-        raise NotImplementedError(
-            f"{what}: a mesh whose model axis has {tp} ranks needs the"
-            f" tensor-parallel training step (its backward collectives, a"
-            f" vocab-parallel cross entropy, ZeRO-1 over TP-local leaves),"
-            f" not ported yet (ROADMAP queue 1, item 9b-train)")
 
 
 def _require_member(what: str, mesh) -> None:
@@ -126,17 +126,59 @@ def _require_member(what: str, mesh) -> None:
         raise ValueError(f"{what}: this rank is not in the mesh {mesh}")
 
 
+def _require_whole_heads(what: str, cfg: lm.ModelConfig, m: int,
+                         holder: str) -> None:
+    """Refuse a Mamba arch whose heads do not split evenly over the M
+    ranks of ``model``: ``holder`` (what splits over ``model``) holds
+    DTensors, whose blocks of ``conv_x``'s channels would cut a head."""
+    if cfg.mamba is not None and cfg.mamba.n_heads(cfg.d_model) % m:
+        raise NotImplementedError(
+            f"{what}: {cfg.name}'s {cfg.mamba.n_heads(cfg.d_model)}"
+            f" Mamba heads do not split evenly over {m} model ranks;"
+            f" {holder} as DTensors, whose blocks are equal, and a block of"
+            f" conv_x's channels would cut a head")
+
+
+class _ParamCheck:
+    """Raise ``ValueError`` unless a model holds this rank's block of
+    every leaf (``lm.param_blocks``: ``shapes`` by parameter name, as
+    ``lm.local_shapes`` gives them); a model is checked once."""
+
+    def __init__(self, what: str, shapes: Dict[str, Tuple[int, ...]]):
+        self.what, self.shapes, self._checked = what, shapes, None
+
+    def __call__(self, params: lm.LM) -> None:
+        if self._checked is not None and self._checked() is params:
+            return
+        got = {k: tuple(p.shape) for k, p in params.named_parameters()}
+        if set(got) != set(self.shapes):
+            raise ValueError(f"{self.what}: the model's parameters are not"
+                             f" the config's")
+        for k, shape in self.shapes.items():
+            if got[k] != shape:
+                raise ValueError(
+                    f"{self.what}: parameter {k} is {got[k]}, this rank's"
+                    f" block on the mesh is {shape} (lm.param_blocks;"
+                    f" models.convert.tp_shard_model makes the blocks)")
+        self._checked = weakref.ref(params)
+
+
 def param_shardings(cfg: lm.ModelConfig, mesh) -> Dict[str, Any]:
-    """Each parameter leaf's sharding (``lm.param_specs`` on ``mesh``),
-    in the JAX package's parameter tree (the layout of a checkpoint's
-    ``params``)."""
-    return convert.leaves_to_jax({k: NamedSharding(mesh, s) for k, s in
-                                  lm.param_specs(cfg).items()})
+    """Each parameter leaf's sharding (``lm.param_specs`` of
+    ``cfg.with_tp(M)`` on ``mesh``), in the JAX package's parameter tree
+    (the layout of a checkpoint's ``params``); a dim split over
+    ``model`` that does not divide takes ``launch.mesh.block``'s blocks
+    (``runtime.elastic.reshard``)."""
+    cfg = cfg.with_tp(_mesh.model_size(mesh))
+    return convert.leaves_to_jax({k: NamedSharding(mesh, s)
+                                  for k, s in lm.param_specs(cfg).items()})
 
 
 def opt_specs(cfg: lm.ModelConfig, mesh) -> Dict[str, Any]:
-    """The optimizer state's specs on ``mesh``: ZeRO-1 over its data
-    axes (``optim.adamw.opt_state_specs``)."""
+    """The optimizer state's specs on ``mesh``: each parameter's spec of
+    ``cfg.with_tp(M)`` plus ZeRO-1 over its data axes
+    (``optim.adamw.opt_state_specs``)."""
+    cfg = cfg.with_tp(_mesh.model_size(mesh))
     return opt_state_specs(lm.param_specs(cfg), lm.param_shapes(cfg),
                            dp_axes=_mesh.dp_axes(mesh),
                            dp_total=_mesh.dp_size(mesh))
@@ -148,8 +190,8 @@ def opt_shardings(cfg: lm.ModelConfig, mesh) -> Dict[str, Any]:
     for a checkpoint's ``opt``."""
     specs = opt_specs(cfg, mesh)
     return {"step": NamedSharding(mesh, specs["step"]),
-            **{k: convert.leaves_to_jax({n: NamedSharding(mesh, s) for n, s
-                                         in specs[k].items()})
+            **{k: convert.leaves_to_jax({n: NamedSharding(mesh, s)
+                                         for n, s in specs[k].items()})
                for k in ("m", "v")}}
 
 
@@ -210,13 +252,32 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
     (``batch / dp`` of them, as ``data.pipeline.for_model(...,
     host_index=mesh.axis_index(mesh, dp_axes(mesh)),
     host_count=dp_size(mesh))`` gives them), the sync runs over the data
-    axes and the state's moments are ZeRO-1 (``build_state(...,
-    mesh=mesh)``, :func:`opt_specs`)."""
+    axes and the state's moments are ZeRO-1 over every axis
+    (``build_state(..., mesh=mesh)``, :func:`opt_specs`).  The model is
+    ``cfg.with_tp(M)`` over the ``model`` axis of M ranks, ``params``
+    this rank's blocks of it (``lm.param_blocks``; ``build_state`` or
+    ``models.convert.tp_shard_model`` make them), and the loss runs the
+    tensor-, expert- and, with ``scfg.seq_parallel`` where M divides
+    ``seq_len``, sequence-parallel forward and its backward
+    (``models.tp``), the cross entropy vocab parallel, the MoE capacity
+    counting this data rank's rows (as the JAX package's ``shard_map``
+    over the data axes).  After backward the partial gradients of the
+    replicated leaves (``lm.partial_grad_leaves``) are summed over
+    ``model`` in buckets of ``scfg.aggr_bytes``
+    (``earlybird.model_axis_sum``; ``step_fn.model_log`` logs them; none
+    on one ``model`` rank, where every gradient is whole), the early-bird
+    sync runs over the data axes on the local leaves, and
+    ``zero1_update`` updates this rank's (model, data) block."""
     cfg = _apply_overrides(cfg.replace(param_dtype=scfg.param_dtype), scfg)
     dev = resolve_device(device)
-    ospecs = None
+    ospecs = tp = grad_sum = check = blocks = shapes = units = None
     if mesh is not None:
-        _require_data_parallel("train_step", mesh)
+        _require_member("train_step", mesh)
+        m = _mesh.model_size(mesh)
+        cfg = cfg.with_tp(m)
+        _require_whole_heads("train_step", cfg, m,
+                             "the ZeRO-1 moments of conv_x split over"
+                             " 'model' (optim.adamw.opt_state_specs)")
         dp = _mesh.dp_size(mesh)
         if batch % dp:
             raise ValueError(f"train_step: a global batch of {batch} does"
@@ -224,23 +285,35 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
         batch //= dp
         group = _mesh.axis_group(mesh, _mesh.dp_axes(mesh))
         ospecs = opt_specs(cfg, mesh)["m"]
+        tp = tpc.from_mesh(mesh, scfg.seq_parallel)
+        blocks = lm.param_blocks(cfg, mesh)
+        shapes, units = lm.param_shapes(cfg), lm.param_units(cfg)
+        check = _ParamCheck("train_step", lm.local_shapes(cfg, blocks))
+        if m > 1:
+            grad_sum = model_axis_sum(
+                lm.partial_grad_leaves(cfg, tp.splits_seq(seq_len)),
+                tp.group, scfg.aggr_bytes)
     sync = SyncConfig(mode=scfg.sync_mode, group=group,
                       aggr_bytes=scfg.aggr_bytes, comm_dtype=scfg.comm_dtype)
 
     def local_loss(model, b, param_hook):
         return lm.loss_fn(cfg, model, b, remat=scfg.remat,
                           param_hook=param_hook,
-                          gather_targets=scfg.ce_gather_targets)
+                          gather_targets=scfg.ce_gather_targets, tp=tp)
 
-    vg = value_and_synced_grad(local_loss, sync)
+    vg = value_and_synced_grad(local_loss, sync, grad_sum)
 
     def step_fn(state: Dict[str, Any], b: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
         _check_batch("train_step", cfg, b, batch, seq_len, dev,
                      labels=True)
         model = state["params"]
+        if check is not None:
+            check(model)
         loss, grads = vg(model, b)
         step_fn.log = vg.log
+        if grad_sum is not None:
+            step_fn.model_log = grad_sum.log
         lr = warmup_cosine(state["opt"]["step"], peak_lr=scfg.peak_lr,
                            warmup_steps=scfg.warmup_steps,
                            total_steps=scfg.total_steps)
@@ -249,10 +322,11 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
             adamw_update(named, grads, state["opt"], lr, scfg.adam)
         else:
             zero1_update(named, grads, state["opt"], lr, scfg.adam, mesh,
-                         ospecs)
+                         ospecs, blocks=blocks, units=units, shapes=shapes)
         return state, loss
 
     step_fn.log = vg.log
+    step_fn.model_log = SyncLog()
     return step_fn
 
 
@@ -322,14 +396,9 @@ class _CacheLayout:
     def __init__(self, what: str, cfg: lm.ModelConfig, scfg: StepConfig,
                  mesh, batch: int):
         _require_member(what, mesh)
-        m = _mesh.model_size(mesh)
-        if cfg.mamba is not None and cfg.mamba.n_heads(cfg.d_model) % m:
-            raise NotImplementedError(
-                f"{what}: {cfg.name}'s {cfg.mamba.n_heads(cfg.d_model)}"
-                f" Mamba heads do not split evenly over {m} model ranks;"
-                f" the cache's state and conv_x tail split over 'model'"
-                f" (lm.cache_specs) as DTensors, whose blocks are equal,"
-                f" and a block of conv_x's channels would cut a head")
+        _require_whole_heads(what, cfg, _mesh.model_size(mesh),
+                             "the cache's state and conv_x tail split over"
+                             " 'model' (lm.cache_specs)")
         self.what, self.mesh, self.batch = what, mesh, batch
         self.b_ax, s_ax = _cache_axes(mesh, batch)
         self.n_seq = _mesh.size(mesh, s_ax)
@@ -345,25 +414,8 @@ class _CacheLayout:
             mesh, scfg.seq_parallel,
             self.b_ax if self.rows is not None
             and _mesh.dp_size(mesh) > 1 else None)
-        self.param_shapes = lm.local_shapes(cfg, lm.param_blocks(cfg, mesh))
-        self._checked = None
-
-    def check_params(self, params: lm.LM) -> None:
-        """Raise ``ValueError`` unless ``params`` holds this rank's block
-        of every leaf (``lm.param_blocks``); a model is checked once."""
-        if self._checked is not None and self._checked() is params:
-            return
-        got = {k: tuple(p.shape) for k, p in params.named_parameters()}
-        if set(got) != set(self.param_shapes):
-            raise ValueError(f"{self.what}: the model's parameters are not"
-                             f" the config's")
-        for k, shape in self.param_shapes.items():
-            if got[k] != shape:
-                raise ValueError(
-                    f"{self.what}: parameter {k} is {got[k]}, this rank's"
-                    f" block on the mesh is {shape} (lm.param_blocks;"
-                    f" models.convert.tp_shard_model makes the blocks)")
-        self._checked = weakref.ref(params)
+        self.check_params = _ParamCheck(
+            what, lm.local_shapes(cfg, lm.param_blocks(cfg, mesh)))
 
     def seq_slice(self, cache_len: int) -> Tuple[int, Optional[int]]:
         """(positions a rank holds, the first of this rank's or None when

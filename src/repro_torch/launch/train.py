@@ -19,11 +19,14 @@ written by rank 0, and placed again on restore with the mesh's
 shardings).  Under ``torchrun`` the process group comes from the
 environment; otherwise a one-rank group is started through a
 ``FileStore`` in a temporary directory (``nccl`` on the card, ``gloo``
-on the CPU), so the gradient all-reduce is always issued.  Tensor
-parallelism (``--tp`` > 1) needs the tensor-parallel training step
-(the backward of ``models.tp``'s collectives, a vocab-parallel cross
-entropy, ZeRO-1 over the blocks), not ported yet (ROADMAP queue 1, item
-9b-train; the serving steps run tensor parallel).  Every architecture
+on the CPU), so the gradient all-reduce is always issued.  ``--tp M``
+trains tensor parallel over a ``model`` axis of M ranks, as the JAX
+package's: the state is built at ``cfg.with_tp(M)`` and each rank holds
+its block of every leaf and its (model, data) block of the moments; a
+checkpoint holds the whole leaves, assembled from the blocks when it is
+saved, and ``--resume`` places them again by the mesh's shardings (a
+checkpoint of another M restores where the padded shapes agree).  A
+world smaller than M raises ``plan_mesh``'s ``ValueError``.  Every architecture
 trains but qwen2-vl-7b, which is refused (exit 2) as the JAX package's
 training CLI fails on it: the synthetic stream makes no M-RoPE
 ``positions``, which its train step needs (``make_train_step`` trains
@@ -57,7 +60,7 @@ from ..runtime.fault_tolerance import (Heartbeat, StragglerMonitor,
                                        run_training_loop)
 from .mesh import axis_index, dp_axes
 from .steps import (StepConfig, batch_to_device, build_state,
-                    make_train_step, opt_shardings)
+                    make_train_step, opt_shardings, param_shardings)
 
 
 def init_group(device: torch.device, tmpdir: str) -> bool:
@@ -104,12 +107,6 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        print("--tp > 1 needs the tensor-parallel training step (its"
-              " backward collectives, a vocab-parallel cross entropy, ZeRO-1"
-              " over the blocks), not ported yet (ROADMAP queue 1, item"
-              " 9b-train)", file=sys.stderr)
-        return 2
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.scale != 1.0:
@@ -167,8 +164,9 @@ def _train(args, cfg, dev: torch.device) -> int:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     if args.resume and latest_step(ckpt_dir) is not None:
         start, tree = restore(ckpt_dir, convert.state_to_jax(state),
-                              shardings={"opt": opt_shardings(cfg, mesh)})
-        state = convert.state_from_jax(tree, cfg, device=dev)
+                              shardings={"params": param_shardings(cfg, mesh),
+                                         "opt": opt_shardings(cfg, mesh)})
+        state = convert.state_from_jax(tree, cfg, device=dev, mesh=mesh)
         print(f"resumed from step {start}")
 
     stream = pipeline.for_model(cfg, args.seq_len, args.global_batch,

@@ -116,12 +116,18 @@ def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
     two in one message.  With ``seq_split`` (sequence parallel) ``h`` is
     this rank's (B, S/M, D) block of the residual stream: each normed
     input is all-gathered along the sequence before its mixer or FFN and
-    the partial outputs are reduce-scattered back to blocks."""
+    the partial outputs are reduce-scattered back to blocks.  In
+    training the stream-side norms (``ln1``, ``ln2``, the post norms and
+    the hybrid's branch norms) then see only this rank's block of the
+    sequence, so their gradients are partial sums over ``model``, which
+    the train step adds (``launch.steps``); without ``seq_split`` they are
+    whole on every rank."""
     zc = cfg.zero_centered_norm
 
     def enter(x):
-        x = tpc.gather_seq(x, tp) if seq_split else x
-        return tpc.enter(x, tp)
+        # the gather's backward reduce-scatters the ranks' partial
+        # gradients, which is the sum enter's would take again
+        return tpc.gather_seq(x, tp) if seq_split else tpc.enter(x, tp)
     hin = enter(rms_norm(h, lp.ln1, zero_centered=zc))
     outs = []
     if cfg.mixer in ("attn", "hybrid"):

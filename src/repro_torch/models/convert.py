@@ -210,10 +210,47 @@ def moments_to_jax(moments: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return named_to_jax(moments)
 
 
+def _moment_mesh(moments: Mapping[str, Any]):
+    """The mesh of ZeRO-1 moments (DTensors), or None."""
+    from torch.distributed.tensor import DTensor
+    t = next(iter(moments.values()))
+    return t.device_mesh if isinstance(t, DTensor) else None
+
+
+def tp_named_to_jax(named: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                    mesh) -> Dict[str, Any]:
+    """Whole leaves, as the JAX package's tree of NumPy arrays, from
+    every rank's blocks (``lm.param_blocks``) of the parameters, their
+    gradients or anything shaped so, by parameter name, on ``mesh``:
+    the padded heads, experts and vocabulary, the ``torch.chunk`` blocks
+    of the FFN and the Mamba heads, each leaf gathered over the axes it
+    splits (``launch.mesh.gather_blocks``).  A collective call: every
+    rank of the mesh makes it."""
+    from ..launch.mesh import gather_blocks
+    shapes, specs = lm.param_shapes(cfg), lm.param_specs(cfg)
+    units = lm.param_units(cfg)
+    out = {}
+    for name, segs in param_leaves(named.items()):
+        local = torch.stack([t.detach() for t in segs]) \
+            if name.startswith("layers.") else segs[0].detach()
+        out[name] = _to_numpy(gather_blocks(local, shapes[name],
+                                            specs[name], mesh, units[name]))
+    return leaves_to_jax(out)
+
+
 def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's training state as the JAX package's state tree."""
-    opt = state["opt"]
-    return {"params": named_to_jax(dict(state["params"].named_parameters())),
+    """The port's training state as the JAX package's state tree.  On a
+    mesh (ZeRO-1 moments) each leaf is assembled from the ranks' blocks
+    (:func:`tp_named_to_jax`, the moments' ``full_tensor()``): a
+    collective call, every rank of the mesh makes it."""
+    opt, model = state["opt"], state["params"]
+    mesh = _moment_mesh(opt["m"])
+    if mesh is not None:
+        params = tp_named_to_jax(dict(model.named_parameters()),
+                                 model.cfg, mesh)
+    else:
+        params = named_to_jax(dict(model.named_parameters()))
+    return {"params": params,
             "opt": {"step": np.asarray(int(opt["step"]), np.int32),
                     "m": moments_to_jax(opt["m"]),
                     "v": moments_to_jax(opt["v"])}}
@@ -230,26 +267,33 @@ def _host(x) -> np.ndarray:
 
 
 @torch.no_grad()
-def opt_state_from_jax(opt: Dict, model: LM) -> Dict[str, Any]:
+def opt_state_from_jax(opt: Dict, model: LM,
+                       shapes: Mapping[str, Tuple[int, ...]] = None
+                       ) -> Dict[str, Any]:
     """The JAX package's AdamW state ``{"step", "m", "v"}`` (NumPy
     trees) as the port's, the moments in f32 on ``model``'s device.
     Moments restored as DTensors (``ckpt.checkpoint.restore`` with
-    shardings: ZeRO-1) stay so, keyed by leaf name."""
+    shardings: ZeRO-1) stay so, keyed by leaf name, and must have the
+    whole leaves' ``shapes`` (default: ``model``'s, when it holds whole
+    leaves)."""
     params = dict(model.named_parameters())
     dev = model.embed.device
     out: Dict[str, Any] = {"step": torch.tensor(int(_host(opt["step"])),
                                                 dtype=torch.int32,
                                                 device=dev)}
     leaves = dict(param_leaves(params.items()))
+    if shapes is None:
+        shapes = {name: ((len(segs), *segs[0].shape) if name.startswith(
+            "layers.") else tuple(segs[0].shape))
+            for name, segs in leaves.items()}
     for key in ("m", "v"):
         flat = jax_to_leaves(opt[key])
         if _is_sharded(flat):
             if set(flat) != set(leaves):
                 raise ValueError(f"opt {key}: leaves differ from the"
                                  f" model's")
-            for name, segs in leaves.items():
-                want = ((len(segs), *segs[0].shape) if name.startswith(
-                    "layers.") else tuple(segs[0].shape))
+            for name in leaves:
+                want = tuple(shapes[name])
                 if tuple(flat[name].shape) != want:
                     raise ValueError(f"opt {key} {name}: shape"
                                      f" {tuple(flat[name].shape)}, the"
@@ -272,12 +316,45 @@ def opt_state_from_jax(opt: Dict, model: LM) -> Dict[str, Any]:
 
 
 def state_from_jax(tree: Dict, cfg: ModelConfig, device="cuda",
-                   dtype=None) -> Dict[str, Any]:
+                   dtype=None, mesh=None) -> Dict[str, Any]:
     """The JAX package's state tree (NumPy) as the port's training
     state, the parameters in ``dtype`` (default: the config's) and
-    requiring gradients."""
-    params = {k: _host(v) for k, v in jax_to_leaves(tree["params"]).items()}
-    model = params_from_jax(leaves_to_jax(params), cfg, device=device,
-                            dtype=dtype)
+    requiring gradients.  On a ``mesh`` the model is ``cfg.with_tp(M)``
+    over its ``model`` axis and this rank keeps its block of every leaf
+    (``lm.param_blocks``): the leaves must be the DTensors that
+    ``ckpt.checkpoint.restore`` placed by ``launch.steps.param_shardings``
+    (their local blocks are taken) and the moments the ZeRO-1 DTensors it
+    placed by ``launch.steps.opt_shardings``."""
+    if mesh is None:
+        params = {k: _host(v)
+                  for k, v in jax_to_leaves(tree["params"]).items()}
+        model = params_from_jax(leaves_to_jax(params), cfg, device=device,
+                                dtype=dtype)
+        model.requires_grad_(True)
+        return {"params": model,
+                "opt": opt_state_from_jax(tree["opt"], model)}
+    from torch.distributed.tensor import DTensor
+    from ..launch.mesh import model_size
+    cfg = cfg.with_tp(model_size(mesh))
+    shapes, blocks = lm.param_shapes(cfg), lm.param_blocks(cfg, mesh)
+    flat = jax_to_leaves(tree["params"])
+    _check_leaves({k: tuple(v.shape) for k, v in flat.items()}, cfg)
+    model = lm.local_model(cfg, blocks, device=resolve_device(device),
+                           dtype=dtype)
+    if not _is_sharded(jax_to_leaves(tree["opt"]["m"])):
+        raise ValueError("state_from_jax on a mesh: restore the moments"
+                         " with launch.steps.opt_shardings")
+    with torch.no_grad():
+        for name, segs in param_leaves(model.named_parameters()):
+            want = tuple(s.stop - s.start for s in blocks[name])
+            a = flat[name].to_local() if isinstance(flat[name], DTensor) \
+                else None
+            if a is None or tuple(a.shape) != want:
+                raise ValueError(f"{name}: restored as {type(flat[name])}"
+                                 f" {tuple(flat[name].shape)}, this rank's"
+                                 f" block is {want} (param_shardings)")
+            for i, p in enumerate(segs):
+                p.copy_(a[i] if name.startswith("layers.") else a)
     model.requires_grad_(True)
-    return {"params": model, "opt": opt_state_from_jax(tree["opt"], model)}
+    return {"params": model,
+            "opt": opt_state_from_jax(tree["opt"], model, shapes)}

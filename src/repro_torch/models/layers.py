@@ -15,6 +15,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.utils.checkpoint
 
+from ..compat import pmax_
+from . import tp as tpc
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
              zero_centered: bool = False, sum_sq=None,
@@ -114,21 +117,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # Cross entropy, chunked over the sequence to bound logit memory
 # ---------------------------------------------------------------------------
 
-def _chunk_loss(h, y, m, head, final_softcap, valid_vocab, gather_targets):
-    """(sum of masked token losses, sum of the mask) of one chunk."""
+def _chunk_loss(h, y, m, head, final_softcap, valid_vocab, gather_targets,
+                tp=None):
+    """(sum of masked token losses, sum of the mask) of one chunk.
+
+    Under ``tp`` (``models.tp.TP``, more than one rank) ``head`` is this
+    rank's block of the vocabulary: the log-sum-exp takes the maximum of
+    the blocks' detached maxima (``pmax_``) and the sum of their
+    ``exp(l - max)``, and the target's logit is read on the rank whose
+    block holds it; both sums are ``models.tp.reduce`` (all-reduce
+    forward, identity backward: every rank computes the same loss)."""
     v = head.shape[-1]
     logits = torch.einsum("bsd,dv->bsv", h.float(), head.float())
     logits = softcap(logits, final_softcap)
-    vids = torch.arange(v, device=logits.device)
-    if valid_vocab is not None and valid_vocab < v:
+    lo = 0 if tp is None else tp.rank * v
+    vids = torch.arange(lo, lo + v, device=logits.device)
+    if valid_vocab is not None and valid_vocab < lo + v:
         logits = torch.where(vids < valid_vocab, logits, -torch.inf)
-    lse = torch.logsumexp(logits, dim=-1)
-    if gather_targets:
+    if gather_targets and tp is None:
         tgt = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    elif gather_targets:  # this block's targets; the others read 0
+        idx = y[..., None].long() - lo
+        mine = (idx >= 0) & (idx < v)
+        tgt = torch.gather(logits, -1, idx.clamp(0, v - 1))
+        tgt = torch.where(mine, tgt, 0.0)[..., 0]
     else:
         # select and reduce instead of a gather (the JAX package's
         # default: it keeps a vocab-sharded logits chunk sharded)
         tgt = torch.where(vids == y[..., None], logits, 0.0).sum(dim=-1)
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        mx = pmax_(logits.detach().amax(dim=-1).contiguous(), tp.group)
+        se = torch.exp(logits - mx[..., None]).sum(dim=-1)
+        se, tgt = tpc.reduce(torch.stack([se, tgt]), tp).unbind(0)
+        lse = torch.log(se) + mx
     return ((lse - tgt) * m).sum(), m.sum()
 
 
@@ -137,7 +160,8 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                           final_softcap: Optional[float] = None,
                           mask: Optional[torch.Tensor] = None,
                           valid_vocab: Optional[int] = None,
-                          gather_targets: bool = False) -> torch.Tensor:
+                          gather_targets: bool = False,
+                          tp=None) -> torch.Tensor:
     """Mean CE of ``hidden @ head`` vs labels without materializing
     (B, S, V).
 
@@ -147,13 +171,24 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     of keeping them.  The chunk sums are added in sequence order, then
     the ragged remainder, as the JAX package's scan does.  ``valid_vocab``
     masks logit columns at or beyond it (vocab padding).
+
+    Vocab parallel, under ``tp`` of more than one rank: ``head`` is this
+    rank's (D, V/M) block of the padded vocabulary and ``hidden`` the
+    whole sequence, read by every rank (its gradient is each rank's
+    partial, summed by the caller's ``models.tp.enter`` or
+    ``gather_seq``); each chunk's logits are this block's, in the same
+    chunks and order (:func:`_chunk_loss`), and a checkpointed chunk
+    recomputes its two all-reduces in backward.  A group of one rank
+    takes the unsharded path.
     """
+    if tp is not None and tp.size == 1:
+        tp = None
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     n_chunks = s // chunk
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
-    args = (head, final_softcap, valid_vocab, gather_targets)
+    args = (head, final_softcap, valid_vocab, gather_targets, tp)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(n_chunks):

@@ -442,6 +442,41 @@ def _units(cfg: ModelConfig, name: str, shape, spec) -> Dict[int, int]:
             if e is not None and shape[d] == di}
 
 
+def param_units(cfg: ModelConfig, axis: str = MODEL_AXIS
+                ) -> Dict[str, Dict[int, int]]:
+    """The unit of each split dim of every leaf (:func:`_units`: a Mamba
+    head's channels on the d_inner dims, else 1), by leaf name; the
+    ``units`` of ``launch.mesh.local_slices`` for the blocks of
+    :func:`param_blocks`, and of the ZeRO-1 moments laid over them."""
+    shapes, specs = param_shapes(cfg), param_specs(cfg, axis)
+    return {k: _units(cfg, k, shapes[k], specs[k]) for k in shapes}
+
+
+# The norms on the residual stream (not inside a mixer): under sequence
+# parallelism each rank normalises only its block of the sequence.
+STREAM_NORMS = ("final_norm", "layers.ln1", "layers.ln2", "layers.ln1_post",
+                "layers.ln2_post", "layers.norm_attn", "layers.norm_mamba")
+
+
+def partial_grad_leaves(cfg: ModelConfig, seq_split: bool,
+                        axis: str = MODEL_AXIS) -> Tuple[str, ...]:
+    """The leaves whose gradient on a tensor-parallel rank is only a
+    partial sum over ``axis`` -- what GSPMD sums in the JAX package: the
+    replicated leaves read inside a tensor-parallel region (GQA's
+    ``wk``/``wv``/``bk``/``bv``, each rank using the KV heads its q heads
+    need; MLA's latent projections and their norms; Mamba's B/C/dt
+    projections and convolutions, and ``A_log``, ``D``, ``dt_bias`` of
+    which a rank reads its heads; the MoE router, whose slots of experts
+    held elsewhere are zero-weighted), and with ``seq_split`` the
+    :data:`STREAM_NORMS`, which then see one block of the sequence.  The
+    split leaves (their gradients are their blocks') and, without
+    ``seq_split``, the stream norms (read where the stream is whole on
+    every rank) are not listed."""
+    return tuple(name for name, spec in param_specs(cfg, axis).items()
+                 if axis not in tuple(spec)
+                 and (seq_split or name not in STREAM_NORMS))
+
+
 def param_blocks(cfg: ModelConfig, mesh, axis: str = MODEL_AXIS
                  ) -> Dict[str, Tuple[slice, ...]]:
     """This rank's block of every parameter leaf on ``mesh`` under
@@ -451,8 +486,8 @@ def param_blocks(cfg: ModelConfig, mesh, axis: str = MODEL_AXIS
     the d_inner dims of the Mamba leaves in whole heads."""
     from ..launch.mesh import local_slices
     shapes, specs = param_shapes(cfg), param_specs(cfg, axis)
-    return {k: local_slices(shapes[k], specs[k], mesh,
-                            units=_units(cfg, k, shapes[k], specs[k]))
+    units = param_units(cfg, axis)
+    return {k: local_slices(shapes[k], specs[k], mesh, units=units[k])
             for k in shapes}
 
 
@@ -585,6 +620,8 @@ def _embed_inputs(cfg: ModelConfig, params: LM, batch: Dict,
                              f" do not fit the token embeddings {full}")
         off = tp.rank * h.shape[1] if seq_split else 0
         n = max(0, min(pe.shape[1] - off, h.shape[1]))
+        if tp is not None:  # a collective's output may be a view of it
+            h = h.clone()
         h[:pe.shape[0], :n, :pe.shape[2]] = pe[:, off:off + n].to(h.dtype)
     return h
 
@@ -707,15 +744,29 @@ def _final_logits(cfg: ModelConfig, h_last: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *,
             remat: bool = True,
             param_hook: Callable[[Block], Block] = lambda lp: lp,
-            gather_targets: bool = False) -> torch.Tensor:
-    """Next-token cross entropy (labels = ``batch['labels']``), f32."""
-    h, _ = forward(cfg, params, batch, remat=remat, param_hook=param_hook)
+            gather_targets: bool = False, tp=None) -> torch.Tensor:
+    """Next-token cross entropy (labels = ``batch['labels']``), f32.
+
+    ``tp``: the tensor-parallel training forward (:func:`forward`) and a
+    vocab-parallel loss over this rank's block of the head (or of the
+    tied ``embed.T``): the final hidden is gathered along the sequence
+    when the stream is split (``tpc.gather_seq``, whose backward
+    reduce-scatters the vocabulary blocks' partial input gradients),
+    else entered (``tpc.enter``, an all-reduce backward), and
+    ``chunked_cross_entropy`` runs on the block.  Every rank returns the
+    same loss; the gradients of :func:`partial_grad_leaves` are partial
+    sums over ``model`` that the caller adds."""
+    h, _ = forward(cfg, params, batch, remat=remat, param_hook=param_hook,
+                   tp=tp)
+    if tp is not None:
+        s = _model_input(cfg, batch).shape[1]
+        h = tpc.gather_seq(h, tp) if tp.splits_seq(s) else tpc.enter(h, tp)
     return chunked_cross_entropy(
         h, output_head(cfg, params), batch["labels"],
         chunk=cfg.loss_chunk, final_softcap=cfg.final_softcap,
         mask=batch.get("loss_mask"),
         valid_vocab=(cfg.vocab if cfg.vocab_padded > cfg.vocab else None),
-        gather_targets=gather_targets)
+        gather_targets=gather_targets, tp=tp)
 
 
 @torch.no_grad()

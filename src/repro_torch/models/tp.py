@@ -27,6 +27,31 @@ the sequence-parallel residual stream), :func:`gather_vocab` and
 :func:`gather_heads` (all-gather along the vocabulary or the heads,
 backward keeps this rank's block).  All
 of them go through ``repro_torch.compat``, whose ``CALLS`` counts them.
+
+Training (``launch.steps.make_train_step`` on a mesh) runs the same
+forward and these backwards, under one rule: every rank computes the
+same loss (the vocab-parallel cross entropy sums its blocks with
+:func:`reduce`, whose backward passes the gradient through), so a
+region's input gradient is each rank's partial, summed by
+:func:`enter`'s or :func:`gather_seq`'s backward (never both: under
+sequence parallelism a mixer's input is gathered, not entered), and
+each rank owns its block of a sequence-split stream.  The gathers of
+:func:`gather_vocab`, :func:`gather_heads` and :func:`gather_rows` keep
+this rank's block in backward, right where every rank reads the
+gathered tensor alike (serving).  What GSPMD adds in the JAX package
+and these do not: the gradient of a replicated leaf read inside a
+region (``wk``, the MLA latent, Mamba's B/C/dt, the router; under
+sequence parallelism the stream norms) is a partial sum on each rank
+(``lm.partial_grad_leaves``); the step adds them over ``model`` in
+buckets after backward (``core.earlybird.model_axis_sum``).  A step's
+collectives over ``model`` (``compat.CALLS``), with remat: each
+region's entry and exit both ways, the forward's again in backward's
+recomputation up to a layer's last saved tensor (so not a layer's last
+output unless a post norm reads it), the gated norm's sums both ways,
+two all-reduces a loss chunk and again in its recomputation, one a
+bucket of the gradient sum and one for the clip norm
+(``optim.adamw.global_norm``); ``tests/test_torch_tp_train.py`` counts
+them per family.
 """
 
 from __future__ import annotations

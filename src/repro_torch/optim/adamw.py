@@ -14,10 +14,10 @@ data-parallel degree divides, and :func:`opt_state_specs` gives the
 moments' specs for every leaf of the JAX parameter tree (by the port's
 leaf name, the layers stacked).  On a mesh, :func:`init_zero1_state`
 keeps each moment as a DTensor of which a rank holds only its block,
-and :func:`zero1_update` updates that block of the (synchronized,
-replicated) parameter with the same f32 operations in the same order as
-:func:`adamw_update`, then all-gathers the updated blocks over the data
-axes: the result is bit for bit the unsharded update's.
+and :func:`zero1_update` updates that block of the (synchronized)
+parameter block the rank holds with the same f32 operations in the same
+order as :func:`adamw_update`, then all-gathers the updated blocks over
+the data axes: the result is bit for bit the unsharded update's.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import torch
 
+from .. import compat
 from ..launch import mesh as _mesh
 from ..launch.mesh import PartitionSpec as P
 
@@ -80,34 +81,48 @@ def opt_state_specs(param_specs: Mapping[str, Sequence],
 
 
 def init_zero1_state(params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
-                     mesh, specs: Mapping[str, Sequence]) -> Dict[str, Any]:
+                     mesh, specs: Mapping[str, Sequence],
+                     shapes: Mapping[str, Sequence[int]],
+                     units: Mapping[str, Dict[int, int]]
+                     ) -> Dict[str, Any]:
     """Zero moments for ZeRO-1 on ``mesh``: per leaf of the JAX
     parameter tree (``specs``: ``opt_state_specs(...)["m"]``, by leaf
-    name) a DTensor of the stacked leaf's shape, of which this rank
-    allocates only its block; the step counter as in
+    name) a DTensor of the stacked leaf's whole shape (``shapes``:
+    ``lm.param_shapes``), of which this rank allocates only its block --
+    the data slice of its ``model`` block, the blocks of a split dim
+    that does not divide taken by ``launch.mesh.block``'s rule in the
+    ``units`` of each leaf (``lm.param_units``); the step counter as in
     :func:`init_opt_state`."""
-    from ..models.lm import param_leaves
     dt = getattr(torch, cfg.moment_dtype)
     dev = next(iter(params.values())).device
-    shapes = {name: ((len(segs), *segs[0].shape)
-                     if name.startswith("layers.") else tuple(segs[0].shape))
-              for name, segs in param_leaves(params.items())}
     if set(shapes) != set(specs):
         raise ValueError(f"init_zero1_state: spec leaves {sorted(specs)}"
                          f" differ from the parameters' {sorted(shapes)}")
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
-        "m": {k: _mesh.zeros(shapes[k], specs[k], mesh, dt, dev)
-              for k in shapes},
-        "v": {k: _mesh.zeros(shapes[k], specs[k], mesh, dt, dev)
-              for k in shapes},
+        **{key: {k: _mesh.zeros(shapes[k], specs[k], mesh, dt, dev,
+                                units=units[k])
+                 for k in shapes} for key in ("m", "v")},
     }
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's sum of squares, in f32."""
-    sums = [x.float().square().sum() for x in tree.values()]
-    return torch.stack(sums).sum().sqrt()
+def global_norm(tree: Mapping[str, torch.Tensor], sharded=(),
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, in f32.
+
+    Tensor parallel: ``tree`` holds this rank's blocks, ``sharded`` the
+    names of those that are blocks of a leaf split over ``group`` (the
+    ``model`` axis); their sums of squares are summed over the group,
+    each replicated leaf (whole on every rank) counted once.  The leaves
+    are added in ``tree``'s order either way, so a group of one rank
+    gives the unsharded norm's bits."""
+    sums = torch.stack([x.float().square().sum() for x in tree.values()])
+    if group is not None and compat.axis_size(group) > 1:
+        split = torch.tensor([k in sharded for k in tree],
+                             device=sums.device)
+        part = compat.psum_(torch.where(split, sums, 0.0), group)
+        sums = torch.where(split, part, sums)
+    return sums.sum().sqrt()
 
 
 @torch.no_grad()
@@ -123,14 +138,16 @@ def adamw_update(params: Mapping[str, torch.Tensor],
 
 
 def _step_coefficients(grads: Mapping[str, torch.Tensor],
-                       state: Dict[str, Any], lr, cfg: AdamWConfig):
+                       state: Dict[str, Any], lr, cfg: AdamWConfig,
+                       sharded=(), group=None):
     """Advance the step counter; the clip factor (from the full
-    gradients), the bias corrections and the learning rate as f32
-    scalars on the device."""
+    gradients: :func:`global_norm`, over ``group`` for the ``sharded``
+    blocks), the bias corrections and the learning rate as f32 scalars
+    on the device."""
     state["step"] += 1
     step = state["step"].to(torch.float32)
     if cfg.clip_norm > 0:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, sharded, group)
         scale = torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-12), max=1.0)
     else:
         scale = torch.ones((), dtype=torch.float32, device=step.device)
@@ -161,25 +178,49 @@ def _update_block(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 @torch.no_grad()
 def zero1_update(params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
-                 lr, cfg: AdamWConfig, mesh, specs: Mapping[str, Sequence]
+                 lr, cfg: AdamWConfig, mesh, specs: Mapping[str, Sequence],
+                 blocks: Mapping[str, Tuple[slice, ...]],
+                 units: Mapping[str, Dict[int, int]],
+                 shapes: Mapping[str, Sequence[int]]
                  ) -> Tuple[Mapping, Dict[str, Any]]:
     """One ZeRO-1 AdamW step on ``mesh``, in place: ``params`` by port
-    name (replicated, every rank equal), ``grads`` synchronized,
-    ``state`` from :func:`init_zero1_state` with its moment ``specs``.
-    Per leaf of the JAX tree, this rank updates its block of the
-    stacked parameter and of the moments (:func:`_update_block`), and
-    the updated blocks are all-gathered over the data axes into every
-    rank's parameters.  The clip factor comes from the full gradients,
-    as in :func:`adamw_update`, whose result this equals bit for bit."""
-    from torch.distributed.tensor import DTensor
+    name, ``grads`` synchronized, ``state`` from
+    :func:`init_zero1_state` with its moment ``specs``.  Each rank
+    holds the ``blocks`` of the whole leaves (``lm.param_blocks``,
+    global offsets; on one ``model`` rank the whole leaves), ``shapes``
+    the whole leaves' and ``units`` their split units
+    (``lm.param_shapes``, ``lm.param_units``), its gradients whole for
+    a replicated leaf and its block's for a split one.  Per leaf of the
+    JAX tree this rank updates its (model, data) block of the stacked
+    parameter and of the moments -- the data slice inside the model
+    block it holds -- (:func:`_update_block`), and the updated slices
+    are all-gathered over the data axes alone into its block
+    (``compat.all_gather_``, one a leaf whose moment splits over them).
+    The clip factor comes from the full gradients, the split leaves'
+    squares summed over ``model`` (:func:`global_norm`), as in
+    :func:`adamw_update`, whose result a mesh of one ``model`` rank
+    equals bit for bit."""
     from ..models.lm import param_leaves
-    coef = _step_coefficients(grads, state, lr, cfg)
+    leaves = param_leaves(params.items())
+    model_group = None
+    sharded = ()
+    if _mesh.model_size(mesh) > 1:
+        model_group = _mesh.axis_group(mesh, "model")
+        split = {leaf for leaf, spec in specs.items()
+                 if any("model" in _mesh.spec_axes(e) for e in spec)}
+        sharded = {k for k in params
+                   if _leaf_name(k) in split}
+    coef = _step_coefficients(grads, state, lr, cfg, sharded, model_group)
     names = {id(t): k for k, t in params.items()}
-    for leaf, segs in param_leaves(params.items()):
+    dp = _mesh.dp_axes(mesh)
+    dp_group = _mesh.axis_group(mesh, dp)
+    for leaf, segs in leaves:
         stacked = leaf.startswith("layers.")
-        shape = (len(segs), *segs[0].shape) if stacked \
-            else tuple(segs[0].shape)
-        sl = _mesh.local_slices(shape, specs[leaf], mesh)
+        shape = tuple(shapes[leaf])
+        mine = _mesh.local_slices(shape, specs[leaf], mesh,
+                                  units=units[leaf])
+        sl = tuple(slice(m.start - h.start, m.stop - h.start)
+                   for m, h in zip(mine, blocks[leaf]))
         gsegs = [grads[names[id(t)]] for t in segs]
 
         def block(ts):
@@ -189,13 +230,25 @@ def zero1_update(params: Mapping[str, torch.Tensor],
         p_blk, g_blk = block(segs), block(gsegs)
         _update_block(p_blk, g_blk, state["m"][leaf].to_local(),
                       state["v"][leaf].to_local(), coef, cfg)
-        full = DTensor.from_local(
-            p_blk.detach(), mesh, _mesh.to_placements(specs[leaf], mesh, len(shape)),
-            run_check=False, shape=torch.Size(shape),
-            stride=_mesh.contiguous_stride(shape)).full_tensor()
+        d = next((i for i, e in enumerate(tuple(specs[leaf]))
+                  if e is not None and set(_mesh.spec_axes(e)) & set(dp)),
+                 None)
+        if d is None and not stacked:  # updated in place, a view
+            continue
+        full = p_blk if d is None else \
+            compat.all_gather_(p_blk.contiguous(), d, dp_group)
         if stacked:
             for t, f in zip(segs, full.unbind(0)):
                 t.copy_(f)
         else:
             segs[0].copy_(full)
     return params, state
+
+
+def _leaf_name(param_name: str) -> str:
+    """The JAX tree's leaf name of a port parameter name (the layer
+    index dropped)."""
+    parts = param_name.split(".")
+    if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+        return ".".join(["layers", *parts[2:]])
+    return param_name

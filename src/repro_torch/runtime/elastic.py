@@ -111,13 +111,16 @@ def reshard(tree: Any, specs: Any, mesh) -> Any:
     a checkpoint); every other leaf (a tensor, a NumPy array or a
     DTensor of another mesh, gathered first) becomes a DTensor on
     ``mesh`` with the placements of its ``PartitionSpec``, each rank
-    keeping its block.  A split dim that does not divide evenly raises,
-    as ``jax.device_put`` does; a parameter/spec structure mismatch
-    raises a ``ValueError`` naming both structures.
+    keeping its block.  A dim split over the ``model`` axis alone takes
+    ``torch.chunk``'s blocks where it does not divide, as the
+    tensor-parallel parameters' are (``launch.mesh.block``); any other
+    split dim that does not divide evenly raises, as ``jax.device_put``
+    does; a parameter/spec structure mismatch raises a ``ValueError``
+    naming both structures.
     """
     import torch
     from torch.distributed.tensor import DTensor, distribute_tensor
-    from ..launch.mesh import check_divisible, to_placements
+    from ..launch.mesh import check_divisible, spec_axes, to_placements
     try:
         _check_structure(tree, specs)
     except ValueError as e:
@@ -134,7 +137,8 @@ def reshard(tree: Any, specs: Any, mesh) -> Any:
             x = x.full_tensor()
         elif isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
-        check_divisible(x.shape, spec, mesh)
+        check_divisible(x.shape, [None if spec_axes(e) == ("model",)
+                                  else e for e in tuple(spec)], mesh)
         return distribute_tensor(x.detach().to(dev), mesh,
                                  to_placements(spec, mesh, x.dim()),
                                  src_data_rank=None)

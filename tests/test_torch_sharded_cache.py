@@ -23,9 +23,9 @@ With a batch of 4 the rule splits the batch instead: each rank holds one
 row of the whole sequence, the logits are gathered from the rows, and
 they and the cache meet the replicated path within 1e-5 (one row's
 products round apart from four rows') and JAX within 1e-4.  A cache that
-is not placed by the rule is refused, and so is a train step on a model
-axis larger than 1; the serving steps take an MLA config, a sequence
-split without flash decode and a model axis of 2
+is not placed by the rule is refused; the serving steps take an MLA
+config, a sequence split without flash decode and a model axis of 2,
+and the train step a model axis of 2
 (``tests/test_torch_tp_serve.py`` holds what they compute).
 """
 
@@ -233,10 +233,8 @@ def test_refusals(results):
     reports, _, _ = results
     for rep in reports:
         assert "not a DTensor placed by" in rep["plain_cache"]
-        for name in ("mla", "no_flash", "tp_prefill"):
+        for name in ("mla", "no_flash", "tp_prefill", "tp_train"):
             assert rep[name] == "no error", rep[name]
-        assert "model axis has 2 ranks" in rep["tp_train"]
-        assert "item 9b-train" in rep["tp_train"]
 
 
 if __name__ == "__main__":

@@ -450,5 +450,8 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
 
 
 def test_train_cli_rejects_tensor_parallel(capsys):
-    assert ptrain.main(["--smoke", "--device", "cpu", "--tp", "2"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    """One process with ``--tp 2`` raises ``plan_mesh``'s error, as the
+    JAX package's CLI does (``--tp 2`` trains on two ranks:
+    ``tests/test_torch_tp_train_state.py``)."""
+    with pytest.raises(ValueError, match="cannot keep model parallelism 2"):
+        ptrain.main(["--smoke", "--device", "cpu", "--tp", "2"])
