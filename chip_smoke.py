@@ -10,10 +10,11 @@ the MLA, Mamba-2, MoE and hybrid families and the two stub frontends,
 the training of all of them, and partitioned communication over
 ``torch.distributed`` (ring collectives, the int8 ring with error
 feedback, partitioned-KV flash decode), tensor-parallel serving and
-training, and the evaluation tooling (the
-sweep's throughput bench, worker pool and profile, the benchmark
-harness and the chaos command line) -- phase by phase; every
-phase prints one line and any failure exits non-zero without a result:
+training, the card-free dry run held to real steps, and the
+evaluation tooling (the sweep's throughput bench, worker pool and
+profile, the benchmark harness and the chaos command line) -- phase by
+phase; every phase prints one line and any failure exits non-zero
+without a result:
 
   1. the card (``nvidia-smi`` name and power limit) and the build of
      every kernel source, one ``nvcc`` each, started together, with
@@ -134,8 +135,9 @@ phase prints one line and any failure exits non-zero without a result:
  18. every family trained at full width in f32 (the seven of phase 17),
      4 x 1024 tokens a step, 1 MiB buckets, on a one-rank ``nccl``
      group: partitioned for 3 steps, bulk and per_leaf for 1, depth cut
-     only where the reckoned step would leave less than a quarter of
-     the card free (each cut printed); all-reduces a step against the
+     to ``TRAIN_FAMILY_LAYERS`` (24) and further where the reckoned step
+     would leave less than a quarter of the card free (each cut
+     printed); all-reduces a step against the
      plan's buckets plus the loss's, pack/unpack launches a step
      against the plan's multi-leaf buckets, the step-0 loss within
      [0.5, 1.5] ln V and equal across the modes, the smoke config
@@ -220,8 +222,23 @@ phase prints one line and any failure exits non-zero without a result:
      mesh: llama3.2-1b at ``cfg.with_tp(2)``, 4 layers, 2 x 256 tokens,
      2 steps, every rank's losses and step-0 gradient blocks within the
      CPU tests' tolerance of the unsharded step on the card, step ms and
-     the collectives' ms a rank.  Then the kernel table as one JSON
-     line, the float32 fabric kernel a row of its own.
+     the collectives' ms a rank;
+ 24. the dry run and the roofline rows: (a) in a subprocess whose
+     default group is a fake group of 256 ranks, ``launch.dryrun`` on
+     llama3.2-1b x train_4k and x decode_32k (rank 0 of the 16x16 mesh,
+     fake ``cuda`` tensors, no allocation), each record's roofline terms
+     and its ``roofline_report`` row printed; (b) the same subprocess
+     traces phase 13's train cell (f32, 4 x 1024 tokens, 1 MiB buckets)
+     and phase 9's prefill (bf16, B 4, S 1024) of llama3.2-1b at full
+     depth on a (1, 1) mesh, while this process runs both steps for real
+     over the one-rank ``nccl`` group (the flash and pack kernels on
+     their path): ``FlopCounterMode``'s total and the ``compat.CALLS``
+     counts and bytes by type equal to the dry run's exactly, the peak
+     (``max_memory_allocated`` above what was allocated before the
+     arguments) within ``DRYRUN_MEM_RTOL`` of the predicted peak, and
+     each step's time over its roofline's largest term.  Then the
+     kernel table as one JSON line, the float32 fabric kernel a row of
+     its own.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -262,6 +279,12 @@ one JSON line.
 
 runs phase 23 alone (its kernels built first) and prints its numbers
 as one JSON line.
+
+    python3 chip_smoke.py --dryrun
+
+runs phase 24 alone (its kernels built first) over a one-rank ``nccl``
+group and prints, as one JSON line, the build and phase seconds and
+24b's measured FLOPs, collectives, argument and peak bytes and step ms.
 
     python3 chip_smoke.py --trace-attribution [TREE]
 
@@ -2207,6 +2230,10 @@ TRAIN_FAMILY_MODES = (("partitioned", 3), ("bulk", 1), ("per_leaf", 1))
 TRAIN_FAMILY_GRAD_TOL = 1e-5
 # The share of the card's memory a step may reckon to use.
 TRAIN_MEM_SHARE = 0.75
+# The most layers a family trains at, to keep the whole script within
+# two thirds of its time limit (the memory rule cuts deeper where it
+# must).
+TRAIN_FAMILY_LAYERS = 24
 
 
 def _train_bytes(cfg, batch: int, seq: int) -> float:
@@ -2249,9 +2276,10 @@ def train_family_phase(dev, small: bool = False) -> dict:
     """Phase 18: every family trained at full width in f32 (the smoke
     configs when ``small``), 4 x 1024 tokens a step, 1 MiB buckets, on
     the one-rank group: partitioned for 3 steps, bulk and per_leaf for
-    1, each from the same weights and batches.  Depth is cut only where
-    the reckoned step (:func:`train_depth`) would leave less than a
-    quarter of the card free; each cut is printed and listed.  Checks:
+    1, each from the same weights and batches.  Depth is cut to
+    ``TRAIN_FAMILY_LAYERS``, and further where the reckoned step
+    (:func:`train_depth`) would leave less than a quarter of the card
+    free; each cut is printed and listed.  Checks:
     all-reduces a step equal the plan's buckets plus the loss's,
     pack/unpack launches a step equal the plan's multi-leaf buckets, a
     finite step-0 loss within [0.5, 1.5] ln V, the same step-0 loss in
@@ -2283,7 +2311,8 @@ def train_family_phase(dev, small: bool = False) -> dict:
         seq = (96 if small else 1024) if cfg.frontend == "vision_stub" \
             else (64 if small else 1024)
         if on_card and not small:
-            depth = train_depth(cfg, batch, seq, total)
+            depth = min(TRAIN_FAMILY_LAYERS,
+                        train_depth(cfg, batch, seq, total))
             if depth < cfg.n_layers:
                 cuts.append((arch, depth, cfg.n_layers))
                 print(f"train {arch}: depth cut to {depth} of"
@@ -2292,7 +2321,7 @@ def train_family_phase(dev, small: bool = False) -> dict:
                       f" full depth,"
                       f" {_train_bytes(cfg.replace(n_layers=depth), batch, seq) / 1e9:.1f}"
                       f" GB cut, budget {TRAIN_MEM_SHARE * total / 1e9:.1f}"
-                      f" GB)")
+                      f" GB; at most {TRAIN_FAMILY_LAYERS} layers)")
                 cfg = cfg.replace(n_layers=depth)
         stream = pipeline.for_model(cfg, seq, batch)
         batches = [_train_batch(cfg, stream, i, dev)
@@ -4005,6 +4034,242 @@ def tp_train_times(tree: Path) -> dict:
             "23a": a, "23b": b, "walls_s": walls}
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the dry run and the roofline rows
+# ---------------------------------------------------------------------------
+
+# 24a: production cells of the dry run on the fake 16x16 group.
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"))
+# 24b on a (1, 1) mesh, llama3.2-1b at full depth: (kind, parameter
+# dtype, rows, sequence): phase 13's train cell and phase 9's prefill.
+DRYRUN_CHECKS = (("train", "float32", 4, 1024),
+                 ("prefill", "bfloat16", 4, 1024))
+# the measured peak (torch.cuda.max_memory_allocated over the step)
+# within this share of the dry run's predicted peak
+DRYRUN_MEM_RTOL = 0.10
+DRYRUN_TIMEOUT_S = 300
+
+
+def _dryrun_checks(small: bool) -> list:
+    """24b's (ShapeConfig, StepConfig) pairs (2 x 64 tokens when
+    ``small``)."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.steps import StepConfig
+    out = []
+    for kind, dtype, rows, seq in DRYRUN_CHECKS:
+        if small:
+            rows, seq = 2, 64
+        out.append((ShapeConfig(f"check_{kind}", kind, seq, rows),
+                    StepConfig(param_dtype=dtype, aggr_bytes=TRAIN_AGGR)))
+    return out
+
+
+def _dryrun_config(small: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+    return (get_smoke_config if small else get_config)("llama3.2-1b")
+
+
+def dryrun_trace_main(out_dir: str, small: bool) -> None:
+    """Phase 24's dry run, in a process of its own (its default group is
+    the fake group of 256 ranks): 24a's production cells on the 16x16
+    mesh (the decode cell alone when ``small``), written as the CLI
+    writes them under ``out_dir/art``, and 24b's cells on a (1, 1)
+    mesh; every record in ``out_dir/dryrun.json``."""
+    from repro_torch.launch import dryrun
+    dryrun.fake_world(256)
+    art = Path(out_dir) / "art"
+    art.mkdir()
+    recs = {"24a": [], "24b": []}
+    for arch, shape in DRYRUN_CELLS:
+        if small and shape == "train_4k":
+            continue
+        rec = dryrun.analyze_cell(arch, shape)
+        (art / f"{arch}__{shape}__single.json").write_text(json.dumps(rec))
+        recs["24a"].append(rec)
+    for shape, scfg in _dryrun_checks(small):
+        recs["24b"].append(dryrun.analyze_cell(
+            "llama3.2-1b", shape, mesh_shape=(1, 1), scfg=scfg,
+            cfg=_dryrun_config(small)))
+    (Path(out_dir) / "dryrun.json").write_text(json.dumps(recs))
+
+
+def _fill_args(cfg, parts, dev, seed: int = 0) -> None:
+    """Values for the empty tensors of ``dryrun.cell_call``: weights
+    normal(0, 0.02), tokens and labels in the vocabulary; the cache and
+    the moments stay zero."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in parts["params"].parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.02)
+        for t in parts["batch"].values():
+            if t.dtype == torch.int32:
+                t.copy_(torch.randint(0, cfg.vocab, t.shape, generator=g,
+                                      device=dev))
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=dev))
+
+
+def _dryrun_real(dev, small: bool) -> list:
+    """24b's steps for real over a (1, 1) mesh of the one-rank group:
+    the arguments of ``dryrun.cell_call`` on the card, filled; the first
+    call under ``FlopCounterMode`` with the ``compat.CALLS`` deltas, its
+    argument bytes and its peak above what was allocated before; then
+    the event-timed ms of a second call."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import compat
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    on_card = dev.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+    cfg = _dryrun_config(small)
+    out = []
+    for shape, scfg in _dryrun_checks(small):
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev) if on_card else 0
+        step, args, kw, parts = dryrun.cell_call(
+            "llama3.2-1b", shape, mesh, scfg, dev, cfg)
+        _fill_args(cfg, parts, dev)
+        _sync(dev)
+        rec = {"argument_bytes": (torch.cuda.memory_allocated(dev) - base
+                                  if on_card else None)}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = dict(compat.CALLS)
+        with FlopCounterMode(display=False) as fc:
+            res = step(*args, **kw)
+        _sync(dev)
+        rec["peak_bytes"] = (torch.cuda.max_memory_allocated(dev) - base
+                             if on_card else None)
+        rec["calls"] = {k: compat.CALLS[k] - before[k] for k in before}
+        rec["flops"] = fc.get_total_flops()
+        del res
+        rec["ms"] = _timed(lambda: step(*args, **kw), dev, 1, warmup=0)
+        out.append(rec)
+        del step, args, kw, parts
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(dev, small: bool = False) -> dict:
+    """Phase 24 (a one-rank group initialised by the caller): the dry
+    run of :func:`dryrun_trace_main` in a subprocess while 24b's steps
+    run here for real; 24a's records printed with their roofline rows
+    (``benchmarks.roofline_report``); 24b's real FLOPs
+    (``FlopCounterMode``) and ``compat.CALLS`` counts and bytes by type
+    equal to the dry run's exactly, the measured peak within
+    ``DRYRUN_MEM_RTOL`` of the predicted one, and each step's time over
+    its roofline's largest term printed."""
+    from repro_torch.benchmarks import roofline_report
+    card = _card_name()
+    on_card = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-trace",
+             tmp, "small" if small else "full"],
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            real = _dryrun_real(dev, small)
+            log = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"24: the dry run failed:\n{log[-3000:]}")
+        wall_dry = time.perf_counter() - t0
+        recs = json.loads((Path(tmp) / "dryrun.json").read_text())
+        rows = roofline_report.rows(art=Path(tmp) / "art")
+    for rec in recs["24a"]:
+        r, m, c = rec["roofline"], rec["memory"], rec["collectives"]
+        print(f"[{card}] 24a dry run {rec['arch']} x {rec['shape']} x"
+              f" {rec['mesh']} (fake {rec['trace_device']} tensors, rank 0"
+              f" of {rec['n_chips']}): trace {rec['trace_s']} s,"
+              f" {rec['n_ops']} ops; compute {r['compute_s']!r} s, memory"
+              f" {r['memory_s']!r} s, collective {r['collective_s']!r} s,"
+              f" dominant {r['dominant']}, useful compute"
+              f" {r['useful_compute_ratio']!r}; {m['total_per_device_gib']}"
+              f" GiB a GPU (fits 80 GB: {m['fits_80gb']}); collectives"
+              f" {c['counts']} of {c['bytes']} bytes")
+    for name, us, derived in rows:
+        print(f"[{card}] 24a {name},{us:.3f},{derived}")
+    kinds = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter",
+             "ppermute": "collective-permute"}
+    for (shape, scfg), rec, got in zip(_dryrun_checks(small), recs["24b"],
+                                       real):
+        what = (f"24b llama3.2-1b {shape.kind} ({scfg.param_dtype},"
+                f" {shape.global_batch} x {shape.seq_len} tokens, (1, 1)"
+                f" mesh)")
+        flops = rec["cost"]["flops_per_device"]
+        check(got["flops"] == flops,
+              f"{what}: FlopCounterMode {got['flops']} != the dry run's"
+              f" {flops!r}")
+        counts, nbytes = (rec["collectives"]["counts"],
+                          rec["collectives"]["bytes"])
+        for call, k in kinds.items():
+            check(got["calls"][call] == counts.get(k, 0)
+                  and got["calls"][f"{call}_bytes"] == nbytes.get(k, 0),
+                  f"{what}: {call} {got['calls'][call]} calls of"
+                  f" {got['calls'][f'{call}_bytes']} bytes, the dry run"
+                  f" {counts.get(k, 0)} of {nbytes.get(k, 0)}")
+        want_peak = rec["memory"]["total_per_device_bytes"]
+        share = None
+        if on_card:
+            share = got["peak_bytes"] / want_peak
+            check(abs(share - 1) <= DRYRUN_MEM_RTOL,
+                  f"{what}: peak {got['peak_bytes']} B, the dry run"
+                  f" predicts {want_peak} B ({share:.3f})")
+        r = rec["roofline"]
+        big = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        print(f"[{card}] {what}: FLOPs {got['flops']} = the dry run's,"
+              f" collectives {counts} of {nbytes} bytes = compat.CALLS';"
+              f" arguments {got['argument_bytes']} B (dry run"
+              f" {rec['memory']['argument_bytes']}), peak"
+              f" {got['peak_bytes']} B against the predicted {want_peak} B"
+              f" (measured / predicted {share!r}, tolerance"
+              f" {DRYRUN_MEM_RTOL}); step {got['ms']:.3f} ms, roofline"
+              f" {r['dominant']} {big * 1e3:.4f} ms (compute"
+              f" {r['compute_s'] * 1e3:.4f}, memory"
+              f" {r['memory_s'] * 1e3:.4f}, collective"
+              f" {r['collective_s'] * 1e3:.4f} ms): measured / largest term"
+              f" {got['ms'] / (big * 1e3):.2f}; traced in"
+              f" {rec['trace_s']} s")
+    print(f"[{card}] 24 the dry run's subprocess and 24b's steps:"
+          f" {wall_dry:.3f} s")
+    return {"24a": recs["24a"], "24b": recs["24b"], "real": real}
+
+
+def dryrun_times(tree: Path) -> dict:
+    """Phase 24 alone (its kernels built first) over a one-rank
+    ``nccl`` group, with the card's name and power limit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _card_name()
+    t0 = time.perf_counter()
+    build.build()
+    built = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            t0 = time.perf_counter()
+            out = dryrun_phase(torch.device("cuda"))
+            wall = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    return {"tree": str(tree), "card": smi, "build_s": built, "wall_s": wall,
+            "24b_real": out["real"]}
+
+
 def run(device_name: str = "cuda", small: bool = False) -> dict:
     """All phases on ``device_name``; returns the kernel table.
     ``small`` cuts the serving and training phases to the llama smoke
@@ -4307,6 +4572,18 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
 
     # 23. the tensor-parallel training step -------------------------------
     tp_train_phases(dev, small)
+
+    # 24. the dry run and the roofline rows --------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo", rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            dryrun_phase(dev, small)
+        finally:
+            dist.destroy_process_group()
+    print(f"[{_card_name()}] phase 24 wall {time.perf_counter() - t0:.3f} s")
     return {"kernels": [fabric, fabric_f32, *flash, *train_kernels]}
 
 
@@ -4526,6 +4803,10 @@ def main(argv=None) -> int:
         ranks[argv[0]](int(argv[1]), int(argv[2]), argv[3], argv[4],
                        argv[5], argv[6] == "small")
         return 0
+    if argv[:1] == ["--dryrun-trace"] and len(argv) == 3:  # phase 24's
+        sys.path.insert(0, str(ROOT / "src"))
+        dryrun_trace_main(argv[1], argv[2] == "small")
+        return 0
     if not _card_ready():
         return 1
     import torch
@@ -4534,7 +4815,7 @@ def main(argv=None) -> int:
              "--families": families_times,
              "--train-families": train_families_times,
              "--trace-attribution": trace_attribution, "--tp": tp_times,
-             "--tp-train": tp_train_times}
+             "--tp-train": tp_train_times, "--dryrun": dryrun_times}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

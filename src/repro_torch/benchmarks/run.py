@@ -10,10 +10,10 @@ as the JAX package's ``python -m benchmarks.run``.  ``--engine`` and
 ``--device`` select the fabric engine and where it runs (``cuda`` and
 ``cuda`` by default; asking for the card without one exits 2).
 ``--fast`` skips what runs outside the simulator: without it the
-early-bird gradient-sync rows follow, from 8 gloo ranks on the CPU.
-The reference's ``roofline_report`` rows read the dry run's artifacts,
-which the port does not have yet (ROADMAP item 9): they are not
-printed, and a line on stderr says so.  ``--seed N`` threads a seed to
+early-bird gradient-sync rows follow, from 8 gloo ranks on the CPU,
+then the ``roofline_report`` rows of the dry run's artifacts
+(``python -m repro_torch.launch.dryrun --all``), single pod then two
+pods, or one ``roofline/NO_ARTIFACTS`` row.  ``--seed N`` threads a seed to
 the imbalance scenario.  ``--json [PATH]`` also writes the scenario
 results as a JSON document (default: benchmark_results.json).  Grid
 sweeps with golden-baseline checking live in ``repro_torch.sweep``.
@@ -28,9 +28,9 @@ from typing import List
 
 from ..core.fabric_torch import resolve_device
 from . import (earlybird, fig4_latency, fig5_congestion, fig6_vci,
-               fig7_aggregation, fig8_earlybird, scen_faults, scen_halo,
-               scen_imbalance, scen_serving, scen_steady, scen_stencil,
-               tableA_delayrate)
+               fig7_aggregation, fig8_earlybird, roofline_report,
+               scen_faults, scen_halo, scen_imbalance, scen_serving,
+               scen_steady, scen_stencil, tableA_delayrate)
 from .common import DEVICE, ENGINE, Row, add_engine_args, emit
 
 SCENARIOS = (scen_steady, scen_halo, scen_stencil, scen_imbalance,
@@ -97,9 +97,8 @@ def main(argv=None) -> int:
         print(f"# scenario JSON written to {args.json}", file=sys.stderr)
     if not args.fast:
         emit(earlybird.rows())
-        print("# roofline_report rows not printed: they read the dry run's"
-              " artifacts, which the port does not have yet (ROADMAP"
-              " item 9)", file=sys.stderr)
+        emit(roofline_report.rows())
+        emit(roofline_report.rows("multi"))
     return 0
 
 

@@ -20,7 +20,10 @@ group of one rank they count the call and send nothing).
 (``all_reduce``, ``ppermute``, a posted permutation counting once, and
 the tensor-parallel forward's ``all_gather`` and ``reduce_scatter``
 along one dim), as the kernel wrappers count their launches, and the
-bytes this rank contributes to its all-reduces (``all_reduce_bytes``).
+bytes of each call's result on this rank (``all_reduce_bytes``,
+``all_gather_bytes``, ``reduce_scatter_bytes``, ``ppermute_bytes``), as
+the JAX package's ``launch/hlo_analysis.py`` counts a collective by its
+result shape.
 
 This module also owns the precision switch of the torch and cuda fabric
 engines, the counterpart of the JAX package's ``x64_enabled`` /
@@ -45,7 +48,12 @@ import torch.distributed as dist
 
 CALLS: Dict[str, int] = {"all_reduce": 0, "ppermute": 0,
                          "all_reduce_bytes": 0, "all_gather": 0,
-                         "reduce_scatter": 0}
+                         "reduce_scatter": 0, "all_gather_bytes": 0,
+                         "reduce_scatter_bytes": 0, "ppermute_bytes": 0}
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 _X64 = [True]
 
@@ -123,6 +131,7 @@ def ppermute_start(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]],
         ops.append(dist.P2POp(dist.irecv, out.view(-1),
                               _global(group, src[0]), group, tag))
     CALLS["ppermute"] += 1
+    CALLS["ppermute_bytes"] += _nbytes(out)
     return Pending(out, dist.batch_isend_irecv(ops) if ops else [])
 
 
@@ -137,7 +146,7 @@ def _all_reduce_(x: torch.Tensor, op, group) -> torch.Tensor:
     """All-reduce in place, counted; a group of one rank sends nothing
     (its sum is its own value)."""
     CALLS["all_reduce"] += 1
-    CALLS["all_reduce_bytes"] += x.numel() * x.element_size()
+    CALLS["all_reduce_bytes"] += _nbytes(x)
     if axis_size(group) > 1:
         dist.all_reduce(x, op=op, group=group)
     return x
@@ -167,6 +176,7 @@ def all_gather_(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     ``dim`` in rank order."""
     n = axis_size(group)
     CALLS["all_gather"] += 1
+    CALLS["all_gather_bytes"] += n * _nbytes(x)
     if n == 1:
         return x
     x = x.movedim(dim, 0).contiguous()
@@ -182,6 +192,7 @@ def reduce_scatter_(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     keeps its block along ``dim`` (the rank-th of equal blocks)."""
     n = axis_size(group)
     CALLS["reduce_scatter"] += 1
+    CALLS["reduce_scatter_bytes"] += _nbytes(x) // n
     if n == 1:
         return x
     if x.shape[dim] % n:

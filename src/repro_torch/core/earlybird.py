@@ -213,8 +213,9 @@ def _move_grad(p: torch.Tensor, g: torch.Tensor) -> None:
     """Post-accumulate hook: make ``p``'s gradient slice ``g``.  The
     first accumulation leaves autograd's own tensor in ``.grad``; it is
     copied into ``g`` once, and later accumulations add into ``g`` in
-    place."""
-    if p.grad.data_ptr() != g.data_ptr():
+    place.  The test is by identity, which a fake tensor (the dry run's)
+    also answers, not by address."""
+    if p.grad is not g:
         g.copy_(p.grad)
         p.grad = g
 

@@ -122,6 +122,9 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda",
                          f" world of {world}")
     mesh = DeviceMesh(dev.type, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=axes)
+    # a DeviceMesh equals another of the same layout: drop an earlier
+    # one's entry, whose key would stay the earlier object and go with it
+    _GROUPS.pop(mesh, None)
     _GROUPS[mesh] = _flat_groups(mesh)
     return mesh
 

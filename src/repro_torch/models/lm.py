@@ -21,6 +21,7 @@ written in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
@@ -167,6 +168,17 @@ class ModelConfig:
         elif self.d_ff > 0:
             per_layer += 3 * d * self.d_ff
         return n + self.n_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        full = self.param_count()
+        all_experts = self.n_layers * self.moe.n_experts * 3 * self.d_model \
+            * self.moe.d_expert
+        active = self.n_layers * self.moe.top_k * 3 * self.d_model \
+            * self.moe.d_expert
+        return full - all_experts + active
 
 
 # ---------------------------------------------------------------------------
@@ -342,15 +354,22 @@ def _dotted(tree: Dict, prefix: str = "") -> Dict[str, object]:
     return out
 
 
+@functools.lru_cache(maxsize=128)
+def _named_shapes(cfg: ModelConfig) -> Tuple[Tuple[str, torch.Size], ...]:
+    """Each parameter's port name and shape, from a model built on the
+    meta device once a config."""
+    return tuple((name, p.shape) for name, p in
+                 LM(cfg, device=torch.device("meta")).named_parameters())
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """The shape of every leaf of the JAX package's parameter tree, by
     the port's leaf name (:func:`param_leaves`: ``layers.<rest>`` for the
     per-layer parameters stacked on a leading L axis), in its order.
     Nothing is allocated (the model is built on the meta device)."""
-    model = LM(cfg, device=torch.device("meta"))
-    return {name: ((len(segs), *segs[0].shape) if name.startswith("layers.")
-                   else tuple(segs[0].shape))
-            for name, segs in param_leaves(model.named_parameters())}
+    return {name: ((len(segs), *segs[0]) if name.startswith("layers.")
+                   else tuple(segs[0]))
+            for name, segs in param_leaves(_named_shapes(cfg))}
 
 
 def param_specs(cfg: ModelConfig, axis: str = MODEL_AXIS) -> Dict[str, P]:
@@ -496,7 +515,7 @@ def local_shapes(cfg: ModelConfig, blocks: Dict[str, Tuple[slice, ...]]
     """Each parameter's shape (by port name, ``layers.<i>.<rest>``) in a
     model holding ``blocks`` (:func:`param_blocks`)."""
     out = {}
-    for name, p in LM(cfg, device=torch.device("meta")).named_parameters():
+    for name, _ in _named_shapes(cfg):
         parts = name.split(".")
         layer = parts[0] == "layers"
         leaf = ".".join(["layers", *parts[2:]]) if layer else name

@@ -114,14 +114,41 @@ def test_run_needs_the_card_unless_cpu_is_asked(capsys):
 
 
 def test_run_without_fast_prints_earlybird_and_names_the_gap(monkeypatch,
-                                                              capsys):
+                                                              capsys,
+                                                              tmp_path):
+    """Without ``--fast`` the early-bird rows are followed by the
+    ``roofline_report`` rows of the dry run's artifacts, single pod then
+    two pods; an empty artifacts directory gives the ``NO_ARTIFACTS``
+    row naming the dry run, once per mesh."""
+    from repro_torch.benchmarks import roofline_report
     rows = [("earlybird/bulk/wall", 1.0, "ranks=8")]
     monkeypatch.setattr(earlybird, "rows", lambda: rows)
+    monkeypatch.setattr(roofline_report, "ART", tmp_path)
+    rec = {"arch": "llama3.2-1b", "shape": "decode_32k", "mesh": "16x16",
+           "memory": {"total_per_device_gib": 1.5, "fits_80gb": True},
+           "roofline": {"compute_s": 1e-6, "memory_s": 2e-3,
+                        "collective_s": 1e-3, "dominant": "memory_s",
+                        "useful_compute_ratio": 0.5}}
+    for mesh in ("single", "multi"):
+        d = dict(rec, mesh={"single": "16x16", "multi": "2x16x16"}[mesh])
+        (tmp_path / f"llama3.2-1b__decode_32k__{mesh}.json").write_text(
+            json.dumps(d))
+    (tmp_path / "llama3.2-1b__decode_32k__single__fd.json").write_text(
+        json.dumps(rec))
     assert run.main(["--device", "cpu", "--engine", "vector"]) == 0
-    cap = capsys.readouterr()
-    assert cap.out.splitlines()[-1] == "earlybird/bulk/wall,1.000,ranks=8"
-    assert "roofline_report rows not printed" in cap.err
-    assert "ROADMAP item 9" in cap.err
+    out = capsys.readouterr().out.splitlines()
+    derived = "dom=memory,frac=0.67,useful=0.50,mem_gib=1.5,fits=True"
+    assert out[-3:] == [
+        "earlybird/bulk/wall,1.000,ranks=8",
+        f'roofline/llama3.2-1b/decode_32k/16x16,2000.000,"{derived}"',
+        f'roofline/llama3.2-1b/decode_32k/2x16x16,2000.000,"{derived}"']
+    for p in tmp_path.iterdir():
+        p.unlink()
+    assert run.main(["--device", "cpu", "--engine", "vector"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    none = ("roofline/NO_ARTIFACTS,0.000,"
+            "run: python -m repro_torch.launch.dryrun --all")
+    assert out[-3:] == ["earlybird/bulk/wall,1.000,ranks=8", none, none]
 
 
 def test_module_main_prints_rows_and_json(capsys):
