@@ -10,7 +10,8 @@ the MLA, Mamba-2, MoE and hybrid families and the two stub frontends,
 the training of all of them, and partitioned communication over
 ``torch.distributed`` (ring collectives, the int8 ring with error
 feedback, partitioned-KV flash decode), tensor-parallel serving and
-training, the card-free dry run held to real steps, and the
+training, the card-free dry run held to real steps, Mamba-2 under
+tensor parallelism with blocks that cut a head, and the
 evaluation tooling (the sweep's throughput bench, worker pool and
 profile, the benchmark harness and the chaos command line) -- phase by
 phase; every phase prints one line and any failure exits non-zero
@@ -236,9 +237,23 @@ without a result:
      counts and bytes by type equal to the dry run's exactly, the peak
      (``max_memory_allocated`` above what was allocated before the
      arguments) within ``DRYRUN_MEM_RTOL`` of the predicted peak, and
-     each step's time over its roofline's largest term.  Then the
-     kernel table as one JSON line, the float32 fabric kernel a row of
-     its own.
+     each step's time over its roofline's largest term;
+ 25. Mamba-2 under tensor parallelism wherever the JAX package places
+     it: (a) a (1, 1) mesh over the one-rank ``nccl`` group,
+     mamba2-780m at d_model 1536 with 3 B/C groups, 4 layers: a bf16
+     prefill of 2 x 1024 tokens and 8 decodes, and 2 f32 train steps of
+     2 x 512 tokens, bitwise the unsharded steps'; (b) two ``gloo``
+     ranks sharing the card, a (1, 2) mesh: mamba2-780m at its
+     published head_dim, d_state and chunk, 4 layers, at d_model 1504
+     (47 heads: each rank holds 23.5) and at 1536 with 3 groups (rank 0
+     holds group 0 and half of group 1), each trained 2 f32 steps
+     against the unsharded step on the card (losses within 1e-5,
+     step-0 gradient blocks within the CPU tests' tolerance), the
+     first's serving refused with JAX's reason, the second served in
+     bf16 within 5 bf16 ulps of the unsharded logits; step, prefill and
+     decode ms with their collectives' ms a rank.  Then the kernel
+     table as one JSON line, the float32 fabric kernel a row of its
+     own.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of the JAX package; it reads the baseline as data.
@@ -285,6 +300,11 @@ as one JSON line.
 runs phase 24 alone (its kernels built first) over a one-rank ``nccl``
 group and prints, as one JSON line, the build and phase seconds and
 24b's measured FLOPs, collectives, argument and peak bytes and step ms.
+
+    python3 chip_smoke.py --mamba-tp
+
+runs phase 25 alone (its kernels built first) and prints its numbers
+as one JSON line.
 
     python3 chip_smoke.py --trace-attribution [TREE]
 
@@ -3811,25 +3831,98 @@ def tp_train_phase(dev, small: bool = False) -> dict:
     return out
 
 
+def _train_against_unsharded(cfg, scfg, mesh, data, dev, timer) -> dict:
+    """On this rank of ``mesh`` (one data rank): the TP step of ``cfg``
+    from ``build_state(..., mesh=)`` over the batches ``data``, each
+    step timed with its collectives' share (``timer``) and its pack and
+    unpack launches counted, then the unsharded step at
+    ``cfg.with_tp(M)`` (synced over the data axes) on the same rows from
+    the same seed; this rank's blocks of the step-0 gradients against the
+    unsharded step's (``TRAIN_GRAD_TOL``: the largest excess, <= 0 when
+    within), and the median |g| of each leaf whose partial gradients the
+    step sums over ``model``, the scale beside which the tolerance's atol
+    stands."""
+    import torch
+    from repro_torch.kernels import bucket_pack as bp
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import axis_group, dp_axes, model_size
+    from repro_torch.models import lm
+    from repro_torch.models import tp as tpc
+    cfg_tp = cfg.with_tp(model_size(mesh))
+    rows, seq = data[0]["tokens"].shape
+    state = steps.build_state(cfg, 0, dev, scfg.adam, mesh=mesh)
+    step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=rows,
+                                 device=dev, mesh=mesh)
+    losses, ms, coll, g0 = [], [], [], None
+    packs = dict.fromkeys(bp.LAUNCHES, 0)
+    for i, b in enumerate(data):
+        _sync(dev)
+        timer.clear()
+        before = dict(bp.LAUNCHES)
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        losses.append(loss.item())
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append(timer.total())
+        for k in packs:
+            packs[k] += bp.LAUNCHES[k] - before[k]
+        if i == 0:
+            g0 = {k: g.clone() for k, g in _step_grads(state).items()}
+    del state
+    plain = steps.build_state(cfg_tp, 0, dev, scfg.adam)
+    ustep = steps.make_train_step(
+        cfg_tp, scfg, seq_len=seq, batch=rows, device=dev,
+        group=axis_group(mesh, dp_axes(mesh)))
+    u_losses, u_ms = [], []
+    blocks = lm.param_blocks(cfg_tp, mesh)
+    summed = lm.partial_grad_leaves(
+        cfg_tp, tpc.from_mesh(mesh, scfg.seq_parallel).splits_seq(seq))
+    rtol, atol = TRAIN_GRAD_TOL
+    worst, medians = float("-inf"), {}
+    for i, b in enumerate(data):
+        _sync(dev)
+        t0 = time.perf_counter()
+        plain, loss = ustep(plain, b)
+        u_losses.append(loss.item())
+        _sync(dev)
+        u_ms.append((time.perf_counter() - t0) * 1e3)
+        if i:
+            continue
+        seen = {}
+        for k, g in _step_grads(plain).items():
+            parts = k.split(".")
+            leaf = ".".join(["layers", *parts[2:]]) \
+                if parts[0] == "layers" else k
+            w = g[blocks[leaf][1:] if parts[0] == "layers"
+                  else blocks[k]]
+            excess = float(((g0[k] - w).abs() - atol - rtol * w.abs())
+                           .max())
+            worst = max(worst, excess)
+            if leaf in summed:
+                seen.setdefault(leaf, []).append(g.abs().flatten())
+        medians = {leaf: float(torch.cat(gs).median())
+                   for leaf, gs in seen.items()}
+    del plain
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "unsharded_losses": u_losses,
+            "step_ms": ms, "collective_ms": coll,
+            "unsharded_step_ms": u_ms, "grad_excess": worst,
+            "summed_median_abs_grad": medians, "packs": packs}
+
+
 def tp_train_rank_main(rank: int, n: int, store: str, out_dir: str,
                        device: str, small: bool) -> None:
     """One of 23b's ranks: a (1, ``n``) mesh over a ``gloo`` group of
     ``n`` processes sharing the card, made at once; when ``out_dir/go``
-    appears, :data:`TP_TRAIN2`'s arch at ``cfg.with_tp(n)``: the TP
-    step from ``build_state(..., mesh=)``, each step timed with its
-    collectives' share, then the unsharded step (synced over the data
-    axes, one rank) on the same rows from the same seed; this rank's
-    blocks of the step-0 gradients against the unsharded step's
-    (``TRAIN_GRAD_TOL``), and the median |g| of each leaf whose partial
-    gradients the step sums over ``model``, the scale beside which the
-    tolerance's atol stands.  Writes ``train<r>.json``."""
+    appears, :data:`TP_TRAIN2`'s arch at ``cfg.with_tp(n)`` through
+    :func:`_train_against_unsharded`.  Writes ``train<r>.json``."""
     import torch
     import torch.distributed as dist
     from repro_torch.data import pipeline
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import axis_group, dp_axes, make_mesh
-    from repro_torch.models import lm
-    from repro_torch.models import tp as tpc
+    from repro_torch.launch.mesh import make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
@@ -3848,68 +3941,16 @@ def tp_train_rank_main(rank: int, n: int, store: str, out_dir: str,
         if small:
             rows, seq = 2, 64
         cfg = _tp_train_config(arch, layers, small)
-        cfg_tp = cfg.with_tp(n)
         stream = pipeline.for_model(cfg, seq, rows)
         data = [steps.batch_to_device(stream.batch(i), dev)
                 for i in range(n_steps)]
         scfg = steps.StepConfig(sync_mode="partitioned",
                                 aggr_bytes=TRAIN_AGGR, param_dtype="float32",
                                 warmup_steps=1, total_steps=10)
-        state = steps.build_state(cfg, 0, dev, scfg.adam, mesh=mesh)
-        step = steps.make_train_step(cfg, scfg, seq_len=seq, batch=rows,
-                                     device=dev, mesh=mesh)
-        losses, ms, coll, g0 = [], [], [], None
-        for i, b in enumerate(data):
-            _sync(dev)
-            timer.clear()
-            t0 = time.perf_counter()
-            state, loss = step(state, b)
-            losses.append(loss.item())
-            _sync(dev)
-            ms.append((time.perf_counter() - t0) * 1e3)
-            coll.append(timer.total())
-            if i == 0:
-                g0 = {k: g.clone() for k, g in _step_grads(state).items()}
+        report = _train_against_unsharded(cfg, scfg, mesh, data, dev,
+                                          timer)
         timer.close()
-        del state
-        plain = steps.build_state(cfg_tp, 0, dev, scfg.adam)
-        ustep = steps.make_train_step(
-            cfg_tp, scfg, seq_len=seq, batch=rows, device=dev,
-            group=axis_group(mesh, dp_axes(mesh)))
-        u_losses, u_ms = [], []
-        blocks = lm.param_blocks(cfg_tp, mesh)
-        summed = lm.partial_grad_leaves(
-            cfg_tp, tpc.from_mesh(mesh, scfg.seq_parallel).splits_seq(seq))
-        rtol, atol = TRAIN_GRAD_TOL
-        worst, medians = float("-inf"), {}
-        for i, b in enumerate(data):
-            _sync(dev)
-            t0 = time.perf_counter()
-            plain, loss = ustep(plain, b)
-            u_losses.append(loss.item())
-            _sync(dev)
-            u_ms.append((time.perf_counter() - t0) * 1e3)
-            if i:
-                continue
-            seen = {}
-            for k, g in _step_grads(plain).items():
-                parts = k.split(".")
-                leaf = ".".join(["layers", *parts[2:]]) \
-                    if parts[0] == "layers" else k
-                w = g[blocks[leaf][1:] if parts[0] == "layers"
-                      else blocks[k]]
-                excess = float(((g0[k] - w).abs() - atol - rtol * w.abs())
-                               .max())
-                worst = max(worst, excess)
-                if leaf in summed:
-                    seen.setdefault(leaf, []).append(g.abs().flatten())
-            medians = {leaf: float(torch.cat(gs).median())
-                       for leaf, gs in seen.items()}
-        report = {"losses": losses, "unsharded_losses": u_losses,
-                  "step_ms": ms, "collective_ms": coll,
-                  "unsharded_step_ms": u_ms, "grad_excess": worst,
-                  "summed_median_abs_grad": medians,
-                  "layers": cfg.n_layers, "rows": rows, "seq": seq}
+        report.update(layers=cfg.n_layers, rows=rows, seq=seq)
     finally:
         (out / f"train{rank}.json").write_text(json.dumps(report))
         dist.destroy_process_group()
@@ -4270,6 +4311,348 @@ def dryrun_times(tree: Path) -> dict:
             "24b_real": out["real"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: Mamba-2 under tensor parallelism wherever JAX places it
+# ---------------------------------------------------------------------------
+
+# mamba2-780m at its published head_dim 64, d_state 128 and chunk 256,
+# MAMBA_TP_LAYERS layers: (a) at d_model MAMBA_TP_CUT (47 heads: on two
+# model ranks each holds 1504 channels, 23.5 heads), trained in f32;
+# (b) at its d_model 1536 with MAMBA_TP_GROUPS B/C groups (16 heads a
+# group: rank 0 holds group 0 and half of group 1), served in bf16 and
+# trained in f32.  A cut at the published d_model needs M >= 32 ranks,
+# more gloo ranks than one card hosts within the phase's time; 1504 is
+# the d_model nearest 1536 (4% narrower) whose heads two ranks cut.
+MAMBA_TP_ARCH = "mamba2-780m"
+MAMBA_TP_LAYERS = 4
+MAMBA_TP_CUT = 1504
+MAMBA_TP_GROUPS = 3
+MAMBA_TP_TRAIN = (2, 512, 2)   # rows, sequence, steps
+MAMBA_TP_SERVE = (2, 1024)     # prompts, prompt length (TP_GEN decodes)
+
+
+def _mamba_tp_configs(small: bool):
+    """Phase 25's (a) and (b) configs in f32 (the smoke config at
+    d_model 40 and 48 when ``small``: 5 heads, and 6 heads in 3
+    groups)."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    if small:
+        base, cut, wide = get_smoke_config(MAMBA_TP_ARCH), 40, 48
+    else:
+        base = get_config(MAMBA_TP_ARCH).replace(n_layers=MAMBA_TP_LAYERS)
+        cut, wide = MAMBA_TP_CUT, base.d_model
+    base = base.replace(param_dtype="float32")
+    return (base.replace(d_model=cut),
+            base.replace(d_model=wide, mamba=dataclasses.replace(
+                base.mamba, n_groups=MAMBA_TP_GROUPS)))
+
+
+def _mamba_tp_data(cfg, dev, small: bool) -> list:
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    rows, seq, n_steps = (2, 64, 2) if small else MAMBA_TP_TRAIN
+    stream = pipeline.for_model(cfg, seq, rows)
+    return [steps.batch_to_device(stream.batch(i), dev)
+            for i in range(n_steps)]
+
+
+def _mamba_train_config():
+    from repro_torch.launch import steps
+    return steps.StepConfig(sync_mode="partitioned", aggr_bytes=TRAIN_AGGR,
+                            param_dtype="float32", warmup_steps=1,
+                            total_steps=10)
+
+
+def mamba_tp_phase(dev, small: bool = False) -> dict:
+    """25a: config (b) over a (1, 1) ``DeviceMesh`` on the one-rank
+    group: the bf16 prefill of :data:`MAMBA_TP_SERVE` and ``TP_GEN``
+    decodes (timed on a second pass), and the f32 train steps of
+    :data:`MAMBA_TP_TRAIN`, bit for bit the unsharded steps' (logits;
+    losses, gradients and the final parameters).  Returns the times."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.compat import psum_
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.models import convert
+    card, on_card = _card_name(), dev.type == "cuda"
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    psum_(torch.ones(1, device=dev), axis_group(mesh, "model"))  # warm
+    cfg = _mamba_tp_configs(small)[1]
+    b, s = (2, 64) if small else MAMBA_TP_SERVE
+    model = serve.build_model(cfg, 0, dev, torch.bfloat16)
+    prompts = serve.make_prompts(cfg, b, s, 3, dev)
+    want, fed, _, pre_u, dec_u, _ = _tp_serve(
+        cfg, steps.StepConfig(), model, prompts, dev)
+    local = convert.tp_shard_model(model, cfg.with_tp(1), mesh)
+    del model
+    got, _, _, pre_ms, dec_ms, _ = _tp_serve(
+        cfg, steps.StepConfig(), local, prompts, dev, feed=fed, mesh=mesh)
+    del local
+    check(_same_logits(got, want),
+          f"25a: TP logits on the one-rank group differ from the"
+          f" unsharded steps' (max |d| "
+          f"{max(float((x - y).abs().max()) for x, y in zip(got, want))})")
+    check(all(bool(torch.isfinite(g[:, :cfg.vocab]).all()) for g in got),
+          "25a: non-finite logits")
+    data = _mamba_tp_data(cfg, dev, small)
+    scfg = _mamba_train_config()
+    rows, seq = data[0]["tokens"].shape
+    paths = {name: (steps.build_state(cfg, 0, dev, scfg.adam, mesh=m),
+                    steps.make_train_step(cfg, scfg, seq_len=seq,
+                                          batch=rows, device=dev, mesh=m))
+             for name, m in (("unsharded", None), ("tp", mesh))}
+    losses = {name: [] for name in paths}
+    times = {name: [] for name in paths}
+    for i, bt in enumerate(data):
+        grads = {}
+        for name, (state, step) in paths.items():
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state, bt)
+            losses[name].append(loss.item())
+            _sync(dev)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            grads[name] = _step_grads(state)
+        check(losses["tp"][i] == losses["unsharded"][i]
+              and all(_same_bits(g, grads["tp"][k])
+                      for k, g in grads["unsharded"].items()),
+              f"25a step {i}: TP loss {losses['tp'][i]!r} or gradients"
+              f" differ from the unsharded step's"
+              f" ({losses['unsharded'][i]!r})")
+    pt = dict(paths["tp"][0]["params"].named_parameters())
+    check(all(_same_bits(p, pt[k]) for k, p in
+              paths["unsharded"][0]["params"].named_parameters()),
+          f"25a: TP parameters differ after {len(data)} steps")
+    del paths, pt
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"[{card}] 25a {cfg.name} at d_model {cfg.d_model},"
+          f" {cfg.mamba.n_groups} B/C groups ({cfg.n_layers} layers) on a"
+          f" (1, 1) mesh: bf16 prefill of {b} x {s} and {TP_GEN} decodes"
+          f" bitwise the unsharded steps' (prefill {pre_ms:.3f} ms,"
+          f" unsharded {pre_u:.3f}; decode {dec_ms:.3f} ms a token,"
+          f" unsharded {dec_u:.3f}; host clock, the second of two passes);"
+          f" f32 train {rows} x {seq}, {len(data)} steps bitwise (losses"
+          f" {losses['tp']}, every gradient, the parameters), step ms"
+          f" {[round(t, 3) for t in times['tp']]} (unsharded"
+          f" {[round(t, 3) for t in times['unsharded']]}, the unsharded"
+          f" step first in each pair)")
+    return {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "unsharded_prefill_ms": pre_u, "unsharded_decode_ms": dec_u,
+            "losses": losses["tp"], "step_ms": times["tp"],
+            "unsharded_step_ms": times["unsharded"]}
+
+
+def mamba_tp_rank_main(rank: int, n: int, store: str, out_dir: str,
+                       device: str, small: bool) -> None:
+    """One of 25b's ranks: a (1, ``n``) mesh over a ``gloo`` group of
+    ``n`` processes sharing the card; when ``out_dir/go`` appears,
+    configs (a) and (b) trained in f32 against the unsharded step
+    (:func:`_train_against_unsharded`), (a)'s serving steps refused, and
+    (b) served in bf16 (a prefill and ``TP_GEN`` decodes, the unsharded
+    path's greedy tokens fed to both), each pass timed with its
+    collectives' share.  Writes ``mamba<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import serve
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convert, lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    out, report = Path(out_dir), {}
+    try:
+        mesh = make_mesh((1, n), ("data", "model"), dev)
+        timer = _CollectiveTimer(dev)
+        t0 = time.perf_counter()
+        while not (out / "go").exists():
+            if time.perf_counter() - t0 > TP2_TIMEOUT_S:
+                raise TimeoutError("25b: the parent never said go")
+            time.sleep(0.05)
+        cfgs = dict(zip("ab", _mamba_tp_configs(small)))
+        b, s = (2, 64) if small else MAMBA_TP_SERVE
+        for tag, cfg in cfgs.items():
+            rec = _train_against_unsharded(
+                cfg, _mamba_train_config(), mesh,
+                _mamba_tp_data(cfg, dev, small), dev, timer)
+            cs = lm.param_blocks(cfg.with_tp(n), mesh)["layers.mamba.w_x"][2]
+            rec.update(channels=[cs.start, cs.stop], d_model=cfg.d_model,
+                       layers=cfg.n_layers)
+            report[tag] = rec
+        refused = []
+        for make in (steps.make_prefill_step, steps.make_decode_step):
+            try:
+                make(cfgs["a"], steps.StepConfig(), seq_len=s, batch=b,
+                     device=dev, mesh=mesh)
+                refused.append("no error")
+            except NotImplementedError as e:
+                refused.append(str(e))
+        report["a"]["refused"] = refused
+        cfg = cfgs["b"].with_tp(n)
+        full = serve.build_model(cfg, 0, dev, torch.bfloat16)
+        prompts = serve.make_prompts(cfg, b, s, 3, dev)
+        want, feed, _, pre_u, dec_u, _ = _tp_serve(
+            cfg, steps.StepConfig(), full, prompts, dev)
+        local = convert.tp_shard_model(full, cfg, mesh)
+        del full
+        got, _, _, pre_ms, dec_ms, coll = _tp_serve(
+            cfg, steps.StepConfig(), local, prompts, dev, feed=feed,
+            mesh=mesh, timer=timer)
+        timer.close()
+        ulp = _bf16_ulp(max(float(x[:, :cfg.vocab].float().abs().max())
+                            for x in want))
+        err = max(float((g[:, :cfg.vocab].float()
+                         - w[:, :cfg.vocab].float()).abs().max())
+                  for g, w in zip(got, want))
+        report["serve"] = {
+            "max_abs_err": err, "ulp": ulp, "finite": all(
+                bool(torch.isfinite(g[:, :cfg.vocab]).all()) for g in got),
+            "prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "prefill_collective_ms": coll["prefill"],
+            "decode_collective_ms": coll["decode"],
+            "unsharded_prefill_ms": pre_u, "unsharded_decode_ms": dec_u,
+            "prompts": [b, s]}
+    finally:
+        (out / f"mamba{rank}.json").write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def mamba_tp_ranks_phase(dev, procs: list, tmp: str,
+                         small: bool = False) -> dict:
+    """25b: two ``gloo`` ranks in processes of their own on the one card
+    (:func:`mamba_tp_rank_main`), a (1, 2) mesh.  Checks: each rank
+    holds the rank-th half of d_inner, a block that cuts a head in (a);
+    per config, equal losses on both ranks within ``TRAIN_LOSS_RTOL`` of
+    the unsharded step's and step-0 gradient blocks within
+    ``TRAIN_GRAD_TOL``, the pack kernels launched on the card; (a)'s
+    serving steps refused with JAX's reason; (b)'s bf16 logits within
+    ``TP_BF16_ULPS`` bf16 ulps of the unsharded path's.  Gloo stages
+    CUDA tensors through the host: these are gloo's times, not
+    NCCL's."""
+    card, on_card = _card_name(), dev.type == "cuda"
+    t0 = time.perf_counter()
+    _let_ranks_go(procs, tmp, "25b")
+    wall = time.perf_counter() - t0
+    n = len(procs)
+    reports = [json.loads((Path(tmp) / f"mamba{r}.json").read_text())
+               for r in range(n)]
+    cfgs = dict(zip("ab", _mamba_tp_configs(small)))
+    for tag, cfg in cfgs.items():
+        di, hd = cfg.mamba.d_inner(cfg.d_model), cfg.mamba.head_dim
+        for r, rep in enumerate(reports):
+            x = rep[tag]
+            heads = (x["channels"][1] - x["channels"][0]) / hd
+            check(x["channels"] == [r * di // n, (r + 1) * di // n]
+                  and (tag == "b" or di // n % hd),
+                  f"25b ({tag}) rank {r}: channels {x['channels']} of"
+                  f" {di}, not the rank's equal block"
+                  + (" cutting a head" if tag == "a" else ""))
+            check(x["losses"] == reports[0][tag]["losses"],
+                  f"25b ({tag}) rank {r}: losses {x['losses']} != rank 0's")
+            check(all(abs(u - v) <= TRAIN_LOSS_RTOL * abs(v) for u, v in
+                      zip(x["losses"], x["unsharded_losses"])),
+                  f"25b ({tag}) rank {r}: losses {x['losses']} against the"
+                  f" unsharded {x['unsharded_losses']}")
+            check(x["grad_excess"] <= 0.0,
+                  f"25b ({tag}) rank {r}: a step-0 gradient beyond"
+                  f" {TRAIN_GRAD_TOL} of the unsharded step's by"
+                  f" {x['grad_excess']!r}")
+            check(not on_card or x["packs"]["bucket_pack"] > 0,
+                  f"25b ({tag}) rank {r}: no pack launch in the TP steps")
+            print(f"[{card}] 25b ({tag}) {cfg.name} at d_model"
+                  f" {cfg.d_model}, {cfg.mamba.n_groups} B/C group(s)"
+                  f" ({x['layers']} layers, f32) at with_tp({n}), rank {r}"
+                  f" of a (1, {n}) gloo mesh holding channels"
+                  f" {x['channels']} ({heads:g} heads): losses {x['losses']} (unsharded"
+                  f" {x['unsharded_losses']}, rtol {TRAIN_LOSS_RTOL}),"
+                  f" step-0 gradient blocks within {TRAIN_GRAD_TOL}"
+                  f" (rtol, atol), worst excess {x['grad_excess']!r};"
+                  f" median |g| of the leaves summed over 'model'"
+                  f" {x['summed_median_abs_grad']}; step ms"
+                  f" {[round(t, 3) for t in x['step_ms']]}, of it in"
+                  f" collectives"
+                  f" {[round(t, 3) for t in x['collective_ms']]};"
+                  f" unsharded step ms"
+                  f" {[round(t, 3) for t in x['unsharded_step_ms']]};"
+                  f" pack/unpack launches {x['packs']}")
+    for r, rep in enumerate(reports):
+        for msg in rep["a"]["refused"]:
+            check(f"do not split evenly over {n} model ranks" in msg
+                  and "cache state dim 2" in msg,
+                  f"25b (a) rank {r}: serving not refused with JAX's"
+                  f" reason: {msg}")
+        x = rep["serve"]
+        check(x["finite"] and x["max_abs_err"] <= TP_BF16_ULPS * x["ulp"],
+              f"25b (b) rank {r}: bf16 logits off the unsharded path's by"
+              f" {x['max_abs_err']!r}, beyond {TP_BF16_ULPS} ulps of"
+              f" {x['ulp']!r}")
+        b, s = x["prompts"]
+        print(f"[{card}] 25b (b) bf16 serving, rank {r}: prefill of {b} x"
+              f" {s} {x['prefill_ms']:.3f} ms"
+              f" ({x['prefill_collective_ms']:.3f} ms in collectives),"
+              f" decode {x['decode_ms']:.3f} ms a token"
+              f" ({x['decode_collective_ms']:.3f} ms in collectives);"
+              f" unsharded prefill {x['unsharded_prefill_ms']:.3f} ms,"
+              f" decode {x['unsharded_decode_ms']:.3f} ms (host clock, the"
+              f" second of two passes); logits within {TP_BF16_ULPS} bf16"
+              f" ulps (max |d| {x['max_abs_err']!r}, ulp {x['ulp']!r});"
+              f" (a)'s serving refused: {rep['a']['refused'][0]}")
+    return {"ranks": reports, "ranks_wall_s": wall}
+
+
+def mamba_tp_phases(dev, small: bool = False):
+    """Phase 25: 25b's ranks started first (their start-up overlaps
+    25a), 25a over a one-rank group (``nccl`` on the card), then 25b.
+    Returns both phases' results and their walls."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = _rank_procs("--mamba-tp-rank", dev, tmp, small)
+        try:
+            with tempfile.TemporaryDirectory() as tmp1:
+                dist.init_process_group(
+                    "nccl" if dev.type == "cuda" else "gloo", rank=0,
+                    world_size=1,
+                    store=dist.FileStore(os.path.join(tmp1, "store"), 1))
+                try:
+                    a = mamba_tp_phase(dev, small)
+                finally:
+                    dist.destroy_process_group()
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        wall_a = time.perf_counter() - t0
+        print(f"[{_card_name()}] phase 25a wall {wall_a:.3f} s")
+        t0 = time.perf_counter()
+        b = mamba_tp_ranks_phase(dev, procs, tmp, small)
+        wall_b = time.perf_counter() - t0
+        print(f"[{_card_name()}] phase 25b wall {wall_b:.3f} s")
+    return a, b, {"25a": wall_a, "25b": wall_b}
+
+
+def mamba_tp_times(tree: Path) -> dict:
+    """Phase 25 alone (its kernels built first), with the card's name
+    and power limit."""
+    import torch
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _card_name()
+    t0 = time.perf_counter()
+    build.build()
+    built = time.perf_counter() - t0
+    a, b, walls = mamba_tp_phases(torch.device("cuda"))
+    return {"tree": str(tree), "card": smi, "build_s": built,
+            "25a": a, "25b": b, "walls_s": walls}
+
+
 def run(device_name: str = "cuda", small: bool = False) -> dict:
     """All phases on ``device_name``; returns the kernel table.
     ``small`` cuts the serving and training phases to the llama smoke
@@ -4584,6 +4967,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
         finally:
             dist.destroy_process_group()
     print(f"[{_card_name()}] phase 24 wall {time.perf_counter() - t0:.3f} s")
+
+    # 25. Mamba-2 under tensor parallelism wherever JAX places it ----------
+    mamba_tp_phases(dev, small)
     return {"kernels": [fabric, fabric_f32, *flash, *train_kernels]}
 
 
@@ -4797,7 +5183,8 @@ def _card_ready() -> bool:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     ranks = {"--tp-rank": tp_rank_main,  # one of 22b's ranks
-             "--tp-train-rank": tp_train_rank_main}  # one of 23b's
+             "--tp-train-rank": tp_train_rank_main,  # one of 23b's
+             "--mamba-tp-rank": mamba_tp_rank_main}  # one of 25b's
     if argv[:1] and argv[0] in ranks and len(argv) == 7:
         sys.path.insert(0, str(ROOT / "src"))
         ranks[argv[0]](int(argv[1]), int(argv[2]), argv[3], argv[4],
@@ -4815,7 +5202,8 @@ def main(argv=None) -> int:
              "--families": families_times,
              "--train-families": train_families_times,
              "--trace-attribution": trace_attribution, "--tp": tp_times,
-             "--tp-train": tp_train_times, "--dryrun": dryrun_times}
+             "--tp-train": tp_train_times, "--dryrun": dryrun_times,
+             "--mamba-tp": mamba_tp_times}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

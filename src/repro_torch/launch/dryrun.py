@@ -162,7 +162,7 @@ def cell_call(arch_id: str, shape: ShapeConfig, mesh, scfg: StepConfig,
         opt = init_zero1_state(
             dict(model.named_parameters()), scfg.adam, mesh,
             steps.opt_specs(run_cfg, mesh)["m"],
-            shapes=lm.param_shapes(run_cfg), units=lm.param_units(run_cfg))
+            shapes=lm.param_shapes(run_cfg))
         batch = _batch(run_cfg, B // _mesh.dp_size(mesh), S, dev, True)
         step = make_train_step(cfg, scfg, seq_len=S, batch=B, device=dev,
                                mesh=mesh)

@@ -250,47 +250,39 @@ def check_divisible(shape: Sequence[int], spec: Sequence,
                 f" is not divisible by {n}")
 
 
-def block(n: int, count: int, index: int, unit: int = 1) -> slice:
-    """Block ``index`` of ``count`` of a dim of ``n`` elements in units
-    of ``unit`` (a Mamba head's channels): ``torch.chunk``'s rule on the
-    n / unit units, ceil(units / count) a block, the last blocks shorter
-    (or empty); equal blocks where ``count`` divides the units."""
-    if n % unit:
-        raise ValueError(f"block: {n} is not a multiple of the unit {unit}")
-    units = n // unit
-    c = -(-units // count)
-    lo = min(units, index * c)
-    return slice(lo * unit, min(units, lo + c) * unit)
+def block(n: int, count: int, index: int) -> slice:
+    """Block ``index`` of ``count`` of a dim of ``n`` elements:
+    ``torch.chunk``'s rule, ceil(n / count) a block, the last blocks
+    shorter (or empty); equal blocks where ``count`` divides ``n``."""
+    c = -(-n // count)
+    lo = min(n, index * c)
+    return slice(lo, min(n, lo + c))
 
 
 def local_slices(shape: Sequence[int], spec: Sequence, mesh,
-                 units: Optional[Dict[int, int]] = None
-                 ) -> Tuple[slice, ...]:
+                 uneven: bool = False) -> Tuple[slice, ...]:
     """This rank's block of a ``shape`` array under ``spec`` (the
     slices of its DTensor local shard), the split dims checked.  With
-    ``units`` (dim -> unit; dims not named have unit 1) a split dim need
-    not divide: each takes :func:`block`'s rule, as the tensor-parallel
-    parameters do (``lm.param_blocks``)."""
-    if units is None:
+    ``uneven`` a split dim need not divide: it takes :func:`block`'s
+    rule, as the tensor-parallel parameters do (``lm.param_blocks``)."""
+    if not uneven:
         check_divisible(shape, spec, mesh)
     out = [slice(0, s) for s in shape]
     for d, entry in enumerate(tuple(spec)):
         if entry is None:
             continue
-        out[d] = block(shape[d], size(mesh, entry), axis_index(mesh, entry),
-                       (units or {}).get(d, 1))
+        out[d] = block(shape[d], size(mesh, entry), axis_index(mesh, entry))
     return tuple(out)
 
 
 def zeros(shape: Sequence[int], spec: Sequence, mesh, dtype, device,
-          units: Optional[Dict[int, int]] = None):
+          uneven: bool = False):
     """A zero DTensor of global ``shape`` on ``mesh`` under ``spec``,
-    allocating only this rank's block (with ``units``, a split dim that
-    does not divide takes :func:`block`'s rule, DTensor's own
-    ``torch.chunk`` rule where the units are 1)."""
+    allocating only this rank's block (with ``uneven``, a split dim that
+    does not divide takes :func:`block`'s rule, DTensor's own)."""
     from torch.distributed.tensor import DTensor
     local = [s.stop - s.start
-             for s in local_slices(shape, spec, mesh, units)]
+             for s in local_slices(shape, spec, mesh, uneven)]
     return DTensor.from_local(
         torch.zeros(local, dtype=dtype, device=device), mesh,
         to_placements(spec, mesh, len(shape)), run_check=False,
@@ -307,11 +299,10 @@ def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
 
 
 def gather_blocks(local: torch.Tensor, shape: Sequence[int], spec: Sequence,
-                  mesh, units: Optional[Dict[int, int]] = None
-                  ) -> torch.Tensor:
+                  mesh) -> torch.Tensor:
     """The whole ``shape`` array on every rank of ``mesh`` from each
-    rank's block under ``spec`` (:func:`local_slices` with ``units``:
-    uneven blocks too), one all-gather (``compat.all_gather_``) over the
+    rank's block under ``spec`` (:func:`local_slices`, uneven blocks
+    too), one all-gather (``compat.all_gather_``) over the
     axes of each split dim of more than one rank, the blocks padded to
     the largest.  A collective call: every rank of the mesh makes it."""
     from ..compat import all_gather_
@@ -320,8 +311,7 @@ def gather_blocks(local: torch.Tensor, shape: Sequence[int], spec: Sequence,
         n = size(mesh, spec_axes(entry))
         if n == 1:
             continue
-        unit = (units or {}).get(d, 1)
-        sizes = [block(shape[d], n, i, unit) for i in range(n)]
+        sizes = [block(shape[d], n, i) for i in range(n)]
         sizes = [s.stop - s.start for s in sizes]
         c = max(sizes)
         pad = torch.zeros((*out.shape[:d], c, *out.shape[d + 1:]),

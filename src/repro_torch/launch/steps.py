@@ -102,12 +102,15 @@ def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
     with ``seed``, requiring gradients, and zero AdamW moments.  On a
     ``mesh`` the model is ``cfg.with_tp(M)`` over its ``model`` axis of
     M ranks: the whole model is drawn and this rank keeps its blocks
-    (``convert.tp_shard_model``), bit for bit those of the unsharded
-    model; the moments are the ZeRO-1 DTensors of :func:`opt_specs`,
-    each rank allocating its (model, data) block only."""
+    (``convert.tp_shard_model``; a block of Mamba's d_inner may cut a
+    head), bit for bit those of the unsharded model; the moments are
+    the ZeRO-1 DTensors of :func:`opt_specs`, each rank allocating its
+    (model, data) block only.  A Mamba arch is refused where M does not
+    divide a Mamba parameter's split dim, as in the train step."""
     dev = resolve_device(device)
     if mesh is not None:
         cfg = cfg.with_tp(_mesh.model_size(mesh))
+        _require_mamba_placed("build_state", cfg, _mesh.model_size(mesh))
     model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
     if mesh is not None and _mesh.model_size(mesh) > 1:
@@ -116,8 +119,7 @@ def build_state(cfg: lm.ModelConfig, seed: int = 0, device="cuda",
     named = dict(model.named_parameters())
     opt = init_opt_state(named, adam) if mesh is None else \
         init_zero1_state(named, adam, mesh, opt_specs(cfg, mesh)["m"],
-                         shapes=lm.param_shapes(cfg),
-                         units=lm.param_units(cfg))
+                         shapes=lm.param_shapes(cfg))
     return {"params": model, "opt": opt}
 
 
@@ -126,17 +128,35 @@ def _require_member(what: str, mesh) -> None:
         raise ValueError(f"{what}: this rank is not in the mesh {mesh}")
 
 
-def _require_whole_heads(what: str, cfg: lm.ModelConfig, m: int,
-                         holder: str) -> None:
-    """Refuse a Mamba arch whose heads do not split evenly over the M
-    ranks of ``model``: ``holder`` (what splits over ``model``) holds
-    DTensors, whose blocks of ``conv_x``'s channels would cut a head."""
-    if cfg.mamba is not None and cfg.mamba.n_heads(cfg.d_model) % m:
+def _require_mamba_placed(what: str, cfg: lm.ModelConfig, m: int,
+                          serving: bool = False) -> None:
+    """Refuse a Mamba arch on ``m`` model ranks exactly where the JAX
+    package's ``jax.device_put`` refuses its Mamba leaves: a dim split
+    over ``model`` that ``m`` does not divide, among the
+    ``layers.mamba.*`` parameter leaves of ``cfg`` (``cfg.with_tp(m)``:
+    ``lm.param_specs``) and, when ``serving``, the cache's ``state``
+    (split by heads) and ``conv_x`` (by channels; ``lm.cache_specs``)."""
+    if cfg.mamba is None:
+        return
+    shapes, specs = lm.param_shapes(cfg), lm.param_specs(cfg)
+    leaves = [(k, shapes[k], specs[k]) for k in shapes
+              if k.startswith("layers.mamba.")]
+    holder = ("the parameters (lm.param_specs) and their ZeRO-1 moments"
+              " (optim.adamw.opt_state_specs)")
+    if serving:
+        cshapes, cspecs = lm.cache_shapes(cfg, 1, 1), lm.cache_specs(cfg)
+        leaves += [(f"cache {k}", cshapes[k], cspecs[k])
+                   for k in ("state", "conv_x")]
+        holder = ("the parameters (lm.param_specs) and the cache's state"
+                  " and conv_x tail (lm.cache_specs)")
+    bad = [f"{k} dim {d} ({shape[d]})" for k, shape, spec in leaves
+           for d, e in enumerate(tuple(spec))
+           if lm.MODEL_AXIS in _mesh.spec_axes(e) and shape[d] % m]
+    if bad:
         raise NotImplementedError(
-            f"{what}: {cfg.name}'s {cfg.mamba.n_heads(cfg.d_model)}"
-            f" Mamba heads do not split evenly over {m} model ranks;"
-            f" {holder} as DTensors, whose blocks are equal, and a block of"
-            f" conv_x's channels would cut a head")
+            f"{what}: {cfg.name}'s Mamba leaves {', '.join(bad)} do not"
+            f" split evenly over {m} model ranks; {holder} split them over"
+            f" 'model' in equal blocks, which JAX's device_put refuses too")
 
 
 class _ParamCheck:
@@ -270,14 +290,12 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
     ``zero1_update`` updates this rank's (model, data) block."""
     cfg = _apply_overrides(cfg.replace(param_dtype=scfg.param_dtype), scfg)
     dev = resolve_device(device)
-    ospecs = tp = grad_sum = check = blocks = shapes = units = None
+    ospecs = tp = grad_sum = check = blocks = shapes = None
     if mesh is not None:
         _require_member("train_step", mesh)
         m = _mesh.model_size(mesh)
         cfg = cfg.with_tp(m)
-        _require_whole_heads("train_step", cfg, m,
-                             "the ZeRO-1 moments of conv_x split over"
-                             " 'model' (optim.adamw.opt_state_specs)")
+        _require_mamba_placed("train_step", cfg, m)
         dp = _mesh.dp_size(mesh)
         if batch % dp:
             raise ValueError(f"train_step: a global batch of {batch} does"
@@ -287,7 +305,7 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
         ospecs = opt_specs(cfg, mesh)["m"]
         tp = tpc.from_mesh(mesh, scfg.seq_parallel)
         blocks = lm.param_blocks(cfg, mesh)
-        shapes, units = lm.param_shapes(cfg), lm.param_units(cfg)
+        shapes = lm.param_shapes(cfg)
         check = _ParamCheck("train_step", lm.local_shapes(cfg, blocks))
         if m > 1:
             grad_sum = model_axis_sum(
@@ -322,7 +340,7 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
             adamw_update(named, grads, state["opt"], lr, scfg.adam)
         else:
             zero1_update(named, grads, state["opt"], lr, scfg.adam, mesh,
-                         ospecs, blocks=blocks, units=units, shapes=shapes)
+                         ospecs, blocks=blocks, shapes=shapes)
         return state, loss
 
     step_fn.log = vg.log
@@ -396,9 +414,8 @@ class _CacheLayout:
     def __init__(self, what: str, cfg: lm.ModelConfig, scfg: StepConfig,
                  mesh, batch: int):
         _require_member(what, mesh)
-        _require_whole_heads(what, cfg, _mesh.model_size(mesh),
-                             "the cache's state and conv_x tail split over"
-                             " 'model' (lm.cache_specs)")
+        _require_mamba_placed(what, cfg, _mesh.model_size(mesh),
+                              serving=True)
         self.what, self.mesh, self.batch = what, mesh, batch
         self.b_ax, s_ax = _cache_axes(mesh, batch)
         self.n_seq = _mesh.size(mesh, s_ax)

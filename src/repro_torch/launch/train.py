@@ -26,7 +26,10 @@ its block of every leaf and its (model, data) block of the moments; a
 checkpoint holds the whole leaves, assembled from the blocks when it is
 saved, and ``--resume`` places them again by the mesh's shardings (a
 checkpoint of another M restores where the padded shapes agree).  A
-world smaller than M raises ``plan_mesh``'s ``ValueError``.  Every architecture
+world smaller than M raises ``plan_mesh``'s ``ValueError``.  A Mamba
+arch trains wherever M divides its d_inner (a rank's block of channels
+may cut a head) and is refused (exit 2) elsewhere, where the JAX
+package's ``device_put`` refuses its parameters.  Every architecture
 trains but qwen2-vl-7b, which is refused (exit 2) as the JAX package's
 training CLI fails on it: the synthetic stream makes no M-RoPE
 ``positions``, which its train step needs (``make_train_step`` trains
@@ -156,8 +159,13 @@ def _train(args, cfg, dev: torch.device) -> int:
                       param_dtype=args.param_dtype, peak_lr=args.peak_lr,
                       warmup_steps=max(args.steps // 10, 1),
                       total_steps=args.steps)
-    step_fn = make_train_step(cfg, scfg, seq_len=args.seq_len,
-                              batch=args.global_batch, device=dev, mesh=mesh)
+    try:
+        step_fn = make_train_step(cfg, scfg, seq_len=args.seq_len,
+                                  batch=args.global_batch, device=dev,
+                                  mesh=mesh)
+    except NotImplementedError as e:  # a Mamba arch M does not place
+        print(f"--tp {args.tp}: {e}", file=sys.stderr)
+        return 2
     state = build_state(cfg, 0, dev, scfg.adam, mesh=mesh)
     start = 0
     ckpt_dir = Path(args.ckpt_dir) / cfg.name.replace("/", "_")

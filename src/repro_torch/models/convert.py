@@ -223,18 +223,18 @@ def tp_named_to_jax(named: Mapping[str, torch.Tensor], cfg: ModelConfig,
     every rank's blocks (``lm.param_blocks``) of the parameters, their
     gradients or anything shaped so, by parameter name, on ``mesh``:
     the padded heads, experts and vocabulary, the ``torch.chunk`` blocks
-    of the FFN and the Mamba heads, each leaf gathered over the axes it
-    splits (``launch.mesh.gather_blocks``).  A collective call: every
+    of the FFN and the equal blocks of Mamba's d_inner (which may cut a
+    head), each leaf gathered over the axes it splits
+    (``launch.mesh.gather_blocks``).  A collective call: every
     rank of the mesh makes it."""
     from ..launch.mesh import gather_blocks
     shapes, specs = lm.param_shapes(cfg), lm.param_specs(cfg)
-    units = lm.param_units(cfg)
     out = {}
     for name, segs in param_leaves(named.items()):
         local = torch.stack([t.detach() for t in segs]) \
             if name.startswith("layers.") else segs[0].detach()
         out[name] = _to_numpy(gather_blocks(local, shapes[name],
-                                            specs[name], mesh, units[name]))
+                                            specs[name], mesh))
     return leaves_to_jax(out)
 
 

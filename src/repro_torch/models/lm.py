@@ -450,25 +450,11 @@ def param_specs(cfg: ModelConfig, axis: str = MODEL_AXIS) -> Dict[str, P]:
     return {name: flat[name] for name in param_shapes(cfg)}
 
 
-def _units(cfg: ModelConfig, name: str, shape, spec) -> Dict[int, int]:
-    """The unit of each split dim of a leaf: a Mamba head's channels for
-    the d_inner dims of the Mamba leaves (so that a rank's block holds
-    whole heads), else 1."""
-    if not name.startswith("layers.mamba.") or cfg.mamba is None:
-        return {}
-    di = cfg.mamba.d_inner(cfg.d_model)
-    return {d: cfg.mamba.head_dim for d, e in enumerate(tuple(spec))
-            if e is not None and shape[d] == di}
-
-
-def param_units(cfg: ModelConfig, axis: str = MODEL_AXIS
-                ) -> Dict[str, Dict[int, int]]:
-    """The unit of each split dim of every leaf (:func:`_units`: a Mamba
-    head's channels on the d_inner dims, else 1), by leaf name; the
-    ``units`` of ``launch.mesh.local_slices`` for the blocks of
-    :func:`param_blocks`, and of the ZeRO-1 moments laid over them."""
-    shapes, specs = param_shapes(cfg), param_specs(cfg, axis)
-    return {k: _units(cfg, k, shapes[k], specs[k]) for k in shapes}
+def param_units(cfg: ModelConfig) -> Dict[str, Dict[int, int]]:
+    """The unit of each split dim of every leaf, by leaf name: one
+    element on every dim (the Mamba leaves take the JAX package's equal
+    blocks of d_inner, not whole heads), so each leaf's map is empty."""
+    return {k: {} for k in param_shapes(cfg)}
 
 
 # The norms on the residual stream (not inside a mixer): under sequence
@@ -485,7 +471,8 @@ def partial_grad_leaves(cfg: ModelConfig, seq_split: bool,
     ``wk``/``wv``/``bk``/``bv``, each rank using the KV heads its q heads
     need; MLA's latent projections and their norms; Mamba's B/C/dt
     projections and convolutions, and ``A_log``, ``D``, ``dt_bias`` of
-    which a rank reads its heads; the MoE router, whose slots of experts
+    which a rank reads the heads its block of channels touches, a cut
+    head on two ranks; the MoE router, whose slots of experts
     held elsewhere are zero-weighted), and with ``seq_split`` the
     :data:`STREAM_NORMS`, which then see one block of the sequence.  The
     split leaves (their gradients are their blocks') and, without
@@ -500,13 +487,13 @@ def param_blocks(cfg: ModelConfig, mesh, axis: str = MODEL_AXIS
                  ) -> Dict[str, Tuple[slice, ...]]:
     """This rank's block of every parameter leaf on ``mesh`` under
     :func:`param_specs` (``launch.mesh.local_slices``), by leaf name,
-    over the stacked shapes of :func:`param_shapes`.  A split dim that
-    does not divide over the axis takes ``launch.mesh.block``'s rule,
-    the d_inner dims of the Mamba leaves in whole heads."""
+    over the stacked shapes of :func:`param_shapes`: equal blocks where
+    the axis divides the dim (the Mamba leaves' d_inner, whose blocks may
+    cut a head, as the JAX package's), else ``launch.mesh.block``'s rule
+    (the dense FFN's hidden units)."""
     from ..launch.mesh import local_slices
     shapes, specs = param_shapes(cfg), param_specs(cfg, axis)
-    units = param_units(cfg, axis)
-    return {k: local_slices(shapes[k], specs[k], mesh, units=units[k])
+    return {k: local_slices(shapes[k], specs[k], mesh, uneven=True)
             for k in shapes}
 
 

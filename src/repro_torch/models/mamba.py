@@ -210,27 +210,38 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
     in place (the SSM state cast to its dtype; a prefill keeps the last
     K-1 *pre-convolution* inputs) and returned.
 
-    ``tp`` (``models.tp.TP``): this rank holds a block of the heads
-    (``tp.block(H)``) and their d_inner channels in ``w_z``, ``w_x``,
-    ``conv_x``, ``conv_bx``, ``norm`` and the rows of ``out_proj``, and
-    its heads' block of the cache's state and ``conv_x`` tail; it takes
-    its heads' columns of the ``w_dt`` product and of ``dt_bias``,
-    ``A_log`` and ``D``, which it holds whole with ``w_B``, ``w_C`` and
-    their convolutions.  The gated norm spans the whole d_inner: its
-    sums of squares are summed over the group before the scale.  The
-    output is this rank's partial sum, which the caller reduces.
+    ``tp`` (``models.tp.TP``): this rank holds the JAX package's block
+    ``[c0, c1) = tp.block(di)`` of the d_inner channels in ``w_z``,
+    ``w_x``, ``conv_x``, ``conv_bx``, ``norm`` and the rows of
+    ``out_proj`` (equal blocks: the steps refuse an M that does not
+    divide d_inner), which may start or end inside a head.  It runs the
+    heads the block touches, ``c0 // P`` to ``ceil(c1 / P)``: their
+    columns of the ``w_dt`` product and of ``dt_bias``, ``A_log`` and
+    ``D``, and each head's group of ``w_B``/``w_C``, which it holds whole
+    with their convolutions.  SSD is independent per channel once a
+    head's ``dt``, ``A``, ``D`` and B/C are fixed, so the channels of a
+    cut head held elsewhere enter as zeros and are dropped after the
+    scan: exact, and their zero inputs add nothing to any gradient.  A
+    cache holds whole heads (its state is split by heads): with one,
+    the block must be whole heads.  The gated norm spans the whole
+    d_inner: its sums of squares are summed over the group before the
+    scale.  The output is this rank's partial sum, which the caller
+    reduces.
     """
     di = mc.d_inner(d_model)
     nh = mc.n_heads(d_model)
-    hs = slice(0, nh) if tp is None else tp.block(nh)
-    nh_local = p.w_x.shape[1] // mc.head_dim
-    if mc.n_groups > 1 and nh_local != nh:
-        raise NotImplementedError(
-            f"mamba_fwd: {mc.n_groups} B/C groups over a block of the"
-            f" heads (every config of the port has one group)")
-    if hs.stop - hs.start != nh_local:
-        raise ValueError(f"mamba_fwd: {nh_local} heads held, the block of"
-                         f" {nh} heads is {hs}")
+    hd = mc.head_dim
+    cs = slice(0, di) if tp is None else tp.block(di)
+    di_local = cs.stop - cs.start
+    if p.w_x.shape[1] != di_local:
+        raise ValueError(f"mamba_fwd: {p.w_x.shape[1]} channels held, the"
+                         f" block of {di} is {cs}")
+    hs = slice(cs.start // hd, -(-cs.stop // hd))
+    lead, trail = cs.start - hs.start * hd, hs.stop * hd - cs.stop
+    if cache is not None and (lead or trail):
+        raise ValueError(f"mamba_fwd: a cache holds whole heads of {hd}"
+                         f" channels, this rank's channels {cs} cut one")
+    rep = nh // mc.n_groups
     b = x.shape[0]
     z = x @ p.w_z
     xr = x @ p.w_x
@@ -239,7 +250,7 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
     dt = F.softplus((x @ p.w_dt[:, hs]).float() + p.dt_bias[hs])
     A = -torch.exp(p.A_log[hs])
     Dh = p.D[hs]
-    nh, di_local = nh_local, nh_local * mc.head_dim
+    nh_local = hs.stop - hs.start
 
     if cache is None or x.shape[1] > 1:
         # the full sequence (training, or a prefill seeding a fresh
@@ -248,13 +259,22 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
         Bm = _causal_conv(Br, p.conv_B, p.conv_bB)
         Cm = _causal_conv(Cr, p.conv_C, p.conv_bC)
         s = x.shape[1]
+        Bg = Bm.reshape(b, s, mc.n_groups, mc.d_state)
+        Cg = Cm.reshape(b, s, mc.n_groups, mc.d_state)
+        if mc.n_groups > 1 and nh_local != nh:
+            # each held head's group, the groups of a block of heads
+            groups = torch.arange(hs.start, hs.stop, device=x.device) // rep
+            Bg, Cg = Bg[:, :, groups], Cg[:, :, groups]
+        if lead or trail:
+            xs = F.pad(xs, (lead, trail))
         y, final = ssd_chunked(
-            xs.reshape(b, s, nh, mc.head_dim).float(), dt, A,
-            Bm.reshape(b, s, mc.n_groups, mc.d_state).float(),
-            Cm.reshape(b, s, mc.n_groups, mc.d_state).float(),
-            Dh, mc.chunk,
+            xs.reshape(b, s, nh_local, hd).float(), dt, A, Bg.float(),
+            Cg.float(), Dh, mc.chunk,
             init_state=None if cache is None else cache["state"].float())
-        y = y.reshape(b, s, di_local).to(x.dtype)
+        y = y.reshape(b, s, nh_local * hd)
+        if lead or trail:
+            y = y[..., lead:lead + di_local]
+        y = y.to(x.dtype)
         if cache is not None:
             kk = mc.d_conv - 1
             cache["state"].copy_(final)
@@ -265,12 +285,11 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
         xs, conv_x = _conv_step(xr, cache["conv_x"], p.conv_x, p.conv_bx)
         Bm, conv_B = _conv_step(Br, cache["conv_B"], p.conv_B, p.conv_bB)
         Cm, conv_C = _conv_step(Cr, cache["conv_C"], p.conv_C, p.conv_bC)
-        rep = nh // mc.n_groups
         Bh = Bm.reshape(b, mc.n_groups, mc.d_state).repeat_interleave(
-            rep, dim=1).float()                                  # (B,H,N)
+            rep, dim=1)[:, hs].float()                           # (B,H,N)
         Ch = Cm.reshape(b, mc.n_groups, mc.d_state).repeat_interleave(
-            rep, dim=1).float()
-        xh = xs.reshape(b, nh, mc.head_dim).float()              # (B,H,P)
+            rep, dim=1)[:, hs].float()
+        xh = xs.reshape(b, nh_local, hd).float()                 # (B,H,P)
         dt1 = dt[:, 0]                                           # (B,H)
         dA = torch.exp(dt1 * A)
         upd = torch.einsum("bhp,bhn->bhpn", xh * dt1[..., None], Bh)

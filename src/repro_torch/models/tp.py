@@ -11,10 +11,14 @@ index r; the model code takes its blocks from it:
   * q heads (GQA and MLA) and experts: the rank-th of M equal blocks
     (``ModelConfig.with_tp`` pads both to a multiple of M);
   * the vocabulary of the embedding and the head: the same (padded);
-  * the dense FFN's hidden units and the Mamba mixer's heads (with the
-    d_inner channels that belong to them): ``torch.chunk``'s rule, a
-    block of ceil(n / M) each and the last ones shorter, so a width M
-    does not divide still splits (``launch.mesh.block``).
+  * the Mamba mixer's d_inner channels: the rank-th of M equal blocks,
+    as the JAX package places them, which may start or end inside a
+    head (``models.mamba.mamba_fwd`` runs the heads its block touches;
+    the steps refuse an M that does not divide d_inner, as JAX's
+    ``device_put`` does);
+  * the dense FFN's hidden units: ``torch.chunk``'s rule, a block of
+    ceil(n / M) each and the last ones shorter, so a width M does not
+    divide still splits (``launch.mesh.block``).
 
 The collectives are ``torch.autograd.Function`` s, so that a training
 step can reuse them: :func:`enter` (identity forward, all-reduce
@@ -82,9 +86,9 @@ class TP:
     seq_parallel: bool = False
     rows_group: object = None
 
-    def block(self, n: int, unit: int = 1) -> slice:
+    def block(self, n: int) -> slice:
         """This rank's block of a dim of ``n`` (``launch.mesh.block``)."""
-        return block(n, self.size, self.rank, unit)
+        return block(n, self.size, self.rank)
 
     def splits_seq(self, s: int) -> bool:
         """True when a stream of ``s`` positions is sequence-parallel:

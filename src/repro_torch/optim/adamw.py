@@ -82,16 +82,15 @@ def opt_state_specs(param_specs: Mapping[str, Sequence],
 
 def init_zero1_state(params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
                      mesh, specs: Mapping[str, Sequence],
-                     shapes: Mapping[str, Sequence[int]],
-                     units: Mapping[str, Dict[int, int]]
+                     shapes: Mapping[str, Sequence[int]]
                      ) -> Dict[str, Any]:
     """Zero moments for ZeRO-1 on ``mesh``: per leaf of the JAX
     parameter tree (``specs``: ``opt_state_specs(...)["m"]``, by leaf
     name) a DTensor of the stacked leaf's whole shape (``shapes``:
     ``lm.param_shapes``), of which this rank allocates only its block --
     the data slice of its ``model`` block, the blocks of a split dim
-    that does not divide taken by ``launch.mesh.block``'s rule in the
-    ``units`` of each leaf (``lm.param_units``); the step counter as in
+    that does not divide taken by ``launch.mesh.block``'s rule, as
+    ``lm.param_blocks``'; the step counter as in
     :func:`init_opt_state`."""
     dt = getattr(torch, cfg.moment_dtype)
     dev = next(iter(params.values())).device
@@ -101,7 +100,7 @@ def init_zero1_state(params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
         **{key: {k: _mesh.zeros(shapes[k], specs[k], mesh, dt, dev,
-                                units=units[k])
+                                uneven=True)
                  for k in shapes} for key in ("m", "v")},
     }
 
@@ -180,17 +179,16 @@ def zero1_update(params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
                  lr, cfg: AdamWConfig, mesh, specs: Mapping[str, Sequence],
                  blocks: Mapping[str, Tuple[slice, ...]],
-                 units: Mapping[str, Dict[int, int]],
                  shapes: Mapping[str, Sequence[int]]
                  ) -> Tuple[Mapping, Dict[str, Any]]:
     """One ZeRO-1 AdamW step on ``mesh``, in place: ``params`` by port
     name, ``grads`` synchronized, ``state`` from
     :func:`init_zero1_state` with its moment ``specs``.  Each rank
     holds the ``blocks`` of the whole leaves (``lm.param_blocks``,
-    global offsets; on one ``model`` rank the whole leaves), ``shapes``
-    the whole leaves' and ``units`` their split units
-    (``lm.param_shapes``, ``lm.param_units``), its gradients whole for
-    a replicated leaf and its block's for a split one.  Per leaf of the
+    global offsets; on one ``model`` rank the whole leaves; a block of
+    Mamba's d_inner may cut a head), ``shapes`` the whole leaves'
+    (``lm.param_shapes``), its gradients whole for a replicated leaf
+    and its block's for a split one.  Per leaf of the
     JAX tree this rank updates its (model, data) block of the stacked
     parameter and of the moments -- the data slice inside the model
     block it holds -- (:func:`_update_block`), and the updated slices
@@ -217,8 +215,7 @@ def zero1_update(params: Mapping[str, torch.Tensor],
     for leaf, segs in leaves:
         stacked = leaf.startswith("layers.")
         shape = tuple(shapes[leaf])
-        mine = _mesh.local_slices(shape, specs[leaf], mesh,
-                                  units=units[leaf])
+        mine = _mesh.local_slices(shape, specs[leaf], mesh, uneven=True)
         sl = tuple(slice(m.start - h.start, m.stop - h.start)
                    for m, h in zip(mine, blocks[leaf]))
         gsegs = [grads[names[id(t)]] for t in segs]

@@ -14,8 +14,9 @@ heads and ``conv_x`` by channels over ``model`` (``lm.cache_specs``) --
 must equal the matching block of the unsharded path's cache at the same
 config within 1e-5 (the K/V of later layers come from hidden states
 summed over ranks, whose order differs from the unsharded product's).
-The Mamba archs at M = 3 are refused (their 8 heads do not split
-evenly), by ``make_cache`` and by the steps.
+The Mamba archs at M = 3 are refused (their 128 d_inner channels and
+8 heads do not split evenly over 3, where JAX's ``device_put`` refuses
+them too), by ``make_cache`` and by the steps.
 """
 
 import json

@@ -27,7 +27,8 @@ against the unsharded bf16 path within 5 bf16 ulps at the logit scale
 heads apart; that the blocks from the JAX layout equal those of
 ``convert.tp_shard_model``; that the train step takes a step on a
 ``model`` axis of 2; and the refusal of the Mamba archs at M = 3,
-whose 8 heads do not split evenly.
+whose 128 d_inner channels do not split evenly over 3 (nor the cache's
+8 heads), as JAX's ``device_put`` refuses them.
 """
 
 import json

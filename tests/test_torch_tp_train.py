@@ -4,7 +4,8 @@
 Three meshes, each spawned once: (data 1, model 2), (data 2, model 2)
 and (data 1, model 3).  Every rank loops over the ten smoke configs in
 f32 at ``cfg.with_tp(M)`` (the Mamba archs are refused at M = 3: their
-8 heads do not split evenly), two rows of every data shard, 24 tokens
+128 d_inner channels do not split evenly over 3, where JAX's
+``device_put`` refuses them too), two rows of every data shard, 24 tokens
 (qwen2-vl 96, with M-RoPE grid positions over its 64 patches), so the
 stream splits along the sequence over 2 and 3 ranks.  The step
 (``make_train_step(..., mesh=)``, partitioned sync, sequence parallel)
