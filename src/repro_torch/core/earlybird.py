@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..compat import psum_
 from ..models.lm import param_leaves, unread_params
 from .bucketing import bucketed_apply, leaf_nbytes
@@ -153,9 +154,10 @@ class LayerHook:
         def ready(_p, i=i, leaves=leaves):
             self._pending[i] -= 1
             if self._pending[i] == 0:  # the layer's MPI_Pready moment
-                _bucketed_pmean([[p.grad for p in segs]
-                                 for _, segs in leaves],
-                                self.sync, self.log, f"layer {i}")
+                with telemetry.span("repro.sync.layer"):
+                    _bucketed_pmean([[p.grad for p in segs]
+                                     for _, segs in leaves],
+                                    self.sync, self.log, f"layer {i}")
         self._handles += [p.register_post_accumulate_grad_hook(ready)
                           for p in params]
         return lp
@@ -288,7 +290,8 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig,
         hook = make_layer_hook(sync, log)
         try:
             val = loss_fn(model, *args, param_hook=hook)
-            val.backward()
+            with telemetry.span("repro.backward"):
+                val.backward()
         finally:
             for h in stacked:
                 h.remove()
@@ -305,10 +308,11 @@ def value_and_synced_grad(loss_fn: Callable, sync: SyncConfig,
             if p.grad is None:
                 raise RuntimeError(f"early-bird sync: {name} got no"
                                    f" gradient")
-        if grad_sum is not None:
-            grad_sum(model)
-        finalize_grads(model, sync, log)
-        val = _pmean_(val.detach().clone(), sync, log, "loss")
+        with telemetry.span("repro.sync"):
+            if grad_sum is not None:
+                grad_sum(model)
+            finalize_grads(model, sync, log)
+            val = _pmean_(val.detach().clone(), sync, log, "loss")
         return val, {n: p.grad for n, p in model.named_parameters()}
 
     wrapped.log = SyncLog()

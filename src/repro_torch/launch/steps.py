@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..compat import axis_index, axis_size
 from ..core.earlybird import (SyncConfig, SyncLog, model_axis_sum,
                               value_and_synced_grad)
@@ -328,19 +329,22 @@ def make_train_step(cfg: lm.ModelConfig, scfg: StepConfig, *, seq_len: int,
         model = state["params"]
         if check is not None:
             check(model)
-        loss, grads = vg(model, b)
-        step_fn.log = vg.log
-        if grad_sum is not None:
-            step_fn.model_log = grad_sum.log
-        lr = warmup_cosine(state["opt"]["step"], peak_lr=scfg.peak_lr,
-                           warmup_steps=scfg.warmup_steps,
-                           total_steps=scfg.total_steps)
-        named = dict(model.named_parameters())
-        if mesh is None:
-            adamw_update(named, grads, state["opt"], lr, scfg.adam)
-        else:
-            zero1_update(named, grads, state["opt"], lr, scfg.adam, mesh,
-                         ospecs, blocks=blocks, shapes=shapes)
+        with telemetry.span("repro.train_step"):
+            loss, grads = vg(model, b)
+            step_fn.log = vg.log
+            if grad_sum is not None:
+                step_fn.model_log = grad_sum.log
+            with telemetry.span("repro.optim"):
+                lr = warmup_cosine(state["opt"]["step"],
+                                   peak_lr=scfg.peak_lr,
+                                   warmup_steps=scfg.warmup_steps,
+                                   total_steps=scfg.total_steps)
+                named = dict(model.named_parameters())
+                if mesh is None:
+                    adamw_update(named, grads, state["opt"], lr, scfg.adam)
+                else:
+                    zero1_update(named, grads, state["opt"], lr, scfg.adam,
+                                 mesh, ospecs, blocks=blocks, shapes=shapes)
         return state, loss
 
     step_fn.log = vg.log

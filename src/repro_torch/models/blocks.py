@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import telemetry
 from . import tp as tpc
 from .attention import MLA, Attention, attention_fwd, mla_fwd
 from .layers import rms_norm, silu
@@ -131,28 +132,35 @@ def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
     hin = enter(rms_norm(h, lp.ln1, zero_centered=zc))
     outs = []
     if cfg.mixer in ("attn", "hybrid"):
-        if cfg.mla is not None:
-            a_out, _ = mla_fwd(
-                lp.attn, hin, positions=positions, qk_nope=cfg.mla.qk_nope,
-                qk_rope=cfg.mla.qk_rope, rope_theta=cfg.rope_theta,
-                window=window, cache=_sub(cache, MLA_CACHE),
-                cache_pos=cache_pos, q_chunk=cfg.q_chunk,
-                cache_offset=cache_offset, cache_group=cache_group)
-        else:
-            a_out, _ = attention_fwd(
-                lp.attn, hin, positions=positions, head_map=cfg.head_map,
-                window=window, attn_softcap=cfg.attn_softcap,
-                rope_theta=cfg.rope_theta,
-                mrope_sections=cfg.mrope_sections, q_scale=cfg.q_scale,
-                cache=_sub(cache, ATTN_CACHE), cache_pos=cache_pos,
-                q_chunk=cfg.q_chunk, flash=flash, decode_attn=decode_attn,
-                cache_offset=cache_offset, cache_group=cache_group, tp=tp)
-        outs.append(a_out)
+        with telemetry.span("repro.attn"):
+            a_in = telemetry.mark_in(hin, "repro.attn")
+            if cfg.mla is not None:
+                a_out, _ = mla_fwd(
+                    lp.attn, a_in, positions=positions,
+                    qk_nope=cfg.mla.qk_nope, qk_rope=cfg.mla.qk_rope,
+                    rope_theta=cfg.rope_theta, window=window,
+                    cache=_sub(cache, MLA_CACHE), cache_pos=cache_pos,
+                    q_chunk=cfg.q_chunk, cache_offset=cache_offset,
+                    cache_group=cache_group)
+            else:
+                a_out, _ = attention_fwd(
+                    lp.attn, a_in, positions=positions,
+                    head_map=cfg.head_map, window=window,
+                    attn_softcap=cfg.attn_softcap,
+                    rope_theta=cfg.rope_theta,
+                    mrope_sections=cfg.mrope_sections, q_scale=cfg.q_scale,
+                    cache=_sub(cache, ATTN_CACHE), cache_pos=cache_pos,
+                    q_chunk=cfg.q_chunk, flash=flash,
+                    decode_attn=decode_attn, cache_offset=cache_offset,
+                    cache_group=cache_group, tp=tp)
+            outs.append(telemetry.mark_out(a_out, "repro.attn"))
     if cfg.mixer in ("mamba", "hybrid"):
-        m_out, _ = mamba_fwd(lp.mamba, hin, mc=cfg.mamba,
-                             d_model=cfg.d_model,
-                             cache=_sub(cache, MAMBA_CACHE), tp=tp)
-        outs.append(m_out)
+        with telemetry.span("repro.mamba"):
+            m_out, _ = mamba_fwd(lp.mamba,
+                                 telemetry.mark_in(hin, "repro.mamba"),
+                                 mc=cfg.mamba, d_model=cfg.d_model,
+                                 cache=_sub(cache, MAMBA_CACHE), tp=tp)
+            outs.append(telemetry.mark_out(m_out, "repro.mamba"))
     if cfg.mixer == "hybrid":
         if tp is not None:  # both partial outputs in one message
             both = tpc.reduce_out(torch.cat(outs, dim=-1), tp, seq_split)
@@ -167,10 +175,14 @@ def block_fwd(cfg, lp: Block, h: torch.Tensor, *, positions, window: int,
     h = h + mix
     if cfg.moe is not None or cfg.d_ff > 0:
         hin2 = enter(rms_norm(h, lp.ln2, zero_centered=zc))
-        if cfg.moe is not None:
-            f_out = moe_fwd(lp.moe, hin2, mo=cfg.moe, tp=tp)
-        else:
-            f_out = mlp_fwd(lp.mlp, hin2)
+        name = "repro.moe" if cfg.moe is not None else "repro.mlp"
+        with telemetry.span(name):
+            f_in = telemetry.mark_in(hin2, name)
+            if cfg.moe is not None:
+                f_out = moe_fwd(lp.moe, f_in, mo=cfg.moe, tp=tp)
+            else:
+                f_out = mlp_fwd(lp.mlp, f_in)
+            f_out = telemetry.mark_out(f_out, name)
         f_out = tpc.reduce_out(f_out, tp, seq_split)
         if cfg.post_norm:
             f_out = rms_norm(f_out, lp.ln2_post, zero_centered=zc)

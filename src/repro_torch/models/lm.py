@@ -30,6 +30,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import telemetry
 from ..core.fabric_torch import resolve_device
 from ..launch.mesh import PartitionSpec as P
 from . import tp as tpc
@@ -738,13 +739,14 @@ def _final_logits(cfg: ModelConfig, h_last: torch.Tensor,
     head (or the tied ``embed.T``) is this rank's vocabulary block: its
     logits are masked where the padding falls in it, then all-gathered
     to the whole (B, V) on every rank."""
-    head = output_head(cfg, params)
-    logits = tpc.enter(h_last, tp) @ head
-    logits = softcap(logits.float(), cfg.final_softcap)
-    lo = 0 if tp is None else tp.rank * head.shape[1]
-    if cfg.vocab_padded > cfg.vocab and cfg.vocab - lo < head.shape[1]:
-        logits[:, max(0, cfg.vocab - lo):] = -torch.inf
-    return logits if tp is None else tpc.gather_vocab(logits, tp)
+    with telemetry.span("repro.head"):
+        head = output_head(cfg, params)
+        logits = tpc.enter(h_last, tp) @ head
+        logits = softcap(logits.float(), cfg.final_softcap)
+        lo = 0 if tp is None else tp.rank * head.shape[1]
+        if cfg.vocab_padded > cfg.vocab and cfg.vocab - lo < head.shape[1]:
+            logits[:, max(0, cfg.vocab - lo):] = -torch.inf
+        return logits if tp is None else tpc.gather_vocab(logits, tp)
 
 
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *,
@@ -762,17 +764,21 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict, *,
     ``chunked_cross_entropy`` runs on the block.  Every rank returns the
     same loss; the gradients of :func:`partial_grad_leaves` are partial
     sums over ``model`` that the caller adds."""
-    h, _ = forward(cfg, params, batch, remat=remat, param_hook=param_hook,
-                   tp=tp)
-    if tp is not None:
-        s = _model_input(cfg, batch).shape[1]
-        h = tpc.gather_seq(h, tp) if tp.splits_seq(s) else tpc.enter(h, tp)
-    return chunked_cross_entropy(
-        h, output_head(cfg, params), batch["labels"],
-        chunk=cfg.loss_chunk, final_softcap=cfg.final_softcap,
-        mask=batch.get("loss_mask"),
-        valid_vocab=(cfg.vocab if cfg.vocab_padded > cfg.vocab else None),
-        gather_targets=gather_targets, tp=tp)
+    with telemetry.span("repro.forward"):
+        h, _ = forward(cfg, params, batch, remat=remat,
+                       param_hook=param_hook, tp=tp)
+    with telemetry.span("repro.loss"):
+        if tp is not None:
+            s = _model_input(cfg, batch).shape[1]
+            h = tpc.gather_seq(h, tp) if tp.splits_seq(s) \
+                else tpc.enter(h, tp)
+        return chunked_cross_entropy(
+            h, output_head(cfg, params), batch["labels"],
+            chunk=cfg.loss_chunk, final_softcap=cfg.final_softcap,
+            mask=batch.get("loss_mask"),
+            valid_vocab=(cfg.vocab if cfg.vocab_padded > cfg.vocab
+                         else None),
+            gather_targets=gather_targets, tp=tp)
 
 
 @torch.no_grad()
@@ -786,14 +792,16 @@ def prefill(cfg: ModelConfig, params: LM, batch: Dict, *,
     optionally ``patch_embeds`` and ``positions``.  ``cache_offset`` and
     ``cache_group``: the cache holds only its sequence slice from there;
     ``tp``: the tensor-parallel forward (:func:`forward`)."""
-    x = _model_input(cfg, batch)
-    b, s = x.shape[:2]
-    if cache is None:
-        cache = init_cache(cfg, b, s, device=x.device)
-    h, cache = forward(cfg, params, batch, cache=cache, cache_pos=0,
-                       flash=flash, cache_offset=cache_offset,
-                       cache_group=cache_group, tp=tp)
-    return _final_logits(cfg, _last_hidden(h, tp, s), params, tp), cache
+    with telemetry.span("repro.prefill"):
+        x = _model_input(cfg, batch)
+        b, s = x.shape[:2]
+        if cache is None:
+            cache = init_cache(cfg, b, s, device=x.device)
+        h, cache = forward(cfg, params, batch, cache=cache, cache_pos=0,
+                           flash=flash, cache_offset=cache_offset,
+                           cache_group=cache_group, tp=tp)
+        return _final_logits(cfg, _last_hidden(h, tp, s), params,
+                             tp), cache
 
 
 @torch.no_grad()
@@ -809,8 +817,10 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Dict[str, torch.Tensor],
     split (``attention.attention_fwd``); ``tp``: the tensor-parallel
     forward (:func:`forward`; one position never splits).  Returns
     (logits (B, V) f32, the cache written in place)."""
-    batch = _decode_batch(cfg, tokens, embeds)
-    h, cache = forward(cfg, params, batch, cache=cache, cache_pos=int(pos),
-                       decode_attn=decode_attn, cache_offset=cache_offset,
-                       cache_group=cache_group, tp=tp)
-    return _final_logits(cfg, h[:, -1, :], params, tp), cache
+    with telemetry.span("repro.decode"):
+        batch = _decode_batch(cfg, tokens, embeds)
+        h, cache = forward(cfg, params, batch, cache=cache,
+                           cache_pos=int(pos), decode_attn=decode_attn,
+                           cache_offset=cache_offset,
+                           cache_group=cache_group, tp=tp)
+        return _final_logits(cfg, h[:, -1, :], params, tp), cache

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import telemetry
 from .layers import dense_init, rms_norm, silu
 from .tp import psum
 
@@ -267,10 +268,11 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
             Bg, Cg = Bg[:, :, groups], Cg[:, :, groups]
         if lead or trail:
             xs = F.pad(xs, (lead, trail))
-        y, final = ssd_chunked(
-            xs.reshape(b, s, nh_local, hd).float(), dt, A, Bg.float(),
-            Cg.float(), Dh, mc.chunk,
-            init_state=None if cache is None else cache["state"].float())
+        with telemetry.span("repro.ssd"):
+            y, final = ssd_chunked(
+                xs.reshape(b, s, nh_local, hd).float(), dt, A, Bg.float(),
+                Cg.float(), Dh, mc.chunk,
+                init_state=None if cache is None else cache["state"].float())
         y = y.reshape(b, s, nh_local * hd)
         if lead or trail:
             y = y[..., lead:lead + di_local]

@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from .. import telemetry
 from ..compat import axis_index
 from .layers import dense_init, silu
 from .tp import gather_rows
@@ -94,52 +95,65 @@ def router_top_k(p: MoE, xc: torch.Tensor, mo: MoEConfig
 
 
 def _route_chunk(p: MoE, xc: torch.Tensor, mo: MoEConfig,
-                 e_lo: int = 0) -> torch.Tensor:
+                 e_lo: int = 0, count: bool = True) -> torch.Tensor:
     """Route one chunk of tokens: xc (T_c, D) -> (T_c, D).  ``p`` holds
     the experts [e_lo, e_lo + its count) (all of them unsharded): every
     token is routed over all experts, and only the held experts' buffers
     are computed; the result is the sum over the slots those experts
-    take, a partial sum under expert parallelism."""
+    take, a partial sum under expert parallelism.  With ``count``, a
+    profile's counters ``moe.slots`` and ``moe.dropped`` take the
+    chunk's slots and those past capacity (``telemetry.count``)."""
     tc, d = xc.shape
     e, k = mo.e_pad, mo.top_k
     e_held = p.w_gate.shape[0]
     cap = mo.capacity(tc)
-    top_vals, top_idx = router_top_k(p, xc, mo)
-    gates = torch.softmax(top_vals, dim=-1)
+    with telemetry.span("repro.moe.route"):
+        top_vals, top_idx = router_top_k(p, xc, mo)
+        gates = torch.softmax(top_vals, dim=-1)
 
-    # position of each (token, slot) in its expert's capacity buffer:
-    # a token-major running count of the slots routed to that expert.
-    # The one-hots are laid out expert-major, so the count runs along
-    # rows: a scan down the columns of (T_c * k, E) runs only E wide on
-    # the card, and F.one_hot checks its input's range with a host sync.
-    flat_e = top_idx.reshape(-1)                           # (T_c * k,)
-    onehot = (torch.arange(e, device=xc.device)[:, None]
-              == flat_e[None, :]).int()                    # (E, T_c * k)
-    pos = onehot.cumsum(dim=1, dtype=torch.int32) - 1
-    pos = pos.gather(0, flat_e[None, :])[0].long()
-    keep = pos < cap
-    pos_c = torch.where(keep, pos, cap)                    # overflow column
+        # position of each (token, slot) in its expert's capacity buffer:
+        # a token-major running count of the slots routed to that expert.
+        # The one-hots are laid out expert-major, so the count runs along
+        # rows: a scan down the columns of (T_c * k, E) runs only E wide on
+        # the card, and F.one_hot checks its input's range with a host sync.
+        flat_e = top_idx.reshape(-1)                       # (T_c * k,)
+        onehot = (torch.arange(e, device=xc.device)[:, None]
+                  == flat_e[None, :]).int()                # (E, T_c * k)
+        pos = onehot.cumsum(dim=1, dtype=torch.int32) - 1
+        pos = pos.gather(0, flat_e[None, :])[0].long()
+        keep = pos < cap
+        pos_c = torch.where(keep, pos, cap)                # overflow column
 
-    # scatter token INDICES; the sentinel T_c gathers a zero row.  Every
-    # kept (expert, position) is written once; the overflow column takes
-    # duplicate writes and is sliced away.
-    tok_idx = torch.arange(tc, device=xc.device).repeat_interleave(k)
-    buf_idx = torch.full((e, cap + 1), tc, dtype=torch.long,
-                         device=xc.device)
-    buf_idx.index_put_((flat_e, pos_c), tok_idx)
-    buf_idx = buf_idx[:, :cap]
+        # scatter token INDICES; the sentinel T_c gathers a zero row.  Every
+        # kept (expert, position) is written once; the overflow column takes
+        # duplicate writes and is sliced away.
+        tok_idx = torch.arange(tc, device=xc.device).repeat_interleave(k)
+        buf_idx = torch.full((e, cap + 1), tc, dtype=torch.long,
+                             device=xc.device)
+        buf_idx.index_put_((flat_e, pos_c), tok_idx)
+        buf_idx = buf_idx[:, :cap]
+        if count and telemetry.counting():
+            telemetry.count("moe.slots", tc * k)
+            telemetry.count("moe.dropped", (~keep).sum())
 
-    xc_ext = torch.cat([xc, xc.new_zeros((1, d))])
-    buf = xc_ext[buf_idx[e_lo:e_lo + e_held]]              # (E_h, cap, D)
-    h = silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    out = torch.bmm(h, p.w_down)                           # (E_h, cap, D)
+    with telemetry.span("repro.moe.experts"):
+        xc_ext = torch.cat([telemetry.mark_in(xc, "repro.moe.experts"),
+                            xc.new_zeros((1, d))])
+        buf = xc_ext[buf_idx[e_lo:e_lo + e_held]]          # (E_h, cap, D)
+        h = silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+        out = telemetry.mark_out(torch.bmm(h, p.w_down),   # (E_h, cap, D)
+                                 "repro.moe.experts")
 
     # gather back per slot; dropped slots, and under expert parallelism
     # the slots of experts held elsewhere, are zero-weighted
-    held = (flat_e >= e_lo) & (flat_e < e_lo + e_held)
-    per_slot = out[(flat_e - e_lo).clamp(0, e_held - 1), pos_c % cap]
-    w = (gates.reshape(-1) * (keep & held)).to(xc.dtype)
-    return (per_slot * w[:, None]).reshape(tc, k, d).sum(dim=1)
+    with telemetry.span("repro.moe.combine"):
+        out = telemetry.mark_in(out, "repro.moe.combine")
+        gates = telemetry.mark_in(gates, "repro.moe.combine")
+        held = (flat_e >= e_lo) & (flat_e < e_lo + e_held)
+        per_slot = out[(flat_e - e_lo).clamp(0, e_held - 1), pos_c % cap]
+        w = (gates.reshape(-1) * (keep & held)).to(xc.dtype)
+        y = (per_slot * w[:, None]).reshape(tc, k, d).sum(dim=1)
+        return telemetry.mark_out(y, "repro.moe.combine")
 
 
 def moe_fwd(p: MoE, x: torch.Tensor, *, mo: MoEConfig,
@@ -169,6 +183,7 @@ def moe_fwd(p: MoE, x: torch.Tensor, *, mo: MoEConfig,
     chunk = min(mo.dispatch_chunk, t)
     if t % chunk:
         chunk = t  # fall back to one chunk for odd token counts
-    out = [_route_chunk(p, xt[c:c + chunk], mo, e_lo)
+    count = tp is None or tp.rank == 0   # the drops once, not M times
+    out = [_route_chunk(p, xt[c:c + chunk], mo, e_lo, count)
            for c in range(0, t, chunk)]
     return torch.cat(out).reshape(b, s, d)
