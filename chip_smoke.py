@@ -306,6 +306,13 @@ group and prints, as one JSON line, the build and phase seconds and
 runs phase 25 alone (its kernels built first) and prints its numbers
 as one JSON line.
 
+    python3 chip_smoke.py --ssd-times
+
+runs phase 7b alone (the SSD scan kernels built first): the kernels
+against their plain version at mamba2-780m's served shape, and their
+times, bound and the plain version's at each prompt length of the
+benchmark's prefill pool, as one JSON line.
+
     python3 chip_smoke.py --trace-attribution [TREE]
 
 takes 60 profiler traces each of 10 pack and of 10 unpack calls at the
@@ -604,6 +611,133 @@ def flash_phase(dev, small: bool = False) -> dict:
           f" {max(errs['simt'])!r}; bf16 wgmma within"
           f" {FLASH_TOL['bfloat16']}, max_abs_err {max(errs['wgmma'])!r})")
     return {k: max(e) for k, e in errs.items()}
+
+
+# Phase 7b: the SSD scan at mamba2-780m's served shape (B 8, H 48, P 64,
+# N 128, one B/C group, chunks of 256; x, B, C bf16 as served), at the
+# prompt lengths of the benchmark's prefill pool, checked at the longest.
+SSD_SHAPE = {"b": 8, "h": 48, "p": 64, "g": 1, "n": 128, "chunk": 256}
+SSD_LENGTHS = (1024, 2048, 4096, 8192)
+SSD_SHAPE_SMALL = {"b": 2, "h": 4, "p": 16, "g": 1, "n": 16, "chunk": 16}
+SSD_LENGTHS_SMALL = (40,)
+# y and the final state within this share of each output's largest
+# magnitude, on top of one bf16 rounding of y (tests/test_torch_ssd_kernel)
+SSD_TOL = 2e-5
+
+
+def _ssd_inputs(b, l, h, p, g, n, dev, seed=0):
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    bf = torch.bfloat16
+    A = -torch.exp(torch.rand(h, generator=gen, device=dev) * 2.77)
+    return (t(b, l, h, p, dtype=bf), F.softplus(t(b, l, h) - 1.0), A,
+            t(b, l, g, n, dtype=bf), t(b, l, g, n, dtype=bf), t(h))
+
+
+def _ssd_bound(b, l, h, p, g, n, chunk):
+    """Least time of one call: the larger of its FLOPs at the bf16
+    tensor-core peak and x, B, C (bf16), dt (f32) read once and y (bf16)
+    written once at HBM bandwidth; also its FLOPs at the f32 FMA peak."""
+    from repro_torch.kernels import ops
+    flops = ops.ssd_flops(b, l, h, p, g, n, chunk)
+    nbytes = 2 * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * b * l * h
+    t_ops, t_bytes = flops / BF16_TC_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
+            flops / F32_FLOPS * 1e3)
+
+
+def ssd_phase(dev, small: bool = False) -> dict:
+    """Phase 7b: the SSD scan kernels against their plain version at the
+    served shape's longest prompt (one launch of each kernel a call; y
+    within one bf16 rounding plus ``SSD_TOL``, the final state within
+    ``SSD_TOL``), then at each length the kernels' event ms, the plain
+    version's, the bound and the kernels' device ms.  Returns the
+    kernel table's row; its ``launches`` (the main path's: one served
+    mamba2-780m prefill) is filled in by phase 17, None until then."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    shape = SSD_SHAPE_SMALL if small else SSD_SHAPE
+    lengths = SSD_LENGTHS_SMALL if small else SSD_LENGTHS
+    b, h, p, g, n, q = (shape[k] for k in ("b", "h", "p", "g", "n", "chunk"))
+    on_card = dev.type == "cuda"
+    x, dt, A, B, C, D = _ssd_inputs(b, lengths[-1], h, p, g, n, dev)
+    before = dict(ssd.LAUNCHES)
+    y, final = ops.ssd_scan(x, dt, A, B, C, D, q)
+    check(not on_card or all(ssd.LAUNCHES[k] == before[k] + 1
+                             for k in ssd.LAUNCHES),
+          "ssd_scan: a call did not launch each kernel once")
+    wy, wf = ssd.ssd_scan_plain(x.float(), dt, A, B.float(), C.float(), D, q)
+    if on_card:
+        torch.cuda.synchronize()
+    err_y = float((y.float() - wy).abs().max())
+    err_s = float((final - wf).abs().max())
+    ok = bool(((y.float() - wy).abs() <= 2.0 ** -8 * wy.abs()
+               + SSD_TOL * wy.abs().max()).all())
+    check(ok and err_s <= SSD_TOL * float(wf.abs().max()),
+          f"ssd_scan: y max|diff| {err_y!r}, state {err_s!r} beyond"
+          f" one bf16 rounding + {SSD_TOL} of the largest magnitude")
+    del y, final, wy, wf
+    print(f"ssd_scan vs plain at B {b}, L {lengths[-1]}, H {h}, P {p},"
+          f" N {n}, G {g}, Q {q} (bf16): y max_abs_err {err_y!r}, final"
+          f" state max_abs_err {err_s!r}")
+    rows = {}
+    for l in lengths:
+        x, dt, A, B, C, D = _ssd_inputs(b, l, h, p, g, n, dev, seed=1)
+        ms = _timed(lambda: ops.ssd_scan(x, dt, A, B, C, D, q), dev, 10)
+        plain_ms = _timed(lambda: ssd.ssd_scan_plain(x, dt, A, B, C, D, q),
+                          dev, 3, warmup=1)
+        bound_ms, bound_by, flops, nbytes, f32_ms = _ssd_bound(
+            b, l, h, p, g, n, q)
+        rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "f32_fma_ms": f32_ms}
+        if on_card:
+            dev_ms, events, _, names = _device_profile(
+                lambda: ops.ssd_scan(x, dt, A, B, C, D, q), expect=30)
+            rec.update(device_ms=dev_ms, events=events,
+                       kernels={k: c for k, c in names})
+        rows[l] = rec
+        print(f"times ssd_scan B {b} L {l}: {ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}:"
+              f" {flops} FLOPs, {nbytes} bytes), share of bound"
+              f" {bound_ms / ms:.4f}; at the f32 FMA peak {f32_ms:.4f} ms"
+              f"{'; device ' + format(rec['device_ms'], '.4f') + ' ms' if on_card else ''}")
+        del x, dt, A, B, C, D
+    top = rows[lengths[-1]]
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu", "replaces": None,
+            "launches": None, "max_abs_err": err_y,
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "by_length": rows}
+
+
+def ssd_times(tree: Path) -> dict:
+    """Phase 7b alone: its kernels built, its row and each kernel's
+    registers and spills from the build log, with the card's name and
+    power limit."""
+    import torch
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build(("ssd_scan",))
+    out = {"card": _card_name(), "build_s": time.perf_counter() - t0}
+    log = build.log_path("ssd_scan").read_text()
+    out["ptxas"] = []
+    for m in re.finditer(r"Compiling entry function '(\S+)'.*?\n(.*?)"
+                         r"Used (\d+) registers", log, re.S):
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill"
+                          r" loads", m.group(2))
+        out["ptxas"].append({
+            "kernel": m.group(1), "registers": int(m.group(3)),
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None})
+    out["row"] = ssd_phase(torch.device("cuda"))
+    return out
 
 
 def serving_phase(dev, small: bool = False) -> dict:
@@ -2103,11 +2237,13 @@ def family_phase(dev, small: bool = False) -> dict:
     smoke config when ``small``), with the flash launches of that run,
     its times, peak memory and the profiles of one prefill and of 4
     decode steps; then the flash kernel against its plain version at the phase's prefill
-    shapes.  Returns the flash cases' times."""
+    shapes.  Returns the flash cases' times and, per family, the flash
+    and SSD launches of its serving run."""
     import torch
     from repro_torch import serve
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.steps import (StepConfig, make_cache,
                                           make_decode_step,
                                           make_prefill_step)
@@ -2145,8 +2281,11 @@ def family_phase(dev, small: bool = False) -> dict:
             torch.cuda.reset_peak_memory_stats()
         for key in fa.LAUNCHES:
             fa.LAUNCHES[key] = 0
+        for key in ssd.LAUNCHES:
+            ssd.LAUNCHES[key] = 0
         runs = [serve.generate(cfg, scfg, model, prompts, gen, **extra)]
         launches = dict(fa.LAUNCHES)
+        ssd_launches = dict(ssd.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         gqa = cfg.mixer in ("attn", "hybrid") and cfg.mla is None
         want = cfg.n_layers if gqa and on_card else 0
@@ -2154,6 +2293,13 @@ def family_phase(dev, small: bool = False) -> dict:
               and launches["flash_attention_wgmma"] == want,
               f"{arch}: flash launches {launches} over one batch, want"
               f" {want} (wgmma)")
+        # the prefill's SSD: one call (each kernel once) a Mamba layer;
+        # decode's one-token branch launches none
+        mamba = cfg.mixer in ("mamba", "hybrid")
+        want_ssd = cfg.n_layers if mamba and on_card else 0
+        check(all(c == want_ssd for c in ssd_launches.values()),
+              f"{arch}: SSD launches {ssd_launches} over one batch, want"
+              f" {want_ssd} each")
         logits, toks = runs[0]["prefill_logits"], runs[0]["tokens"]
         check(tuple(logits.shape) == (batch, cfg.vocab_padded)
               and bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
@@ -2173,7 +2319,9 @@ def family_phase(dev, small: bool = False) -> dict:
               f"{', MoE without capacity drops' if cfg.moe else ''}); bf16"
               f" {batch}x{prompt_len} + {gen} decode steps: flash launches"
               f" {launches['flash_attention']} (wgmma"
-              f" {launches['flash_attention_wgmma']}, want {want}); prefill"
+              f" {launches['flash_attention_wgmma']}, want {want}); SSD"
+              f" kernel launches {sum(ssd_launches[k] for k in ssd.KERNELS)}"
+              f" (want {len(ssd.KERNELS) * want_ssd}); prefill"
               f" {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms per token"
               f" (median of 3, host clock; runs"
               f" {[round(r['prefill_ms'], 3) for r in runs]},"
@@ -2208,7 +2356,8 @@ def family_phase(dev, small: bool = False) -> dict:
                       f" idle share {1 - busy / wall:.3f}, {events / n:g}"
                       f" device events; top: {tops}")
         out[arch] = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
-                     "peak_bytes": peak, "launches": launches}
+                     "peak_bytes": peak, "launches": launches,
+                     "ssd_launches": ssd_launches}
         del model, prompts, extra, runs, logits
         if on_card:
             torch.cuda.empty_cache()
@@ -4669,6 +4818,7 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
     from repro_torch.experiments import SPECS, compare_to_baseline, run_spec
     from repro_torch.experiments import engine as exp_engine
     from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as ssd
 
     dev = torch.device(device_name)
     on_card = dev.type == "cuda"
@@ -4867,6 +5017,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
 
     # 7-9. the serving path and its flash kernel -------------------------
     flash_errs = flash_phase(dev, small)
+    ssd_row = ssd_phase(dev, small)
+    if on_card:
+        torch.cuda.empty_cache()
     serving = serving_phase(dev, small)
     flash = serving_times(dev, serving, flash_errs, small)
     del serving
@@ -4903,7 +5056,9 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
 
     # 17. the families and the stub frontends on the serving path -------
     t0 = time.perf_counter()
-    family_phase(dev, small)
+    families = family_phase(dev, small)
+    ssd_row["launches"] = sum(families["mamba2-780m"]["ssd_launches"][k]
+                              for k in ssd.KERNELS)
     print(f"phase 17 wall {time.perf_counter() - t0:.3f} s")
 
     # 18. every family trained at full width --------------------------------
@@ -4970,7 +5125,7 @@ def run(device_name: str = "cuda", small: bool = False) -> dict:
 
     # 25. Mamba-2 under tensor parallelism wherever JAX places it ----------
     mamba_tp_phases(dev, small)
-    return {"kernels": [fabric, fabric_f32, *flash, *train_kernels]}
+    return {"kernels": [fabric, fabric_f32, *flash, ssd_row, *train_kernels]}
 
 
 def fabric_times(tree: Path) -> dict:
@@ -5203,7 +5358,7 @@ def main(argv=None) -> int:
              "--train-families": train_families_times,
              "--trace-attribution": trace_attribution, "--tp": tp_times,
              "--tp-train": tp_train_times, "--dryrun": dryrun_times,
-             "--mamba-tp": mamba_tp_times}
+             "--mamba-tp": mamba_tp_times, "--ssd-times": ssd_times}
     if argv[:1] and argv[0] in times and len(argv) <= 2:
         tree = Path(argv[1]).resolve() if len(argv) > 1 else ROOT
     elif argv:

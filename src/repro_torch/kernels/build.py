@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # The kernels on the port's paths, one source each.
-KERNELS = ("fabric_scan", "flash_attention", "bucket_pack", "quant8")
+KERNELS = ("fabric_scan", "flash_attention", "bucket_pack", "quant8",
+           "ssd_scan")
 
 # sm_90a (Hopper, for wgmma and setmaxnreg), no fast-math; ptxas prints
 # each kernel's registers and spills into the build log.

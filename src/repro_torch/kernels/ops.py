@@ -17,7 +17,11 @@ with ``torch.utils.flop_counter``): ``FlopCounterMode`` then counts the
 kernel's launch, its plain version and its fake route alike, as
 4 * B * H * Sq * Sk * D, as torch counts ``scaled_dot_product_attention``
 (no discount for the causal mask or the window).  The custom op's real
-implementation is the dispatch above, unchanged.
+implementation is the dispatch above, unchanged.  The SSD scan goes
+through its op (``repro_torch::ssd_scan``) on every device for the same
+reason: its formula (:func:`_ssd_flops`) is the work the kernels do, the
+chunks' causal pairs and C.B^T once per group, as the benchmark's
+yardstick counts it.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch.utils.flop_counter import register_flop_formula
 from . import bucket_pack as _bp
 from . import flash_attention as _fa
 from . import quant8 as _q8
+from . import ssd_scan as _ssd
 
 
 def _fake(t: torch.Tensor) -> bool:
@@ -159,3 +164,51 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor
     if q.device.type == "cpu":
         return _q8.dequantize_blockwise_plain(q, scales)
     return _q8.dequantize_blockwise(q, scales)
+
+
+# The SSD scan's op is defined at the dispatcher's level, its CPU and CUDA
+# kernels registered as they are: a ``custom_op`` wraps its kernels so that
+# their first call imports torch._dynamo, seconds of a served cell's
+# set-up on the card's host.
+_SSD_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_SSD_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C,"
+                " Tensor D, int chunk, Tensor? init_state)"
+                " -> (Tensor, Tensor)")
+_SSD_LIB.impl("ssd_scan", _ssd.ssd_scan_plain, "CPU")
+_SSD_LIB.impl("ssd_scan", _ssd.ssd_scan, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd_scan")
+def _(x, dt, A, B, C, D, chunk, init_state):
+    _ssd.check_operands(x, dt, A, B, C, D, chunk, init_state)
+    b, _, h, p = x.shape
+    return (x.new_empty(x.shape),
+            x.new_empty((b, h, p, B.shape[3]), dtype=torch.float32))
+
+
+def ssd_flops(b: int, l: int, h: int, p: int, g: int, n: int,
+              chunk: int) -> int:
+    """The SSD scan's FLOPs: C.B^T once per group and the decayed scores
+    against x over each chunk's causal pairs, the chunk states and their
+    read-out over every position; 2 per multiply-add."""
+    full, rest = divmod(l, chunk)
+    pairs = full * chunk * (chunk + 1) // 2 + rest * (rest + 1) // 2
+    return 2 * b * ((g * n + h * p) * pairs + 2 * h * p * n * l)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, D_shape, chunk,
+               *args, **kwargs) -> int:
+    b, l, h, p = x_shape
+    return ssd_flops(b, l, h, p, B_shape[2], B_shape[3], chunk)
+
+
+def ssd_scan(x, dt, A, B, C, D, chunk: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2's chunked SSD scan without autograd: x (b, l, h, p), dt
+    (b, l, h) f32, A and D (h,) f32, B and C (b, l, g, n), init_state
+    None or (b, h, p, n) f32 -> (y in x's dtype, final state f32), as
+    ``models.mamba.ssd_chunked`` computes them in f32."""
+    return torch.ops.repro_torch.ssd_scan(x, dt, A, B, C, D, int(chunk),
+                                          init_state)

@@ -4,8 +4,12 @@ The port's counterpart of the JAX package's ``models/mamba.py``: the
 chunked SSD algorithm of the Mamba-2 paper (arXiv:2405.21060).  The
 sequence is split into chunks; intra-chunk terms are masked matrix
 products and inter-chunk terms a short loop over chunk states (the JAX
-package's ``lax.scan``).  Decode carries a constant-size recurrent
-state and the last ``d_conv - 1`` inputs of each causal convolution.
+package's ``lax.scan``).  That is the path autograd records (training);
+where it records nothing (the served prefill) the scan goes through
+``kernels.ops.ssd_scan``, the same function as hand-written kernels on
+the card and as :func:`ssd_chunked` on the CPU.  Decode carries a
+constant-size recurrent state and the last ``d_conv - 1`` inputs of
+each causal convolution.
 
 Parameters keep the JAX names and shapes: the projections are stored
 split (``w_z``, ``w_x``, ``w_B``, ``w_C``, ``w_dt``), the depthwise
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import telemetry
+from ..kernels import ops
 from .layers import dense_init, rms_norm, silu
 from .tp import psum
 
@@ -199,6 +204,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :l_orig], s
 
 
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records the SSD's inputs: the scan then runs as
+    :func:`ssd_chunked`'s einsums, which it differentiates; otherwise
+    (the served prefill, under ``no_grad``) as ``kernels.ops.ssd_scan``,
+    the hand-written kernels on the card."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
               cache: Optional[Dict[str, torch.Tensor]] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -268,11 +281,16 @@ def mamba_fwd(p: Mamba, x: torch.Tensor, *, mc: MambaConfig, d_model: int,
             Bg, Cg = Bg[:, :, groups], Cg[:, :, groups]
         if lead or trail:
             xs = F.pad(xs, (lead, trail))
+        xh = xs.reshape(b, s, nh_local, hd)
         with telemetry.span("repro.ssd"):
-            y, final = ssd_chunked(
-                xs.reshape(b, s, nh_local, hd).float(), dt, A, Bg.float(),
-                Cg.float(), Dh, mc.chunk,
-                init_state=None if cache is None else cache["state"].float())
+            init = None if cache is None else cache["state"].float()
+            if _records_grad(xh, dt, A, Bg, Cg, Dh):
+                y, final = ssd_chunked(xh.float(), dt, A, Bg.float(),
+                                       Cg.float(), Dh, mc.chunk,
+                                       init_state=init)
+            else:
+                y, final = ops.ssd_scan(xh, dt, A, Bg, Cg, Dh, mc.chunk,
+                                        init_state=init)
         y = y.reshape(b, s, nh_local * hd)
         if lead or trail:
             y = y[..., lead:lead + di_local]

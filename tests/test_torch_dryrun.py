@@ -405,18 +405,50 @@ def test_every_sync_mode_traces(results):
         <= part["counts"]["all-reduce"] < per_leaf["counts"]["all-reduce"]
 
 
+def _jax_ssd_dot_flops(jc) -> int:
+    """``hlo_analysis``'s dot FLOPs of JAX's jitted ``ssd_chunked`` at
+    one Mamba layer's prefill shapes (f32, with an initial state)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch import hlo_analysis
+    from repro.models import mamba as jmamba
+    mc = jc.mamba
+    h, p = mc.n_heads(jc.d_model), mc.head_dim
+    f32 = jnp.float32
+    args = [jax.ShapeDtypeStruct(s, f32) for s in (
+        (BATCH, SEQ, h, p), (BATCH, SEQ, h), (h,),
+        (BATCH, SEQ, mc.n_groups, mc.d_state),
+        (BATCH, SEQ, mc.n_groups, mc.d_state), (h,),
+        (BATCH, h, p, mc.d_state))]
+    hlo = jax.jit(lambda x, dt, A, B, C, D, s0: jmamba.ssd_chunked(
+        x, dt, A, B, C, D, mc.chunk, init_state=s0)).lower(
+            *args).compile().as_text()
+    return hlo_analysis.analyze_hlo(hlo).dot_flops
+
+
 def test_prefill_dot_flops_equal_jax_hlo(results):
     """A smoke prefill traced on a (1, 1) mesh has exactly the dot FLOPs
     ``hlo_analysis`` finds in the HLO of JAX's jitted unsharded
     ``lm.prefill`` (f32, one device): the same products, the flash
     kernel counted as masked attention's two dots over every (query,
-    key) pair.  No tolerance: both count 2·m·n·k per product."""
+    key) pair.  No tolerance: both count 2·m·n·k per product.  The SSD
+    scan is one op in the port's prefill (``repro_torch::ssd_scan``,
+    the kernels' work by ``kernels.ops.ssd_flops``): Mamba's count is
+    JAX's with each layer's ``ssd_chunked`` dots replaced by it.  So the
+    dry run's SSD FLOPs for Mamba are the kernels' work (the causal
+    pairs of a chunk, C·Bᵀ once per group), no longer JAX's einsum
+    FLOPs, and that part of the equality holds the port to its own
+    formula; ``test_flop_formula_equals_yardstick`` in
+    ``test_torch_ssd_kernel.py`` holds the formula against the
+    benchmark's yardstick."""
     import jax
     import jax.numpy as jnp
 
     from repro.configs import get_smoke_config
     from repro.launch import hlo_analysis
     from repro.models import lm as jlm
+    from repro_torch.kernels import ops
     dry, _, _ = results
     for arch in MINI_ARCHS:
         jc = get_smoke_config(arch).replace(param_dtype="float32")
@@ -427,8 +459,14 @@ def test_prefill_dot_flops_equal_jax_hlo(results):
                                                       jnp.float32))
         hlo = jax.jit(lambda p, b, c: jlm.prefill(jc, p, b, cache=c)).lower(
             params, batch, cache).compile().as_text()
-        assert dry["1x1"][arch]["cost"]["flops_per_device"] == \
-            hlo_analysis.analyze_hlo(hlo).dot_flops, arch
+        want = hlo_analysis.analyze_hlo(hlo).dot_flops
+        if jc.mixer == "mamba":
+            mc = jc.mamba
+            kernel = ops.ssd_flops(BATCH, SEQ, mc.n_heads(jc.d_model),
+                                   mc.head_dim, mc.n_groups, mc.d_state,
+                                   mc.chunk)
+            want += jc.n_layers * (kernel - _jax_ssd_dot_flops(jc))
+        assert dry["1x1"][arch]["cost"]["flops_per_device"] == want, arch
 
 
 @pytest.mark.parametrize("arch", MINI_ARCHS)
