@@ -9,8 +9,10 @@ numbers against the plain reference (the lower readings), for every
 control seed the control's (the reference in the precision below the
 one the configuration states: TF32 for a training cell's f32, fp8 for
 a served cell's bf16), and for a training cell, for every fault seed,
-those of the program with half of each batch left out.  One JSON line
-a reading, to standard output and to ``--out``.
+those of the program with half of each batch left out; and for a
+training cell the readings its family's ``calibrate_train`` gives, where
+it has one (``families/granite_moe.py``: ``router_margins``).  One JSON
+line a reading, to standard output and to ``--out``.
 """
 
 from __future__ import annotations
@@ -43,39 +45,6 @@ def _norms(readings: dict) -> dict:
     return {k: v for k, v in readings.items() if not k.endswith("_s")}
 
 
-def router_margins(s, seed: int, mix: dict, device) -> dict:
-    """For the first checked batch through the plain reference's initial
-    weights: how many (token, layer) routings have their ``top_k``-th
-    and next router logits closer than 1e-6 and 1e-5, where rounding
-    in another order of the same f32 sums can swap them."""
-    import torch
-
-    from perfbench import weights
-    from perfbench.reference import granite_moe as g
-    from perfbench.reference.common import rms_norm
-    from perfbench.traffic.gen import TrainStream
-    W = {k: t.float() for k, t in weights.all_leaves(
-        s, seed, device, getattr(torch, mix["param_dtype"])).items()}
-    tok = torch.from_numpy(TrainStream(mix, seed, s.token_ids)
-                           .batch(0)["tokens"]).to(device)
-    out = {"1e-6": 0, "1e-5": 0, "min": float("inf")}
-    with torch.no_grad():
-        h = W["embed"][tok.long()]
-        for i in range(s.n_layers):
-            h = h + g.attention(s, W, i, rms_norm(h, W["layers.ln1"][i],
-                                                  s.eps), "f32")
-            x = rms_norm(h, W["layers.ln2"][i], s.eps)
-            v = torch.topk(x.reshape(-1, s.d_model)
-                           @ W["layers.moe.router"][i], s.top_k + 1).values
-            m = v[:, s.top_k - 1] - v[:, s.top_k]
-            out["1e-6"] += int((m < 1e-6).sum())
-            out["1e-5"] += int((m < 1e-5).sum())
-            out["min"] = min(out["min"], float(m.min()))
-            h = h + g.moe(s, W, i, x, "f32")
-    del W
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 perfbench/calibrate.py")
     ap.add_argument("--workload", required=True)
@@ -89,6 +58,7 @@ def main(argv=None) -> int:
     import torch
 
     from perfbench import cells, harness
+    from perfbench.families import family
     from perfbench.sizes import sizes
     from perfbench.traffic.gen import PrefillStream
     bench = json.loads((harness.CHECKOUT / "BENCHMARK.json").read_text())
@@ -113,6 +83,7 @@ def main(argv=None) -> int:
     def seeds(text):
         return [int(x) for x in text.split(",") if x]
     train = mix["kind"] == "train"
+    hook = getattr(family(s.family), "calibrate_train", lambda *a: {})
     ctrl, fault = set(seeds(args.control_seeds)), seeds(args.fault_seeds)
     for seed in seeds(args.seeds):
         t = time.perf_counter()
@@ -123,9 +94,8 @@ def main(argv=None) -> int:
                   "ref_losses": run.notes["ref_losses"],
                   "s": time.perf_counter() - t,
                   "readings": _norms(run.readings)})
-            if s.family == "granite_moe":
-                emit({"seed": seed, "what": "router_margins",
-                      **router_margins(s, seed, mix, dev)})
+            for what, rec in hook(s, seed, mix, dev).items():
+                emit({"seed": seed, "what": what, **rec})
             if seed in ctrl:
                 torch.backends.cuda.matmul.allow_tf32 = True
                 torch.backends.cudnn.allow_tf32 = True

@@ -126,7 +126,7 @@ def run_train(s, mix: dict, seed: int, seconds: float, trace: bool,
     run = Run(s, mix, device)
     t = timer()
     if device.type == "cuda":
-        port.build_kernels(["bucket_pack"])
+        port.build_kernels(s, "train")
     group = port.Group(device)
     try:
         return _train(run, s, mix, seed, seconds, trace, device, t_start,
@@ -229,12 +229,10 @@ def _change_norms(s, seed: int, device, dtype, model) -> Dict[str, float]:
     out = {}
     for lf in weights.leaves(s):
         w = weights.draw(lf, seed, device, dtype)
-        segs = params[lf.name]
-        parts = w.unbind(0) if lf.name.startswith("layers.") else [w]
         sq = sum((p.float() - x.float()).square().sum()
-                 for p, x in zip(segs, parts))
+                 for p, x in port.placed(lf, w, params, s.n_layers))
         out[lf.name] = math.sqrt(sq.item())
-        del w, parts
+        del w
     return out
 
 
@@ -333,8 +331,8 @@ def run_prefill(s, mix: dict, seed: int, seconds: float, trace: bool,
     from repro_torch.launch.steps import StepConfig, make_cache
     run = Run(s, mix, device)
     t = timer()
-    if device.type == "cuda" and s.n_heads:
-        port.build_kernels(["flash_attention"])
+    if device.type == "cuda":
+        port.build_kernels(s, "prefill")
     run.setup["kernels_s"] = timer() - t
     t = timer()
     dtype = getattr(torch, mix["param_dtype"])

@@ -9,55 +9,48 @@ from __future__ import annotations
 
 import os
 import tempfile
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
 from . import weights
+from .families import family
 from .sizes import Sizes
 
 
 def model_config(s: Sizes, param_dtype: str):
-    """The port's ``ModelConfig`` of sizes ``s``."""
-    from repro_torch.models.lm import ModelConfig
-    if s.family == "granite_moe":
-        from repro_torch.models.moe import MoEConfig
-        return ModelConfig(
-            name=s.name, n_layers=s.n_layers, d_model=s.d_model,
-            vocab=s.vocab, n_heads=s.n_heads, n_kv=s.n_kv, d_ff=0,
-            rope_theta=s.rope_theta, tie_embeddings=s.tie,
-            q_scale=s.attn_scale, param_dtype=param_dtype,
-            moe=MoEConfig(n_experts=s.n_experts, top_k=s.top_k,
-                          d_expert=s.d_expert,
-                          capacity_factor=s.capacity_factor,
-                          min_capacity=s.min_capacity,
-                          dispatch_chunk=s.dispatch_chunk))
-    if s.family == "mamba2":
-        from repro_torch.models.mamba import MambaConfig
-        return ModelConfig(
-            name=s.name, n_layers=s.n_layers, d_model=s.d_model,
-            vocab=s.vocab, d_ff=0, mixer="mamba", tie_embeddings=s.tie,
-            param_dtype=param_dtype,
-            mamba=MambaConfig(d_state=s.d_state, head_dim=s.m_head_dim,
-                              n_groups=s.n_groups, d_conv=s.d_conv,
-                              expand=s.d_inner // s.d_model, chunk=s.chunk))
-    raise ValueError(s.family)
+    """The port's ``ModelConfig`` of sizes ``s``, as its family gives it."""
+    return family(s.family).port_config(s, param_dtype)
 
 
-def port_params(model) -> Dict[str, list]:
-    """Each leaf's parameters in the port's model: the per-layer
-    parameters ``layers.<i>.<rest>`` under ``layers.<rest>``, layer 0
-    first."""
-    out: Dict[str, list] = {}
+def port_params(model) -> Dict[str, object]:
+    """Each leaf's parameters in the port's model: a per-layer parameter
+    ``layers.<i>.<rest>`` under ``layers.<rest>``, by layer index ``i``;
+    a parameter outside the layers under its own name."""
+    out: Dict[str, object] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
-            out.setdefault(".".join(["layers", *parts[2:]]), []).append(
-                (int(parts[1]), p))
+            out.setdefault(".".join(["layers", *parts[2:]]), {})[
+                int(parts[1])] = p
         else:
-            out[name] = [(0, p)]
-    return {k: [p for _, p in sorted(v, key=lambda t: t[0])]
-            for k, v in out.items()}
+            out[name] = p
+    return out
+
+
+def placed(lf: weights.Leaf, w: torch.Tensor, params: Dict[str, object],
+           n_layers: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """(the port's parameter, its part of ``w``) of leaf ``lf`` drawn as
+    ``w``: each row of a per-layer leaf in the port's layer of that
+    index.  Raises when the port holds the leaf in other layers."""
+    got = params[lf.name]
+    if not lf.per_layer:
+        return [(got, w)]
+    ids = lf.layer_ids(n_layers)
+    if sorted(got) != list(ids):
+        raise ValueError(f"leaf {lf.name} covers layers {list(ids)}; the"
+                         f" port holds it in layers {sorted(got)}")
+    return [(got[i], w[j]) for j, i in enumerate(ids)]
 
 
 @torch.no_grad()
@@ -68,21 +61,24 @@ def build_model(s: Sizes, seed: int, device, dtype: torch.dtype):
     from repro_torch.models.lm import LM
     cfg = model_config(s, str(dtype).split(".")[-1])
     model = LM(cfg, device=device)
+    load(model, s, weights.leaves(s), seed, device, dtype)
+    return cfg, model
+
+
+@torch.no_grad()
+def load(model, s: Sizes, specs: List[weights.Leaf], seed: int, device,
+         dtype: torch.dtype) -> None:
+    """Copy the leaves ``specs`` of seed ``seed`` into the port's
+    ``model``, each where :func:`placed` puts it."""
     params = port_params(model)
-    specs = weights.leaves(s)
     if set(params) != {lf.name for lf in specs}:
         raise ValueError(f"the port's leaves {sorted(params)} are not the"
                          f" benchmark's {sorted(lf.name for lf in specs)}")
     for lf in specs:
         w = weights.draw(lf, seed, device, dtype)
-        segs = params[lf.name]
-        if lf.name.startswith("layers."):
-            for p, wi in zip(segs, w.unbind(0)):
-                p.copy_(wi)
-        else:
-            segs[0].copy_(w)
+        for p, part in placed(lf, w, params, s.n_layers):
+            p.copy_(part)
         del w
-    return cfg, model
 
 
 class Group:
@@ -104,8 +100,10 @@ class Group:
         self._tmp.cleanup()
 
 
-def build_kernels(names) -> None:
-    """Build (first run in a checkout) or find the port's kernels."""
+def build_kernels(s: Sizes, kind: str) -> None:
+    """Build (first run in a checkout) or find the port's kernels that a
+    ``kind`` (``"train"``, ``"prefill"``) run of ``s`` builds ahead."""
+    names = family(s.family).kernels_ahead(s, kind)
     if names:
         from repro_torch.kernels import build
         build.build(tuple(names))

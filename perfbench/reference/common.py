@@ -3,12 +3,13 @@ embedding, SiLU, the matrix product in a stated precision, cross
 entropy, AdamW and its schedule, and the samples of a model's slices
 that a training cell compares.
 
-Nothing here imports the port.  ``precision`` is ``"f32"`` (float32,
-TF32 off: the caller sets ``torch.backends``' flags), ``"tf32"`` (the
-same products with TF32 on: the caller sets the flags) or ``"fp8"``
-(every projection's operands rounded to float8 e4m3, the weight by
-output column and the activation by row, each with its own scale: W8A8
-serving, the step below bfloat16).
+Nothing here imports the port; which layers a leaf covers comes from
+the benchmark's own leaf list (``weights.py``).  ``precision`` is
+``"f32"`` (float32, TF32 off: the caller sets ``torch.backends``'
+flags), ``"tf32"`` (the same products with TF32 on: the caller sets
+the flags) or ``"fp8"`` (every projection's operands rounded to float8
+e4m3, the weight by output column and the activation by row, each with
+its own scale: W8A8 serving, the step below bfloat16).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import math
 from typing import Dict
 
 import torch
+
+from ..weights import layer_slots
 
 FP8_MAX = 448.0   # largest finite float8 e4m3 value
 
@@ -100,15 +103,24 @@ SAMPLE = 4096                                   # elements kept a slice
 EXPERT_LEAVES = ("moe.w_gate", "moe.w_up", "moe.w_down")
 
 
-def per_layer(W: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Stacked leaves ``layers.<rest>`` (L, ...) as one tensor a layer,
-    named ``layers.<i>.<rest>``; the other leaves as they are."""
+def at(s, W: Dict[str, torch.Tensor], name: str, i: int) -> torch.Tensor:
+    """Layer ``i``'s slice of the per-layer leaf ``name``, by global
+    layer index: a leaf's rows are the layers it covers
+    (``weights.layer_slots``)."""
+    return W[name][layer_slots(s)[name][i]]
+
+
+def per_layer(s, W: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Stacked leaves ``layers.<rest>`` as one tensor a layer, named
+    ``layers.<i>.<rest>`` by global layer index; the other leaves as
+    they are."""
+    slots = layer_slots(s)
     out = {}
     for k, t in W.items():
-        if k.startswith("layers."):
+        if k in slots:
             rest = k[len("layers."):]
-            out.update((f"layers.{i}.{rest}", t[i])
-                       for i in range(t.shape[0]))
+            out.update((f"layers.{i}.{rest}", t[j])
+                       for i, j in slots[k].items())
         else:
             out[k] = t
     return out

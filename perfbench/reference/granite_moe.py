@@ -21,7 +21,7 @@ from typing import Dict
 
 import torch
 
-from .common import linear, rms_norm, rope, silu
+from .common import at, linear, rms_norm, rope, silu
 
 
 def capacity(s, n_tokens: int) -> int:
@@ -34,9 +34,10 @@ def attention(s, W: Dict, i: int, x: torch.Tensor, precision: str
     """Causal GQA self-attention of layer ``i`` over x (B, S, d)."""
     b, n, d = x.shape
     h, kv, hd = s.n_heads, s.n_kv, s.head_dim
-    q = linear(x, W["layers.attn.wq"][i].reshape(d, h * hd), precision)
-    k = linear(x, W["layers.attn.wk"][i].reshape(d, kv * hd), precision)
-    v = linear(x, W["layers.attn.wv"][i].reshape(d, kv * hd), precision)
+    w = lambda name: at(s, W, f"layers.attn.{name}", i)   # noqa: E731
+    q = linear(x, w("wq").reshape(d, h * hd), precision)
+    k = linear(x, w("wk").reshape(d, kv * hd), precision)
+    v = linear(x, w("wv").reshape(d, kv * hd), precision)
     pos = torch.arange(n, device=x.device)
     q = rope(q.reshape(b, n, h, hd), pos, s.rope_theta).transpose(1, 2)
     k = rope(k.reshape(b, n, kv, hd), pos, s.rope_theta).transpose(1, 2)
@@ -52,7 +53,7 @@ def attention(s, W: Dict, i: int, x: torch.Tensor, precision: str
         sc = sc.masked_fill(pos[None, :] > qi[:, None], float("-inf"))
         out.append(torch.softmax(sc, dim=-1) @ v)
     o = torch.cat(out, dim=2).transpose(1, 2).reshape(b, n, h * hd)
-    return linear(o, W["layers.attn.wo"][i].reshape(h * hd, d), precision)
+    return linear(o, w("wo").reshape(h * hd, d), precision)
 
 
 def moe(s, W: Dict, i: int, x: torch.Tensor, precision: str
@@ -64,9 +65,9 @@ def moe(s, W: Dict, i: int, x: torch.Tensor, precision: str
     chunk = min(s.dispatch_chunk, t)
     if t % chunk:
         chunk = t
-    router = W["layers.moe.router"][i]
-    wg, wu, wd = (W[f"layers.moe.{k}"][i] for k in ("w_gate", "w_up",
-                                                     "w_down"))
+    router = at(s, W, "layers.moe.router", i)
+    wg, wu, wd = (at(s, W, f"layers.moe.{k}", i)
+                  for k in ("w_gate", "w_up", "w_down"))
     outs = []
     for c0 in range(0, t, chunk):
         xc = xt[c0:c0 + chunk]
@@ -98,9 +99,9 @@ def moe(s, W: Dict, i: int, x: torch.Tensor, precision: str
 
 def layer(s, W: Dict, i: int, h: torch.Tensor, precision: str
           ) -> torch.Tensor:
-    h = h + attention(s, W, i, rms_norm(h, W["layers.ln1"][i], s.eps),
-                      precision)
-    return h + moe(s, W, i, rms_norm(h, W["layers.ln2"][i], s.eps),
+    h = h + attention(s, W, i, rms_norm(h, at(s, W, "layers.ln1", i),
+                                        s.eps), precision)
+    return h + moe(s, W, i, rms_norm(h, at(s, W, "layers.ln2", i), s.eps),
                    precision)
 
 

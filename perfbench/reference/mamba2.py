@@ -21,7 +21,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .common import linear, rms_norm, silu
+from .common import at, linear, rms_norm, silu
 
 BLOCK = 64
 
@@ -64,7 +64,7 @@ def scan(x, dt, A, Bm, Cm, D) -> torch.Tensor:
 
 def mixer(s, W: Dict, i: int, x: torch.Tensor, precision: str
           ) -> torch.Tensor:
-    m = lambda k: W[f"layers.mamba.{k}"][i]   # noqa: E731
+    m = lambda k: at(s, W, f"layers.mamba.{k}", i)   # noqa: E731
     b, n, _ = x.shape
     h, p, g, N = s.m_heads, s.m_head_dim, s.n_groups, s.d_state
     z = linear(x, m("w_z"), precision)
@@ -83,8 +83,8 @@ def mixer(s, W: Dict, i: int, x: torch.Tensor, precision: str
 
 def layer(s, W: Dict, i: int, h: torch.Tensor, precision: str
           ) -> torch.Tensor:
-    return h + mixer(s, W, i, rms_norm(h, W["layers.ln1"][i], s.eps),
-                     precision)
+    return h + mixer(s, W, i, rms_norm(h, at(s, W, "layers.ln1", i),
+                                       s.eps), precision)
 
 
 def head(s, W: Dict) -> torch.Tensor:

@@ -71,7 +71,7 @@ def train(s, W: Dict, batches: List[Dict[str, torch.Tensor]], job: dict,
                    lr_at(step, job["schedule"]), opt)
         if step == 0:
             g1 = {k: (m[k] / (1.0 - opt["b1"])).norm().item() for k in m}
-            g1_s = slice_samples(per_layer(m), 1.0 / (1.0 - opt["b1"]))
+            g1_s = slice_samples(per_layer(s, m), 1.0 / (1.0 - opt["b1"]))
     for t in W.values():
         t.grad = None
         t.requires_grad_(False)

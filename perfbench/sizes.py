@@ -3,7 +3,9 @@
 ``Sizes`` holds every number the weights, the traffic, the plain
 references and the yardstick need, taken from the configuration file
 alone (``configs/<name>.json``), never from the port.  A family names
-how the published keys map onto them.
+how the published keys map onto them (``families/<family>.py``), and one
+with numbers of its own subclasses ``Sizes``: a frozen dataclass whose
+added fields have defaults.
 """
 
 from __future__ import annotations
@@ -54,35 +56,7 @@ def load_config(name: str) -> dict:
 
 
 def sizes(conf: dict) -> Sizes:
-    """The sizes of a configuration file's model."""
-    fam = conf["family"]
-    if fam == "granite_moe":
-        d, h = conf["hidden_size"], conf["num_attention_heads"]
-        disp = conf["moe_dispatch"]
-        return Sizes(
-            family=fam, name=conf["name"],
-            n_layers=conf["num_hidden_layers"], d_model=d,
-            vocab=conf["vocab_size"], token_ids=conf["vocab_size"],
-            tie=conf["tie_word_embeddings"], eps=conf["rms_norm_eps"],
-            n_heads=h, n_kv=conf["num_key_value_heads"], head_dim=d // h,
-            rope_theta=float(conf["rope_theta"]),
-            attn_scale=conf["attention_multiplier"],
-            n_experts=conf["num_local_experts"],
-            top_k=conf["num_experts_per_tok"],
-            d_expert=conf["intermediate_size"],
-            capacity_factor=disp["capacity_factor"],
-            min_capacity=disp["min_capacity"],
-            dispatch_chunk=disp["dispatch_chunk"])
-    if fam == "mamba2":
-        lay = conf["mamba2_layer_defaults"]
-        d, mult = conf["d_model"], conf["pad_vocab_size_multiple"]
-        di = lay["expand"] * d
-        return Sizes(
-            family=fam, name=conf["name"], n_layers=conf["n_layer"],
-            d_model=d, vocab=-(-conf["vocab_size"] // mult) * mult,
-            token_ids=conf["vocab_size"], tie=conf["tie_embeddings"],
-            eps=conf["assumed"]["rms_norm_eps"], d_inner=di,
-            m_heads=di // lay["headdim"], m_head_dim=lay["headdim"],
-            d_state=lay["d_state"], n_groups=lay["ngroups"],
-            d_conv=lay["d_conv"], chunk=lay["chunk_size"])
-    raise ValueError(f"unknown family {fam!r} in {conf.get('name')}")
+    """The sizes of a configuration file's model, as its family
+    (``families/<family>.py``) maps the published keys onto them."""
+    from .families import family
+    return family(conf["family"]).sizes(conf)

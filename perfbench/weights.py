@@ -1,8 +1,10 @@
 """Weights drawn from ``--seed``, on the device, one generator call a leaf.
 
 A leaf is one parameter of the model with its per-layer copies stacked
-on a leading layer axis (``layers.attn.wq`` is (L, d, H, hd)).  Each
-leaf is drawn whole by one call of a ``torch.Generator`` seeded from
+on a leading layer axis (``layers.attn.wq`` is (L, d, H, hd)), over every
+layer or over the layers its ``layers`` names (a dense layer before
+sparse ones); each family lists its own (``families/<family>.py``).
+Each leaf is drawn whole by one call of a ``torch.Generator`` seeded from
 (seed, leaf name), so that one leaf can be drawn again alone: the port
 is handed the draws (``port.build_model``), and the plain reference
 draws them again after the window.  Widths are the configuration's;
@@ -12,10 +14,11 @@ norms, Mamba-2's ``A_log`` and ``dt_bias`` from mamba_ssm's ranges).
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,51 +38,58 @@ class Leaf:
     init: str            # normal | ones | zeros | a_log | dt_bias
     fan_in: int = 1
     f32: bool = False    # kept in f32 whatever the served dtype
+    # a per-layer leaf's layers, in order, one a row of its leading axis;
+    # None: every layer
+    layers: Optional[Tuple[int, ...]] = None
+
+    @property
+    def per_layer(self) -> bool:
+        return self.name.startswith("layers.")
+
+    def layer_ids(self, n_layers: int) -> Tuple[int, ...]:
+        """The layers a per-layer leaf covers, by global index."""
+        return tuple(range(n_layers)) if self.layers is None \
+            else self.layers
 
 
-def leaves(s: Sizes) -> List[Leaf]:
-    """Every leaf of the model of ``s``, in a fixed order."""
-    L, d = s.n_layers, s.d_model
+def outer_leaves(s: Sizes) -> List[Leaf]:
+    """The leaves outside the layers: the embedding, the final norm and
+    an untied head, the first of every family's leaves."""
+    d = s.d_model
     out = [Leaf("embed", (s.vocab, d), "normal", d),
            Leaf("final_norm", (d,), "ones")]
     if not s.tie:
         out.append(Leaf("head", (d, s.vocab), "normal", d))
-    out.append(Leaf("layers.ln1", (L, d), "ones"))
-    if s.family == "granite_moe":
-        h, kv, hd, e, f = (s.n_heads, s.n_kv, s.head_dim, s.n_experts,
-                           s.d_expert)
-        out += [Leaf("layers.attn.wq", (L, d, h, hd), "normal", d),
-                Leaf("layers.attn.wk", (L, d, kv, hd), "normal", d),
-                Leaf("layers.attn.wv", (L, d, kv, hd), "normal", d),
-                Leaf("layers.attn.wo", (L, h, hd, d), "normal", h * hd),
-                Leaf("layers.ln2", (L, d), "ones"),
-                Leaf("layers.moe.router", (L, d, e), "normal", d, True),
-                Leaf("layers.moe.w_gate", (L, e, d, f), "normal", d),
-                Leaf("layers.moe.w_up", (L, e, d, f), "normal", d),
-                Leaf("layers.moe.w_down", (L, e, f, d), "normal", f)]
-    elif s.family == "mamba2":
-        di, nh, gn, k = s.d_inner, s.m_heads, s.n_groups * s.d_state, \
-            s.d_conv
-        m = "layers.mamba."
-        out += [Leaf(m + "w_z", (L, d, di), "normal", d),
-                Leaf(m + "w_x", (L, d, di), "normal", d),
-                Leaf(m + "w_B", (L, d, gn), "normal", d),
-                Leaf(m + "w_C", (L, d, gn), "normal", d),
-                Leaf(m + "w_dt", (L, d, nh), "normal", d),
-                Leaf(m + "conv_x", (L, k, di), "normal", k),
-                Leaf(m + "conv_B", (L, k, gn), "normal", k),
-                Leaf(m + "conv_C", (L, k, gn), "normal", k),
-                Leaf(m + "conv_bx", (L, di), "zeros"),
-                Leaf(m + "conv_bB", (L, gn), "zeros"),
-                Leaf(m + "conv_bC", (L, gn), "zeros"),
-                Leaf(m + "A_log", (L, nh), "a_log", 1, True),
-                Leaf(m + "D", (L, nh), "ones", 1, True),
-                Leaf(m + "dt_bias", (L, nh), "dt_bias", 1, True),
-                Leaf(m + "norm", (L, di), "ones"),
-                Leaf(m + "out_proj", (L, di, d), "normal", di)]
-    else:
-        raise ValueError(s.family)
     return out
+
+
+def _fits(lf: Leaf, n_layers: int) -> bool:
+    """A per-layer leaf's rows are its layers, ascending and each once;
+    a leaf outside the layers names none."""
+    if not lf.per_layer:
+        return lf.layers is None
+    ids = list(lf.layer_ids(n_layers))
+    return 0 < len(ids) == lf.shape[0] and ids == sorted(set(ids)) \
+        and 0 <= ids[0] and ids[-1] < n_layers
+
+
+def leaves(s: Sizes) -> List[Leaf]:
+    """Every leaf of the model of ``s``, in its family's fixed order."""
+    from .families import family
+    out = family(s.family).leaves(s)
+    for lf in out:
+        if not _fits(lf, s.n_layers):
+            raise ValueError(f"leaf {lf.name} {lf.shape} of {s.name}:"
+                             f" layers {lf.layers} of {s.n_layers}")
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def layer_slots(s: Sizes) -> Dict[str, Dict[int, int]]:
+    """Each per-layer leaf's row of its leading axis for each layer it
+    covers: ``layer_slots(s)[name][i]`` holds layer ``i``."""
+    return {lf.name: {i: j for j, i in enumerate(
+        lf.layer_ids(s.n_layers))} for lf in leaves(s) if lf.per_layer}
 
 
 def draw(leaf: Leaf, seed: int, device, dtype: torch.dtype) -> torch.Tensor:

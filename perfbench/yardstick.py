@@ -6,13 +6,18 @@ Model FLOPs count the products the model needs once, never a
 recomputation: 2 per multiply-add of every projection a token passes
 through (the experts at ``top_k``, the embedding lookup none), causal
 attention's QK^T and PV over the pairs (i >= j), and Mamba-2's SSD
-terms at its chunk length, the intra-chunk ones over causal pairs.  A
-training step is three times its forward.
+terms at its chunk length, the intra-chunk ones over causal pairs: each
+family gives its layer ``i``'s terms (``families/<family>.py``), and a
+forward pass sums them over the layers.  A training step is three times
+its forward.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
+
+from .families import family
 
 # NVIDIA H100 SXM, data sheet, dense: FLOP/s and HBM bytes/s.
 PEAK = {"bf16": 989e12, "f32": 67e12, "hbm": 3.35e12}
@@ -23,16 +28,19 @@ def compute_peak(mix: dict) -> float:
     return PEAK["bf16"] if mix["param_dtype"] == "bfloat16" else PEAK["f32"]
 
 
+def _alike(s, term) -> int:
+    """``term(i)``, the same for every layer ``i`` of ``s``."""
+    got = {term(i) for i in range(s.n_layers)}
+    if len(got) != 1:
+        raise ValueError(f"the layers of {s.name} differ: {sorted(got)}")
+    return got.pop()
+
+
 def proj_params(s) -> int:
-    """Weights a token multiplies by in one layer (experts at top_k)."""
-    d = s.d_model
-    if s.family == "granite_moe":
-        attn = d * s.n_heads * s.head_dim * 2 + 2 * d * s.n_kv * s.head_dim
-        return attn + d * s.n_experts + s.top_k * 3 * d * s.d_expert
-    if s.family == "mamba2":
-        gn = s.n_groups * s.d_state
-        return d * (2 * s.d_inner + 2 * gn + s.m_heads) + s.d_inner * d
-    raise ValueError(s.family)
+    """Weights a token multiplies by in one layer (experts at top_k), of
+    a model whose layers are all alike."""
+    fam = family(s.family)
+    return _alike(s, lambda i: fam.proj_params(s, i))
 
 
 def causal_pairs(n: int) -> int:
@@ -41,24 +49,19 @@ def causal_pairs(n: int) -> int:
 
 def mixer_flops(s, batch: int, n: int) -> int:
     """Forward FLOPs of one layer's sequence mixing beyond its
-    projections, over ``batch`` sequences of ``n``."""
-    if s.family == "granite_moe":      # QK^T and PV, causal
-        return 4 * batch * s.n_heads * s.head_dim * causal_pairs(n)
-    if s.family == "mamba2":
-        q, h, p, N = s.chunk, s.m_heads, s.m_head_dim, s.d_state
-        full, rest = divmod(n, q)
-        pairs = full * causal_pairs(q) + causal_pairs(rest)
-        intra = s.n_groups * N * pairs + h * p * pairs   # C.B^T, (L*CB).X
-        states = 2 * h * p * N * n                       # B^T X, C.state
-        return 2 * batch * (intra + states)
-    raise ValueError(s.family)
+    projections, over ``batch`` sequences of ``n``, of a model whose
+    layers are all alike."""
+    fam = family(s.family)
+    return _alike(s, lambda i: fam.mixer_flops(s, i, batch, n))
 
 
 def forward_flops(s, batch: int, n: int, head_rows: int) -> int:
-    """A forward pass over (batch, n) tokens, the head on ``head_rows``
-    rows."""
-    return (s.n_layers * (2 * proj_params(s) * batch * n
-                          + mixer_flops(s, batch, n))
+    """A forward pass over (batch, n) tokens, each layer's projections
+    and sequence mixing, the head on ``head_rows`` rows."""
+    fam = family(s.family)
+    return (sum(2 * fam.proj_params(s, i) * batch * n
+                + fam.mixer_flops(s, i, batch, n)
+                for i in range(s.n_layers))
             + 2 * s.d_model * s.vocab * head_rows)
 
 
@@ -85,19 +88,19 @@ def flash_bound_s(batch: int, heads: int, kv_heads: int, n: int, d: int,
     return max(flops / peak, nbytes / PEAK["hbm"])
 
 
-def leaf_bytes(s, layer: bool, elem_bytes: int = 4
+def leaf_bytes(s, layer: Optional[int], elem_bytes: int = 4
                ) -> List[Tuple[str, int]]:
-    """(leaf, bytes) of one layer's gradients (``layer``) or of the
-    leaves outside the layers, in the order the early-bird sync takes
-    them: the leaf names sorted as the JAX tree flattens."""
-    from .weights import leaves
+    """(leaf, bytes) of layer ``layer``'s gradients, or of the leaves
+    outside the layers (``None``), in the order the early-bird sync
+    takes them: the leaf names sorted as the JAX tree flattens."""
+    from .weights import layer_slots, leaves
+    slots = layer_slots(s)
     out = []
     for lf in leaves(s):
-        if lf.name.startswith("layers.") == layer:
-            n = 1
-            for x in lf.shape[int(layer):]:
-                n *= x
-            out.append((lf.name, n * elem_bytes))
+        if lf.per_layer and layer in slots[lf.name]:
+            out.append((lf.name, math.prod(lf.shape[1:]) * elem_bytes))
+        elif not lf.per_layer and layer is None:
+            out.append((lf.name, math.prod(lf.shape) * elem_bytes))
     return sorted(out, key=lambda t: tuple(t[0].split(".")))
 
 
@@ -126,7 +129,7 @@ def step_sync(s, aggr_bytes: int, elem_bytes: int = 4
     def plan(layer):
         return buckets([n for _, n in leaf_bytes(s, layer, elem_bytes)],
                        aggr_bytes)
-    groups = [plan(True)] * s.n_layers + [plan(False)]
+    groups = [plan(i) for i in range(s.n_layers)] + [plan(None)]
     packed = [sum(b) for g in groups for b in g if len(b) > 1]
     return sum(len(g) for g in groups) + 1, len(packed), sum(packed)
 
